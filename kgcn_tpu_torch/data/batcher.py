@@ -1,0 +1,175 @@
+"""Mini-batch assembly: Dataset → fixed-shape batches of torch tensors.
+
+The counterpart of ``kgcn_tpu/data/batcher.py`` (NumPy assembly path only):
+every batch of a dataset has the same shapes (node padding ``B*N``,
+lane-rounded edge budget), and the last partial batch is padded with empty
+graphs and reported through ``pad_mask`` (the reference's ``mask`` vector,
+kgcn/feed.py:148-151).  Batches are built on the CPU; ``Batch.to(device)``
+moves them.  The JAX package's native C++ packer and its ELL / tiled /
+stream attachments come with the sparse backends (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from kgcn_tpu_torch.data.dataset import Dataset, DatasetInfo
+from kgcn_tpu_torch.graph.batch import GraphBatch, batch_graphs, pad_edge_budget
+
+
+def as_tensor(x: np.ndarray) -> torch.Tensor:
+    """numpy → torch with JAX's default 32-bit types (float64 → float32,
+    int64 → int32), so both packages see the same dtypes."""
+    x = np.asarray(x)
+    if x.dtype == np.float64:
+        x = x.astype(np.float32)
+    elif x.dtype == np.int64:
+        x = x.astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@dataclasses.dataclass
+class Batch:
+    """One batch: the graph plus aligned task tensors."""
+
+    graph: GraphBatch
+    labels: Optional[torch.Tensor] = None
+    mask_label: Optional[torch.Tensor] = None
+    node_label: Optional[torch.Tensor] = None
+    mask_node_label: Optional[torch.Tensor] = None
+    pad_mask: Optional[torch.Tensor] = None  # [B] 1.0 = real example
+
+    def to(self, device) -> "Batch":
+        moved = {
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
+        }
+        return dataclasses.replace(self, **moved)
+
+
+def epoch_permutation(n: int, seed: int, epoch: Optional[int] = None,
+                      rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """The permutation law of ``kgcn_tpu``: with ``epoch`` the order is a pure
+    function of (seed, epoch); with only ``rng`` it advances the caller's
+    stream; with neither it is the identity (shuffle off)."""
+    idx = np.arange(n)
+    if epoch is not None:
+        np.random.RandomState((seed * 100003 + epoch) % (2**31)).shuffle(idx)
+    elif rng is not None:
+        rng.shuffle(idx)
+    return idx
+
+
+class Batcher:
+    """Yields fixed-shape ``Batch``es from a host Dataset."""
+
+    def __init__(self, ds: Dataset, info: DatasetInfo, batch_size: int, *,
+                 edge_budget: Optional[int] = None, seed: int = 0):
+        self.ds = ds
+        self.info = info
+        self.batch_size = int(batch_size)
+        self.max_nodes = int(ds.max_node_num or info.graph_node_num)
+        # beyond one 128-row tile, round the node padding up to a multiple
+        # of 128, as kgcn_tpu does (its batches and ours keep one shape)
+        if self.max_nodes > 128:
+            self.max_nodes = ((self.max_nodes + 127) // 128) * 128
+        per_graph = info.edge_budget_per_graph or self._scan_edge_budget()
+        self.edge_budget = edge_budget or pad_edge_budget(per_graph * self.batch_size)
+        self.seed = int(seed)
+        self._rng = np.random.RandomState(seed)
+
+    def _scan_edge_budget(self) -> int:
+        if self.ds.adjs is None:
+            return 1
+        return max(max((len(ch[0]) for ch in gs), default=1) for gs in self.ds.adjs)
+
+    def batch_valid_counts(self):
+        """Per-batch valid-example counts for a shuffle=False iteration."""
+        n, bs = self.ds.num, self.batch_size
+        return [min(bs, n - s) for s in range(0, n, bs)]
+
+    def epoch_indices(self, shuffle: bool = True,
+                      epoch: Optional[int] = None) -> np.ndarray:
+        return epoch_permutation(
+            self.ds.num, self.seed, epoch if shuffle else None,
+            rng=self._rng if shuffle else None,
+        )
+
+    def make_batch(self, idx: np.ndarray) -> Batch:
+        """Assemble one batch from dataset indices (host-side numpy)."""
+        ds = self.ds
+        B = self.batch_size
+        idx = np.asarray(idx)
+        G = len(idx)
+        if G > B:
+            raise ValueError(f"{G} graphs do not fit a batch of {B}")
+        self.last_valid = G
+
+        if ds.adjs is not None:
+            adjs = [
+                [
+                    (np.stack([r, c], axis=1), v, (self.max_nodes, self.max_nodes))
+                    for (r, c, v) in ds.adjs[i]
+                ]
+                for i in idx
+            ]
+        else:
+            adjs = [[(np.zeros((0, 2), np.int32), np.zeros(0, np.float32),
+                      (self.max_nodes, self.max_nodes))]] * G
+        graph = batch_graphs(
+            adjs,
+            ds.features[idx] if ds.features is not None else None,
+            self.max_nodes,
+            n_nodes=(
+                ds.enabled_node_nums[idx] if ds.enabled_node_nums is not None else None
+            ),
+            edge_budget=self.edge_budget,
+            n_graph=B,
+        )
+
+        def pad_rows(x):
+            if x is None:
+                return None
+            x = np.asarray(x)
+            if G < B:
+                x = np.concatenate([x, np.zeros((B - G, *x.shape[1:]), x.dtype)])
+            return as_tensor(x)
+
+        def take(x, per_node=False):
+            if x is None:
+                return None
+            x = x[idx]
+            return pad_rows(self._pad_node_axis(x) if per_node else x)
+
+        pad_mask = np.zeros((B,), np.float32)
+        pad_mask[:G] = 1.0
+        return Batch(
+            graph=graph,
+            labels=take(ds.labels),
+            mask_label=take(ds.mask_label),
+            node_label=take(ds.node_label, per_node=True),
+            mask_node_label=take(ds.mask_node_label, per_node=True),
+            pad_mask=torch.from_numpy(pad_mask),
+        )
+
+    def _pad_node_axis(self, x):
+        """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the
+        dataset's node count diverges from the batch padding once it is
+        rounded above 128)."""
+        x = np.asarray(x)
+        pad = self.max_nodes - x.shape[1]
+        if pad <= 0:
+            return x
+        widths = [(0, 0)] * x.ndim
+        widths[1] = (0, pad)
+        return np.pad(x, widths)
+
+    def batches(self, shuffle: bool = True,
+                epoch: Optional[int] = None) -> Iterator[Batch]:
+        idx = self.epoch_indices(shuffle, epoch=epoch)
+        for start in range(0, len(idx), self.batch_size):
+            yield self.make_batch(idx[start : start + self.batch_size])

@@ -1,0 +1,214 @@
+"""Statically-shaped batched graph container (torch tensors).
+
+The counterpart of ``kgcn_tpu/graph/batch.py``: a batch of ``n_graph``
+graphs, each padded to ``max_nodes`` nodes, with the same fields and padding
+rules —
+
+* node features are a flat ``[V, F]`` tensor, ``V = n_graph * max_nodes``;
+  node ``v`` belongs to graph ``v // max_nodes``;
+* edges are per-channel COO lists ``[C, E]`` of global node indices with
+  the valid edges packed first and counted in ``n_edge``; padding edges
+  point at node 0 with weight 0;
+* ``dense_adj`` optionally caches the ``[C, B, N, N]`` dense adjacency that
+  the fused graph convolution (``ops/gconv.py``) consumes.
+
+The JAX container's ``node_ids`` (node-embedding mode) and its
+sparse-backend attachments (``ell_*``, ``tiled_adj``, ``stream_adj``,
+``edge_valid``) come with the slices that use them (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+LANE = 128  # edge budgets are rounded up to a multiple (as in kgcn_tpu)
+
+
+def pad_edge_budget(n: int, multiple: int = LANE) -> int:
+    """Round an edge count up to a multiple (min one multiple)."""
+    n = max(int(n), 1)
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """Fields as in ``kgcn_tpu.graph.batch.GraphBatch``:
+
+    senders, receivers: ``[C, E]`` int32 global node index per edge.
+    edge_weights: ``[C, E]`` float32; 0 marks padding edges.
+    n_edge: ``[C]`` int32 count of valid (packed-first) edges.
+    n_node: ``[B]`` int32 true node count per graph.
+    node_mask: ``[V]`` float32, 1 for real nodes and 0 for padding.
+    nodes: ``[V, F]`` float32 features.
+    dense_adj: cached ``[C, B, N, N]`` adjacency, or None.
+    n_graph, max_nodes: Python ints.
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    edge_weights: torch.Tensor
+    n_edge: torch.Tensor
+    n_node: torch.Tensor
+    node_mask: torch.Tensor
+    nodes: Optional[torch.Tensor] = None
+    dense_adj: Optional[torch.Tensor] = None
+    n_graph: int = 1
+    max_nodes: int = 1
+
+    @property
+    def total_nodes(self) -> int:
+        return self.n_graph * self.max_nodes
+
+    def replace(self, **changes) -> "GraphBatch":
+        return dataclasses.replace(self, **changes)
+
+    def mask_batched(self) -> torch.Tensor:
+        """``[B, N]`` view of the node mask."""
+        return self.node_mask.reshape(self.n_graph, self.max_nodes)
+
+    def dense_adjacency(self, dtype=None) -> torch.Tensor:
+        """Materialise the ``[C, B, N, N]`` dense adjacency from the COO
+        lists: receiver row, sender column, ``out[r, s] += w``.  Padding
+        edges carry weight 0, so they add nothing."""
+        C, E = self.senders.shape
+        B, N = self.n_graph, self.max_nodes
+        dtype = dtype or self.edge_weights.dtype
+        r = self.receivers.long()
+        s = self.senders.long()
+        flat = (r // N) * (N * N) + (r % N) * N + (s % N)
+        chan = torch.arange(C, device=flat.device)[:, None].expand(C, E)
+        out = torch.zeros((C, B * N * N), dtype=dtype, device=flat.device)
+        out.index_put_((chan, flat), self.edge_weights.to(dtype), accumulate=True)
+        return out.reshape(C, B, N, N)
+
+    def with_dense_adj(self) -> "GraphBatch":
+        """A copy carrying the dense adjacency (no-op if already cached);
+        models call it once at the top of their forward."""
+        if self.dense_adj is not None:
+            return self
+        return self.replace(dense_adj=self.dense_adjacency())
+
+    def to(self, device) -> "GraphBatch":
+        moved = {
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+        return self.replace(**moved)
+
+
+def _coo_normalize(mat) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Accept scipy sparse / (indices, values, shape) tuple / dense ndarray and
+    return (row, col, values) numpy arrays."""
+    if hasattr(mat, "tocoo"):  # scipy sparse
+        coo = mat.tocoo()
+        return (
+            coo.row.astype(np.int32),
+            coo.col.astype(np.int32),
+            coo.data.astype(np.float32),
+        )
+    if isinstance(mat, tuple) and len(mat) == 3:  # kGCN jbl COO tuple
+        indices, values, _shape = mat
+        indices = np.asarray(indices)
+        return (
+            indices[:, 0].astype(np.int32),
+            indices[:, 1].astype(np.int32),
+            np.asarray(values, dtype=np.float32),
+        )
+    dense = np.asarray(mat)
+    row, col = np.nonzero(dense)
+    return (
+        row.astype(np.int32),
+        col.astype(np.int32),
+        dense[row, col].astype(np.float32),
+    )
+
+
+def batch_graphs(
+    adjs: Sequence[Sequence],
+    features: Optional[np.ndarray],
+    max_nodes: int,
+    *,
+    n_nodes: Optional[Sequence[int]] = None,
+    edge_budget: Optional[int] = None,
+    n_graph: Optional[int] = None,
+) -> GraphBatch:
+    """Assemble a ``GraphBatch`` (CPU tensors) from per-graph adjacency
+    channels; arguments as ``kgcn_tpu.graph.batch.batch_graphs``.
+
+    adjs: ``adjs[g][c]`` is graph g's channel-c adjacency (scipy sparse, COO
+        tuple, or dense ndarray).
+    features: ``[G, N, F]`` padded node features or None.
+    n_nodes: true node counts; inferred from feature non-zero rows if omitted.
+    edge_budget: static per-channel edge capacity; lane-rounded from this
+        batch if omitted.
+    n_graph: pad the batch itself to this many graphs (last partial batch).
+    """
+    G = len(adjs)
+    B = n_graph or G
+    if B < G:
+        raise ValueError(f"n_graph {B} < {G} graphs")
+    C = len(adjs[0]) if G else 1
+    N = int(max_nodes)
+
+    coo = [[_coo_normalize(adjs[g][c]) for g in range(G)] for c in range(C)]
+    need = max((sum(len(r) for (r, _, _) in coo[c]) for c in range(C)), default=1)
+    E = edge_budget or pad_edge_budget(need)
+    if need > E:
+        raise ValueError(f"edge budget {E} < required {need}")
+
+    senders = np.zeros((C, E), dtype=np.int32)
+    receivers = np.zeros((C, E), dtype=np.int32)
+    weights = np.zeros((C, E), dtype=np.float32)
+    n_edge = np.zeros((C,), dtype=np.int32)
+    for c in range(C):
+        off = 0
+        for g in range(G):
+            row, col, val = coo[c][g]
+            k = len(row)
+            if k and (row.max() >= N or col.max() >= N):
+                # offsetting out-of-range indices would bleed this graph's
+                # edges into graph g+1's block
+                raise ValueError(
+                    f"graph {g} channel {c} has node index "
+                    f"{int(max(row.max(), col.max()))} >= max_nodes {N}"
+                )
+            receivers[c, off : off + k] = row + g * N
+            senders[c, off : off + k] = col + g * N
+            weights[c, off : off + k] = val
+            off += k
+        n_edge[c] = off
+
+    if n_nodes is not None:
+        nn = np.asarray(n_nodes, dtype=np.int32)
+    elif features is not None:
+        nn = (np.abs(features).sum(axis=-1) > 0).sum(axis=-1).astype(np.int32)
+        nn = np.maximum(nn, 1)
+    else:
+        nn = np.full((G,), N, dtype=np.int32)
+    nn_pad = np.zeros((B,), dtype=np.int32)
+    nn_pad[:G] = nn[:G]
+
+    mask = (np.arange(N)[None, :] < nn_pad[:, None]).astype(np.float32).reshape(-1)
+
+    nodes = None
+    if features is not None:
+        F = features.shape[-1]
+        nodes_np = np.zeros((B, N, F), dtype=np.float32)
+        nodes_np[:G, : features.shape[1]] = features[:, :N]
+        nodes = torch.from_numpy(nodes_np.reshape(B * N, F))
+
+    return GraphBatch(
+        senders=torch.from_numpy(senders),
+        receivers=torch.from_numpy(receivers),
+        edge_weights=torch.from_numpy(weights),
+        n_edge=torch.from_numpy(n_edge),
+        n_node=torch.from_numpy(nn_pad),
+        node_mask=torch.from_numpy(mask),
+        nodes=nodes,
+        n_graph=B,
+        max_nodes=N,
+    )
