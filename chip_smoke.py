@@ -7,24 +7,49 @@ Phases, each announced on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. environment — the card (nvidia-smi name and power limit), torch, CUDA;
-2. build — every CUDA kernel of the port, from kgcn_tpu_torch/ops/csrc,
-   one nvcc per source, in parallel;
-3. kernel check — each kernel against its plain PyTorch version on the card
-   at the serving path's shapes and two more (float32, rtol = atol = 1e-4:
-   the sums run over ≤ 256 terms in another order), with its device time
+2. build — every CUDA kernel of the port (gconv.cu, tiled.cu), from
+   kgcn_tpu_torch/ops/csrc, one nvcc per source, in parallel;
+3. kernel check: gconv — against its plain PyTorch version on the card at
+   the serving path's shapes and two more (float32, rtol = atol = 1e-4: the
+   sums run over ≤ 256 terms in another order), with its device time
    (torch.profiler), the plain version's, one library call's, and the least
    time the card could take (bytes at 3.35 TB/s vs FLOP at 67 TFLOP/s FP32);
-4. serve — the port's HTTP server (cli/serve.build_server) answers /predict
+4. kernel check: tiled SpMM (forward and on the transpose structure, the
+   backward's dx) and SDDMM — against their plain versions on the card, with
+   the float32 and the bf16 payload, rtol = atol = 1e-4 (both versions apply
+   the same bf16 roundings; only the order of the f32 sums differs), on the
+   solubility training batch (F 81 and 50), the GAT batch of synthetic.jbl
+   (F 50), a rectangular case, one with edge-free receiver tiles, a
+   budget-padded, a locality-relabelled and a wide-tile case (sums in the
+   output), and a uniform random graph of 100 000 nodes and 1 000 000
+   edges at F 128 tiled by choose_tiling; device times as in phase 3, the
+   library calls being torch.sparse.mm and torch.sparse.sampled_addmm;
+5. train — ``python -m kgcn_tpu_torch.cli.main train`` in this process:
+   the tiled solubility GCN and the tiled GAT for 2 epochs (finite, falling
+   training cost, the [SAVE] and [restore] lines, every file written, and
+   kernel launches = 6 SpMM per GCN step, 6 SpMM + 3 SDDMM per GAT step,
+   3 SpMM per evaluated batch), the dense solubility GCN for 1 epoch (3 gconv
+   per step and per evaluated batch), and the solubility GCN with dropout 0
+   and the f32 payload on the GPU and on the CPU from one seed (per-epoch
+   training costs within 1e-3 relative); then one epoch of each timed step
+   by step (host batch assembly and tiled-structure building, step wall
+   time, device busy time and idle share);
+6. serve — the port's HTTP server (cli/serve.build_server) answers /predict
    requests of 1, 8, 32 and 100 real molecules of
    examples/solubility/solubility_cls.jbl with a seeded GCN at the config's
    full width (example_config/solubility_cls.json: hidden 50, batch 32,
    47 nodes, 81 features); answers are checked (rows sum to 1, finite,
    equal to the same model run on the CPU to 1e-4) and the kernel launch
    counts read back;
-5. summary — one JSON line of kernel numbers, then the result line.
+7. summary — one JSON line of kernel numbers, then the result line.
 
+Kernel launch counts are set to 0 just before each run of a path (phases 5
+and 6) and read just after; the summary's ``launches`` add up the tiled GCN,
+tiled GAT and dense GCN training runs and the serve run.
 Exits non-zero without a CUDA device and outside a checkout of the repo.
 """
+import contextlib
+import io
 import json
 import math
 import os
@@ -38,10 +63,14 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "example_config", "solubility_cls.json")
+GAT_CONFIG = os.path.join(ROOT, "example_config", "gat.json")
 DATASET = os.path.join(ROOT, "examples", "solubility", "solubility_cls.jbl")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, FP32 outside tensor cores
 TOL = 1e-4
+TRAJECTORY_RTOL = 1e-3      # GPU vs CPU training cost, tests/test_reference_parity.py:434-441
+DEVICE = "cuda"
+SCALE = (100_000, 1_000_000, 128)  # uniform random graph: nodes, edges, F
 
 # (C, B, N, Fin, Fout): the serving path's three GraphConv calls per batch,
 # a misaligned toy (tests/test_kernels.py:89), a reaction-scale batch
@@ -100,14 +129,30 @@ def device_ms(fn, iters):
     return total_us / iters / 1e3
 
 
-def gconv_bound(C, B, N, Fin, Fout):
-    """(bound_ms, bound_by): every input read once and the output written
-    once, against X W_c computed once per graph plus the aggregation."""
-    nbytes = 4 * (C * B * N * N + B * N * Fin + C * Fin * Fout + C * Fout + B * N * Fout)
-    flops = 2 * C * B * N * (Fin * Fout + N * Fout) + 2 * C * B * N * Fout
+def library_ms(fn, iters):
+    """``device_ms`` of a PyTorch library call used as a yardstick; None,
+    with the reason printed, where the library refuses the inputs."""
+    try:
+        return device_ms(fn, iters)
+    except RuntimeError as e:
+        say(f"  library call refused: {str(e).splitlines()[0]}")
+        return None
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes at the HBM rate and FLOP at
+    the FP32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gconv_bound(C, B, N, Fin, Fout):
+    """Every input read once and the output written once, against X W_c
+    computed once per graph plus the aggregation."""
+    nbytes = 4 * (C * B * N * N + B * N * Fin + C * Fin * Fout + C * Fout + B * N * Fout)
+    flops = 2 * C * B * N * (Fin * Fout + N * Fout) + 2 * C * B * N * Fout
+    return bound(nbytes, flops)
 
 
 def phase_environment():
@@ -139,21 +184,21 @@ def phase_build():
     say(f"built {sorted(paths)} in {time.time() - t0:.2f} s")
 
 
-def phase_kernel_check():
+def phase_gconv_check():
     import torch
 
     from kgcn_tpu_torch.ops.gconv import gconv, gconv_reference
 
     phase(3, "kernel check: gconv (kgcn_tpu_torch/ops/csrc/gconv.cu)")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for label, (C, B, N, Fin, Fout) in GCONV_SHAPES:
         # operands at the model's scales: a normalised adjacency (rows sum
         # ~1), features in [0, 1), Glorot-sized weights
-        adj = torch.rand((C, B, N, N), device="cuda", generator=gen) * (2.0 / N)
-        x = torch.rand((B, N, Fin), device="cuda", generator=gen)
-        w = torch.randn((C, Fin, Fout), device="cuda", generator=gen) / math.sqrt(Fin)
-        b = torch.randn((C, Fout), device="cuda", generator=gen) * 0.1
+        adj = torch.rand((C, B, N, N), device=DEVICE, generator=gen) * (2.0 / N)
+        x = torch.rand((B, N, Fin), device=DEVICE, generator=gen)
+        w = torch.randn((C, Fin, Fout), device=DEVICE, generator=gen) / math.sqrt(Fin)
+        b = torch.randn((C, Fout), device=DEVICE, generator=gen) * 0.1
         got = gconv(adj, x, w, b)
         want = gconv_reference(adj, x, w, b)
         torch.cuda.synchronize()
@@ -183,6 +228,448 @@ def phase_kernel_check():
             f"library_ms={library_ms:.6f} bound_us={bound_ms * 1e3:.3f} "
             f"({bound_by}); host-loop ms per gconv call={host_ms:.5f}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the tiled kernels
+
+
+def _load_config(path, **over):
+    from kgcn_tpu_torch.runtime.config import load_config
+
+    cfg = load_config(path, over)
+    cfg["dataset"] = os.path.join(ROOT, cfg["dataset"])
+    return cfg
+
+
+def _path_batch(config_path, compute_dtype="bfloat16"):
+    """The first training batch of a shipped config on the tiled backend:
+    (TiledCOO of channel 0, its edge weights)."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.runtime.backend import Backend
+
+    cfg = _load_config(config_path)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    bs = int(cfg["batch_size"])
+    g = Batcher(ds, info, bs, backend=Backend("tiled", compute_dtype)).make_batch(
+        np.arange(bs)).graph
+    return g.tiled_adj[0], g.edge_weights[0]
+
+
+def tiled_cases():
+    """(label, TiledCOO on the CPU, weights [E], widths, on the main path)."""
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    def uniform(V, E, seed, vs=None):
+        rng = np.random.RandomState(seed)
+        return (rng.randint(0, vs or V, E), rng.randint(0, V, E),
+                (rng.random_sample(E) + 0.1).astype(np.float32))
+
+    cases = []
+    te, w = _path_batch(CONFIG)
+    cases.append(("solubility batch", te, w, (81, 50), True))
+    te, w = _path_batch(GAT_CONFIG)
+    cases.append(("GAT batch", te, w, (50,), True))
+    s, r, w = uniform(3000, 30000, seed=1, vs=5000)
+    cases.append(("rectangular 5000->3000", tt.build_tiled(
+        s, r, 3000, weights=w, num_sender_nodes=5000, ts=256, tr=128, chunk=128),
+        torch.from_numpy(w), (64,), False))
+    s, r, w = uniform(4000, 16000, seed=6)
+    r[r >= 900] = 3100 + r[r >= 900] % 900  # receiver tiles 4-11 get no edge
+    cases.append(("empty receiver tiles", tt.build_tiled(
+        s, r, 4000, weights=w, ts=256, tr=256, chunk=256),
+        torch.from_numpy(w), (48,), False))
+    s, r, w = uniform(2000, 12000, seed=2)
+    w[::5] = 0.0  # padding edges, dropped from the structure
+    need = tt.build_tiled(s, r, 2000, weights=w, ts=256, tr=256, chunk=512)
+    budget = 2 * max(need.meta.n_chunks, need.transpose.meta.n_chunks)
+    cases.append((f"budget-padded ({budget} chunks)", tt.build_tiled(
+        s, r, 2000, weights=w, ts=256, tr=256, chunk=512, chunk_budget=budget),
+        torch.from_numpy(w), (40,), False))
+    rng = np.random.RandomState(3)
+    V, E = 20000, 200000
+    s = np.minimum((rng.pareto(1.2, E) * 40).astype(np.int64), V - 1)  # hubs
+    r = rng.randint(0, V, E)
+    w = (rng.random_sample(E) + 0.1).astype(np.float32)
+    cases.append(("locality-relabelled", tt.build_tiled(
+        s, r, V, weights=w, ts=512, tr=512, chunk=512, locality=True),
+        torch.from_numpy(w), (64,), False))
+    s, r, w = uniform(6000, 60000, seed=4)  # 8 row slices per receiver tile
+    cases.append(("wide tiles (tr 2048)", tt.build_tiled(
+        s, r, 6000, weights=w, ts=2048, tr=2048, chunk=256),
+        torch.from_numpy(w), (96,), False))
+    V, E, F = SCALE
+    s, r, w = uniform(V, E, seed=5)
+    ts, tr, chunk = tt.choose_tiling(s, r, V, F)
+    cases.append((f"scale V={V} E={E}", tt.build_tiled(
+        s, r, V, weights=w, ts=ts, tr=tr, chunk=chunk),
+        torch.from_numpy(w), (F,), False))
+    return cases
+
+
+def _csr(te, weights):
+    """The structure's sparse matrix (receiver rows, sender columns) as CSR,
+    and its 0/1 pattern, built from the same slots the kernels walk."""
+    import torch
+
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    m = te.meta
+    valid, send, recv = tt._slot_rows(te)
+    w_ext = torch.cat([weights, weights.new_zeros(1)])
+    vals = w_ext[te.slot_src.reshape(-1).long()][valid]
+    idx = torch.stack([recv[valid], send[valid]])
+    shape = (m.num_receivers, m.num_senders)
+    mat = torch.sparse_coo_tensor(idx, vals, shape).coalesce().to_sparse_csr()
+    pat = torch.sparse_coo_tensor(idx, torch.ones_like(vals), shape).coalesce()
+    pat = torch.sparse_coo_tensor(pat.indices(), torch.ones_like(pat.values()),
+                                  shape).to_sparse_csr()
+    return mat, pat
+
+
+def tiled_bound(te, F):
+    """(bound_ms, bound_by) of either kernel on this structure's real edges:
+    the [num_senders, F] and [num_receivers, F] operands moved once (the
+    SpMM reads x and writes out, the SDDMM reads x and g), per edge its
+    sender, receiver and edge index and its weight (SpMM) or its output
+    (SDDMM), 2·F FLOP per edge.  Padding slots and filler chunks are not
+    work the function needs."""
+    m = te.meta
+    n_edges = int((te.slot_src < m.num_edges).sum())
+    nbytes = 4 * ((m.num_senders + m.num_receivers) * F + 4 * n_edges)
+    return bound(nbytes, 2 * n_edges * F)
+
+
+def _check(what, got, want):
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{what}: max |kernel - plain| = {err}")
+    return err
+
+
+def phase_tiled_check():
+    import torch
+
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    phase(4, "kernel check: tiled SpMM and SDDMM (kgcn_tpu_torch/ops/csrc/tiled.cu)")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.time()
+    cases = tiled_cases()
+    say(f"structures built on the host in {time.time() - t0:.2f} s")
+    rows = []
+    for label, te_cpu, w_cpu, widths, on_path in cases:
+        te, w = te_cpu.to(DEVICE), w_cpu.to(DEVICE, torch.float32)
+        m, mt = te.meta, te.transpose.meta
+        n_edges = int((te_cpu.slot_src < m.num_edges).sum())
+        say(f"tiled {label}: {m.num_senders} -> {m.num_receivers} nodes, "
+            f"{n_edges} edges of {m.num_edges}, (ts, tr, chunk) = "
+            f"{(m.ts, m.tr, m.chunk)}, chunks {m.n_chunks} (transpose "
+            f"{mt.n_chunks}), locality {te.node_perm is not None}")
+        mat, pat = _csr(te, w)
+        for F in widths:
+            x = torch.randn((m.num_senders, F), device=DEVICE, generator=gen)
+            g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
+            # The plain versions run on CPU copies of the same inputs: there
+            # index_add_ sums each row in slot order, as the kernel does.  On
+            # the card its atomics reorder the f32 sums, which moves hub rows
+            # of thousands of edges (the locality case) by up to ~2e-4.
+            xc, gc = x.cpu(), g.cpu()
+            errs = {}
+            for dt in ("float32", "bfloat16"):
+                bf16 = dt == "bfloat16"
+                errs[f"spmm {dt}"] = _check(
+                    f"tiled_spmm {label} F={F} {dt}", tt._spmm_launch(te, w, x, bf16),
+                    tt.tiled_spmm_reference(te_cpu, w_cpu, xc, dt).to(DEVICE))
+                errs[f"spmm^T {dt}"] = _check(
+                    f"tiled_spmm (transpose) {label} F={F} {dt}",
+                    tt._spmm_launch(te.transpose, w, g, bf16),
+                    tt.tiled_spmm_reference(te_cpu.transpose, w_cpu, gc, dt).to(DEVICE))
+                errs[f"sddmm {dt}"] = _check(
+                    f"tiled_sddmm {label} F={F} {dt}", tt._sddmm_launch(te, x, g, bf16),
+                    tt.tiled_sddmm_reference(te_cpu, xc, gc, dt).to(DEVICE))
+            lib_err = float((torch.sparse.mm(mat, x)
+                             - tt.tiled_spmm_reference(te, w, x, "float32")).abs().max())
+            iters = 10 if n_edges > 500_000 else 50
+            xt = x.t().contiguous()
+            t = dict(
+                spmm=device_ms(lambda: tt._spmm_launch(te, w, x, True), iters),
+                spmm_f32=device_ms(lambda: tt._spmm_launch(te, w, x, False), iters),
+                spmm_plain=device_ms(
+                    lambda: tt.tiled_spmm_reference(te, w, x, "bfloat16"), iters),
+                spmm_library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
+                sddmm=device_ms(lambda: tt._sddmm_launch(te, x, g, True), iters),
+                sddmm_f32=device_ms(lambda: tt._sddmm_launch(te, x, g, False), iters),
+                sddmm_plain=device_ms(
+                    lambda: tt.tiled_sddmm_reference(te, x, g, "bfloat16"), iters),
+                sddmm_library=library_ms(
+                    lambda: torch.sparse.sampled_addmm(pat, g, xt, beta=0.0), iters),
+            )
+            b, by = tiled_bound(te_cpu, F)
+            rows.append(dict(label=label, F=F, on_path=on_path,
+                             spmm_err=max(v for k, v in errs.items() if "spmm" in k),
+                             sddmm_err=max(v for k, v in errs.items() if "sddmm" in k),
+                             bound=b, bound_by=by, **t))
+            say(f"  F={F}: max |kernel - plain| "
+                + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (library spmm vs plain f32 {lib_err:.3g})")
+            say(f"  F={F} device ms (bf16 payload unless marked): spmm kernel "
+                f"{t['spmm']:.6f} (f32 {t['spmm_f32']:.6f}) plain {t['spmm_plain']:.6f} "
+                f"library {t['spmm_library']}; sddmm kernel "
+                f"{t['sddmm']:.6f} (f32 {t['sddmm_f32']:.6f}) plain "
+                f"{t['sddmm_plain']:.6f} library {t['sddmm_library']}; bound of "
+                f"either {b:.6f} ({by})")
+    _check_wrapper_gradients(cases)
+    return rows
+
+
+def _check_wrapper_gradients(cases):
+    """The public ``tiled_spmm`` (locality permutation in and out, the
+    autograd Function) on the card against the same call on the CPU: value,
+    dx and d(weights), bf16 payload."""
+    import torch
+
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    for label, te_cpu, w_cpu, widths, _ in cases:
+        if not label.startswith(("GAT batch", "locality")):
+            continue
+        F = widths[0]
+        gen = torch.Generator().manual_seed(1)
+        x0 = torch.randn((te_cpu.meta.num_senders, F), generator=gen)
+        cot = torch.randn((te_cpu.meta.num_receivers, F), generator=gen)
+        res = []
+        for dev, te in ((DEVICE, te_cpu.to(DEVICE)), ("cpu", te_cpu)):
+            w = w_cpu.to(dev, torch.float32).requires_grad_(True)
+            x = x0.to(dev).requires_grad_(True)
+            out = tt.tiled_spmm(te, w, x)
+            (out * cot.to(dev)).sum().backward()
+            res.append([t.detach().cpu() for t in (out, x.grad, w.grad)])
+        for name, a, b in zip(("value", "dx", "dw"), *res):
+            err = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=TOL, atol=TOL):
+                raise AssertionError(f"tiled_spmm {label} {name}: GPU vs CPU {err}")
+            say(f"tiled_spmm {label}: {name} GPU vs CPU max |diff| {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training through the CLI
+
+
+class _Tee(io.TextIOBase):
+    """stdout that is also kept, so the run's lines can be checked."""
+
+    def __init__(self, stream):
+        self.stream, self.buf = stream, io.StringIO()
+
+    def write(self, s):
+        self.stream.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _counts():
+    from kgcn_tpu_torch.ops import gconv as gconv_mod
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    return {"gconv": gconv_mod.gconv.launches, "tiled_spmm": tt.tiled_spmm.launches,
+            "tiled_sddmm": tt.tiled_sddmm.launches}
+
+
+def _zero_counts():
+    from kgcn_tpu_torch.ops import gconv as gconv_mod
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    gconv_mod.gconv.launches = 0
+    tt.tiled_spmm.launches = 0
+    tt.tiled_sddmm.launches = 0
+
+
+def _write_config(workdir, name, src, **over):
+    with open(src) as f:
+        cfg = json.load(f)
+    cfg.update(over)
+    d = os.path.join(workdir, name)
+    os.makedirs(d)
+    cfg.update(dataset=os.path.join(ROOT, cfg["dataset"]),
+               save_model_path=os.path.join(d, "model"),
+               save_info_train=os.path.join(d, "info_train.json"),
+               save_info_valid=os.path.join(d, "info_valid.json"),
+               save_result_valid=os.path.join(d, "result_valid.csv"))
+    path = os.path.join(d, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def _schedule(cfg, epochs):
+    """(training steps, evaluated batches) of a ``train`` run: the split of
+    cmd_train, one validation pass per epoch and the final one."""
+    from kgcn_tpu_torch.data.dataset import load_jbl
+
+    num = load_jbl(cfg["dataset"], cfg)[0].num
+    n_valid = int(num * float(cfg.get("validation_data_rate", 0.3)))
+    bs = int(cfg["batch_size"])
+    return (epochs * -(-(num - n_valid) // bs), (epochs + 1) * -(-n_valid // bs))
+
+
+def train_run(workdir, name, src, epochs, cpu=False, falling=True, **over):
+    """One ``cli.main train`` run; checks its lines and files and returns
+    (per-epoch training costs, launch counts, steps, evaluated batches)."""
+    import numpy as np
+
+    from kgcn_tpu_torch.cli import main as cli
+
+    cfg, path = _write_config(workdir, name, src, epoch=epochs, save_interval=1, **over)
+    steps, evals = _schedule(cfg, epochs)
+    say(f"-- train {name}: {os.path.relpath(src, ROOT)} with {over}, {epochs} "
+        f"epoch(s) on the {'CPU' if cpu else 'GPU'}: {steps} steps, {evals} "
+        "evaluated batches")
+    tee = _Tee(sys.stdout)
+    _zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        cli.main(["train", "--config", path] + (["--cpu"] if cpu else []))
+    wall = time.time() - t0
+    counts = _counts()
+    out = tee.buf.getvalue()
+    model = cfg["save_model_path"]
+    want_lines = ["[restore] best epoch"] + [
+        f"[SAVE] {os.path.join(model, f'model.{e:05d}.ckpt')}" for e in range(1, epochs + 1)
+    ] + [f"[SAVE] {cfg[k]}" for k in ("save_result_valid", "save_info_valid",
+                                       "save_info_train")]
+    for line in want_lines:
+        if line not in out:
+            raise AssertionError(f"train {name}: no line '{line}'")
+    want_files = {f"model.{e:05d}.ckpt" for e in range(1, epochs + 1)} | {
+        "model.best.ckpt", "model.last.ckpt", "serve_info.json"}
+    if set(os.listdir(model)) != want_files:
+        raise AssertionError(f"train {name}: files {sorted(os.listdir(model))}")
+    with open(cfg["save_info_train"]) as f:
+        costs = json.load(f)["training_cost"]
+    if len(costs) != epochs or not np.isfinite(costs).all():
+        raise AssertionError(f"train {name}: training costs {costs}")
+    if falling and not costs[-1] < costs[0]:
+        raise AssertionError(f"train {name}: training cost did not fall: {costs}")
+    say(f"-- train {name}: {wall:.2f} s, training costs {costs}, launches {counts}")
+    return costs, counts, steps, evals
+
+
+def _expect(name, counts, want):
+    if counts != want:
+        raise AssertionError(f"train {name}: launches {counts}, want {want}")
+    say(f"-- train {name}: launch counts as predicted: {want}")
+
+
+def phase_train(workdir):
+    phase(5, "train: cli.main train on the tiled and dense backends")
+    launches = {"gconv": 0, "tiled_spmm": 0, "tiled_sddmm": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    _, counts, steps, evals = train_run(workdir, "gcn_tiled", CONFIG, 2,
+                                        spmm_backend="tiled")
+    _expect("gcn_tiled", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
+                                  "tiled_sddmm": 0})
+    add(counts)
+    _, counts, steps, evals = train_run(workdir, "gat_tiled", GAT_CONFIG, 2,
+                                        spmm_backend="tiled")
+    _expect("gat_tiled", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
+                                  "tiled_sddmm": 3 * steps})
+    add(counts)
+    _, counts, steps, evals = train_run(workdir, "gcn_dense", CONFIG, 1, falling=False)
+    _expect("gcn_dense", counts, {"gconv": 3 * steps + 3 * evals, "tiled_spmm": 0,
+                                  "tiled_sddmm": 0})
+    add(counts)
+
+    exact = dict(spmm_backend="tiled", tiled_compute_dtype="float32", dropout_rate=0.0)
+    gpu, counts, steps, evals = train_run(workdir, "gcn_f32_gpu", CONFIG, 2, **exact)
+    _expect("gcn_f32_gpu", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
+                                    "tiled_sddmm": 0})
+    cpu, counts, _, _ = train_run(workdir, "gcn_f32_cpu", CONFIG, 2, cpu=True, **exact)
+    _expect("gcn_f32_cpu", counts, {"gconv": 0, "tiled_spmm": 0, "tiled_sddmm": 0})
+    rel = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
+    say(f"GPU vs CPU per-epoch training cost: GPU {gpu} CPU {cpu} relative "
+        f"difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"GPU and CPU training costs differ by {max(rel)}")
+    step_breakdown()
+    return launches
+
+
+def step_breakdown():
+    """One epoch of each configuration's training split, step by step:
+    host batch assembly (and its tiled-structure part), the step's wall time
+    to a synchronise, and, in a second profiled epoch, the device's busy
+    time (every CUDA kernel and copy) against the epoch's wall time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    for name, src, over in (("gcn_tiled", CONFIG, {"spmm_backend": "tiled"}),
+                            ("gat_tiled", GAT_CONFIG, {"spmm_backend": "tiled"}),
+                            ("gcn_dense", CONFIG, {})):
+        cfg = _load_config(src, **over)
+        ds, info = load_jbl(cfg["dataset"], cfg)
+        be = backend.resolve(cfg, info, log=False)
+        train, _, _, _ = split_dataset(ds, cfg["validation_data_rate"],
+                                       seed=int(cfg["seed"]), shuffle=bool(cfg["shuffle_data"]))
+        bs = int(cfg["batch_size"])
+        tb = Batcher(train, info, bs, backend=be)
+        trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info, device=DEVICE)
+        state = trainer.init_state(seed=0)
+        state, _, _, _ = trainer.run_epoch(state, tb, epoch=0)  # warm-up
+        torch.cuda.synchronize()
+        idx = tb.epoch_indices(shuffle=False)
+        host, tiled, step = [], [], []
+        for start in range(0, len(idx), bs):
+            t0, tiled0 = time.perf_counter(), tb.tiled_seconds
+            batch = tb.make_batch(idx[start:start + bs])
+            t1 = time.perf_counter()
+            state, _, _ = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append(t1 - t0)
+            tiled.append(tb.tiled_seconds - tiled0)
+            step.append(t2 - t1)
+        n = len(step)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _, _, _ = trainer.run_epoch(state, tb, epoch=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(getattr(ev, "device_time_total", 0.0) for ev in prof.key_averages()) / 1e6
+        payload = f", payload {be.compute_dtype}" if be.name == "tiled" else ""
+        say(f"step time {name} ({be.name}{payload}, batch {bs}, "
+            f"{n} steps): host batch ms {np.mean(host) * 1e3:.4f} (of which tiled "
+            f"structures {np.mean(tiled) * 1e3:.4f}), step wall ms to sync "
+            f"{np.mean(step) * 1e3:.4f} (median {np.median(step) * 1e3:.4f}); "
+            f"profiled epoch: wall ms/step {wall / n * 1e3:.4f}, device busy "
+            f"ms/step {busy / n * 1e3:.4f}, idle share {1 - busy / wall:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving
 
 
 def _post(url, payload):
@@ -225,7 +712,7 @@ def phase_serve(workdir):
     from kgcn_tpu_torch.runtime.serve import Predictor
     from kgcn_tpu_torch.runtime.train import Trainer
 
-    phase(4, "serve: solubility_cls GCN over HTTP")
+    phase(6, "serve: solubility_cls GCN over HTTP")
     data = jbl.load(DATASET)
     cfg = load_config(CONFIG, {"save_model_path": os.path.join(workdir, "model"),
                                "label_dim": 2})
@@ -254,7 +741,7 @@ def phase_serve(workdir):
     payloads = [_payload(data, idx) for idx in requests]
     answers = []
     try:
-        gconv.launches = 0
+        _zero_counts()
         for idx, body in zip(requests, payloads):
             code, resp, ms = _post(url + "/predict", body)
             if code != 200:
@@ -302,35 +789,79 @@ def phase_serve(workdir):
     return launches
 
 
-def main():
-    smi = phase_environment()
-    phase_build()
-    rows = phase_kernel_check()
-    with tempfile.TemporaryDirectory(prefix="kgcn_smoke_") as workdir:
-        launches = phase_serve(workdir)
+# ---------------------------------------------------------------------------
 
-    import torch
 
-    phase(5, "summary")
-    path_rows = rows[:3]  # the three GraphConv calls of one served batch
+def summary_rows(gconv_rows, tiled_rows, launches):
+    """The ``kernels`` line: each kernel at the main path's shapes (gconv:
+    the served batch's three GraphConv calls; tiled: the solubility batch at
+    F 81 and 50 and the GAT batch, bf16 payload), errors over every shape."""
+    def mean(rows, key):
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals) / len(vals)
 
-    def mean(key):
-        return sum(r[key] for r in path_rows) / len(path_rows)
-
-    bound_by = path_rows[0]["bound_by"]
-    kernels = [{
+    path = gconv_rows[:3]
+    on_path = [r for r in tiled_rows if r["on_path"]]
+    gat = [r for r in on_path if r["label"] == "GAT batch"]
+    return [{
         "name": "gconv",
         "route": "cuda",
         "source": "kgcn_tpu_torch/ops/csrc/gconv.cu",
         "replaces": "kgcn_tpu/ops/pallas_gconv.py:33",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in rows),
-        "ms": mean("kernel_ms"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": bound_by,
-        "library_ms": mean("library_ms"),
+        "launches": launches["gconv"],
+        "max_abs_err": max(r["err"] for r in gconv_rows),
+        "ms": mean(path, "kernel_ms"),
+        "plain_ms": mean(path, "plain_ms"),
+        "bound_ms": mean(path, "bound_ms"),
+        "bound_by": path[0]["bound_by"],
+        "library_ms": mean(path, "library_ms"),
+    }, {
+        "name": "tiled_spmm",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/tiled.cu",
+        "replaces": "kgcn_tpu/ops/tiled_spmm.py:320",
+        "launches": launches["tiled_spmm"],
+        "max_abs_err": max(r["spmm_err"] for r in tiled_rows),
+        "ms": mean(on_path, "spmm"),
+        "plain_ms": mean(on_path, "spmm_plain"),
+        "bound_ms": mean(on_path, "bound"),
+        "bound_by": on_path[0]["bound_by"],
+        "library_ms": mean(on_path, "spmm_library"),
+    }, {
+        "name": "tiled_sddmm",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/tiled.cu",
+        "replaces": "kgcn_tpu/ops/tiled_spmm.py:353",
+        "launches": launches["tiled_sddmm"],
+        "max_abs_err": max(r["sddmm_err"] for r in tiled_rows),
+        "ms": mean(gat, "sddmm"),
+        "plain_ms": mean(gat, "sddmm_plain"),
+        "bound_ms": mean(gat, "bound"),
+        "bound_by": gat[0]["bound_by"],
+        "library_ms": mean(gat, "sddmm_library"),
     }]
+
+
+def main():
+    t_start = time.time()
+    smi = phase_environment()
+    phase_build()
+    gconv_rows = phase_gconv_check()
+    tiled_rows = phase_tiled_check()
+    say(f"kernel checks done at {time.time() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="kgcn_smoke_") as workdir:
+        launches = phase_train(workdir)
+        say(f"train done at {time.time() - t_start:.1f} s")
+        launches["gconv"] += phase_serve(workdir)
+
+    import torch
+
+    phase(7, "summary")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} was not launched on the main path")
+    kernels = summary_rows(gconv_rows, tiled_rows, launches)
+    say(f"total {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -5,12 +5,20 @@ every batch of a dataset has the same shapes (node padding ``B*N``,
 lane-rounded edge budget), and the last partial batch is padded with empty
 graphs and reported through ``pad_mask`` (the reference's ``mask`` vector,
 kgcn/feed.py:148-151).  Batches are built on the CPU; ``Batch.to(device)``
-moves them.  The JAX package's native C++ packer and its ELL / tiled /
-stream attachments come with the sparse backends (ROADMAP.md queue A).
+moves them.
+
+The batcher carries the resolved backend (``runtime/backend.Backend``) and
+stamps it on every batch; with ``tiled`` it attaches the tiled edge
+structures (``_attach_tiled``, as ``kgcn_tpu/data/batcher.py:354-393``).
+``host_seconds`` accumulates the host time spent assembling batches, and
+``tiled_seconds`` the part of it spent building tiled structures.  The JAX
+package's native C++ packer and its ELL / stream attachments are not
+ported (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -18,6 +26,7 @@ import torch
 
 from kgcn_tpu_torch.data.dataset import Dataset, DatasetInfo
 from kgcn_tpu_torch.graph.batch import GraphBatch, batch_graphs, pad_edge_budget
+from kgcn_tpu_torch.runtime.backend import Backend
 
 
 def as_tensor(x: np.ndarray) -> torch.Tensor:
@@ -68,7 +77,8 @@ class Batcher:
     """Yields fixed-shape ``Batch``es from a host Dataset."""
 
     def __init__(self, ds: Dataset, info: DatasetInfo, batch_size: int, *,
-                 edge_budget: Optional[int] = None, seed: int = 0):
+                 edge_budget: Optional[int] = None, seed: int = 0,
+                 backend: Optional[Backend] = None):
         self.ds = ds
         self.info = info
         self.batch_size = int(batch_size)
@@ -81,6 +91,18 @@ class Batcher:
         self.edge_budget = edge_budget or pad_edge_budget(per_graph * self.batch_size)
         self.seed = int(seed)
         self._rng = np.random.RandomState(seed)
+        self.backend = backend or Backend()
+        # tiled: (ts, tr, chunk), locality flags and the chunk budget are
+        # pinned by the first batch, so every batch has the same shapes
+        self._tiled_cfg = None
+        self._tiled_loc = None
+        self._tiled_budget = None
+        self.host_seconds = 0.0
+        self.tiled_seconds = 0.0
+
+    @property
+    def valid_per_epoch(self) -> int:
+        return self.ds.num
 
     def _scan_edge_budget(self) -> int:
         if self.ds.adjs is None:
@@ -101,6 +123,12 @@ class Batcher:
 
     def make_batch(self, idx: np.ndarray) -> Batch:
         """Assemble one batch from dataset indices (host-side numpy)."""
+        t0 = time.perf_counter()
+        batch = self._make_batch(idx)
+        self.host_seconds += time.perf_counter() - t0
+        return batch
+
+    def _make_batch(self, idx: np.ndarray) -> Batch:
         ds = self.ds
         B = self.batch_size
         idx = np.asarray(idx)
@@ -129,7 +157,12 @@ class Batcher:
             ),
             edge_budget=self.edge_budget,
             n_graph=B,
-        )
+        ).replace(backend=self.backend.name,
+                  compute_dtype=self.backend.compute_dtype)
+        if self.backend.name == "tiled":
+            t0 = time.perf_counter()
+            graph = self._attach_tiled(graph)
+            self.tiled_seconds += time.perf_counter() - t0
 
         def pad_rows(x):
             if x is None:
@@ -155,6 +188,30 @@ class Batcher:
             mask_node_label=take(ds.mask_node_label, per_node=True),
             pad_mask=torch.from_numpy(pad_mask),
         )
+
+    def _attach_tiled(self, graph: GraphBatch) -> GraphBatch:
+        """Per-channel tiled structures.  The first batch is a probe: its
+        tiling and locality decisions are pinned, and the chunk budget is
+        set to 1.25× its largest chunk count (either direction), rounded up
+        to a multiple of 8; a later batch that overflows it doubles it."""
+        F = int(self.info.feature_dim or 128)
+        if self._tiled_cfg is None:
+            probe = graph.with_tiled(feature_dim=F)
+            m = probe.tiled_adj[0].meta
+            self._tiled_cfg = (m.ts, m.tr, m.chunk)
+            self._tiled_loc = tuple(t.node_perm is not None for t in probe.tiled_adj)
+            budget = max(
+                max(t.meta.n_chunks for t in probe.tiled_adj),
+                max(t.transpose.meta.n_chunks for t in probe.tiled_adj),
+            )
+            self._tiled_budget = -(-int(budget * 1.25) // 8) * 8
+        while True:
+            try:
+                return graph.with_tiled(tiling=self._tiled_cfg,
+                                        chunk_budget=self._tiled_budget,
+                                        feature_dim=F, locality=self._tiled_loc)
+            except ValueError:
+                self._tiled_budget *= 2
 
     def _pad_node_axis(self, x):
         """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the

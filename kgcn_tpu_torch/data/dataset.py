@@ -55,6 +55,42 @@ class Dataset:
     num: int = 0
     max_node_num: int = 0
 
+    def subset(self, idx) -> "Dataset":
+        """The examples ``idx`` (``kgcn_tpu``'s ``Dataset.subset``)."""
+        idx = np.asarray(idx)
+
+        def take(x):
+            if x is None:
+                return None
+            if isinstance(x, np.ndarray):
+                return x[idx]
+            return [x[i] for i in idx]
+
+        return Dataset(
+            adjs=take(self.adjs),
+            features=take(self.features),
+            labels=take(self.labels),
+            mask_label=take(self.mask_label),
+            node_label=take(self.node_label),
+            mask_node_label=take(self.mask_node_label),
+            enabled_node_nums=take(self.enabled_node_nums),
+            num=len(idx),
+            max_node_num=self.max_node_num,
+        )
+
+
+def split_dataset(ds: Dataset, valid_rate: float, seed: int = 0,
+                  shuffle: bool = True):
+    """Random train/valid split with ``kgcn_tpu``'s seeded permutation
+    (``kgcn_tpu/data/dataset.py:364``; reference kgcn/data_util.py:595-644):
+    (train, valid, train_idx, valid_idx)."""
+    idx = np.arange(ds.num)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(idx)
+    n_valid = int(ds.num * valid_rate)
+    valid_idx, train_idx = idx[:n_valid], idx[n_valid:]
+    return ds.subset(train_idx), ds.subset(valid_idx), train_idx, valid_idx
+
 
 def _dense_to_coo(dense: np.ndarray):
     dense = np.asarray(dense)

@@ -10,11 +10,17 @@ rules —
   the valid edges packed first and counted in ``n_edge``; padding edges
   point at node 0 with weight 0;
 * ``dense_adj`` optionally caches the ``[C, B, N, N]`` dense adjacency that
-  the fused graph convolution (``ops/gconv.py``) consumes.
+  the fused graph convolution (``ops/gconv.py``) consumes;
+* ``tiled_adj`` optionally carries the per-channel ``TiledCOO`` structures
+  of the tiled sparse kernels (``ops/tiled_spmm.py``), built on the host by
+  ``with_tiled``.
 
-The JAX container's ``node_ids`` (node-embedding mode) and its
-sparse-backend attachments (``ell_*``, ``tiled_adj``, ``stream_adj``,
-``edge_valid``) come with the slices that use them (ROADMAP.md queue A).
+Where the JAX package reads process globals (the dense-path switch, the
+tiled compute dtype), a batch here carries ``backend`` and
+``compute_dtype``, set by the ``Batcher`` from the resolved backend
+(``runtime/backend.py``).  The JAX container's ``node_ids`` (node-embedding
+mode) and its ``ell_*`` / ``stream_adj`` attachments come with the slices
+that use them (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from kgcn_tpu_torch.ops import tiled_spmm as tiled_ops
 
 LANE = 128  # edge budgets are rounded up to a multiple (as in kgcn_tpu)
 
@@ -44,7 +52,11 @@ class GraphBatch:
     node_mask: ``[V]`` float32, 1 for real nodes and 0 for padding.
     nodes: ``[V, F]`` float32 features.
     dense_adj: cached ``[C, B, N, N]`` adjacency, or None.
+    edge_valid: optional explicit ``[C, E]`` edge-validity mask.
+    tiled_adj: tuple of per-channel ``TiledCOO``, or None.
     n_graph, max_nodes: Python ints.
+    backend: the resolved spmm backend (``"dense"`` or ``"tiled"``).
+    compute_dtype: the tiled kernels' payload dtype.
     """
 
     senders: torch.Tensor
@@ -55,8 +67,12 @@ class GraphBatch:
     node_mask: torch.Tensor
     nodes: Optional[torch.Tensor] = None
     dense_adj: Optional[torch.Tensor] = None
+    edge_valid: Optional[torch.Tensor] = None
+    tiled_adj: Optional[tuple] = None
     n_graph: int = 1
     max_nodes: int = 1
+    backend: str = "dense"
+    compute_dtype: str = "bfloat16"
 
     @property
     def total_nodes(self) -> int:
@@ -68,6 +84,14 @@ class GraphBatch:
     def mask_batched(self) -> torch.Tensor:
         """``[B, N]`` view of the node mask."""
         return self.node_mask.reshape(self.n_graph, self.max_nodes)
+
+    def edge_mask(self) -> torch.Tensor:
+        """``[C, E]`` 1.0 for valid edges (packed first, unless an explicit
+        ``edge_valid`` mask is carried)."""
+        if self.edge_valid is not None:
+            return self.edge_valid
+        iota = torch.arange(self.senders.shape[1], device=self.senders.device)
+        return (iota[None, :] < self.n_edge[:, None]).to(torch.float32)
 
     def dense_adjacency(self, dtype=None) -> torch.Tensor:
         """Materialise the ``[C, B, N, N]`` dense adjacency from the COO
@@ -85,11 +109,58 @@ class GraphBatch:
         return out.reshape(C, B, N, N)
 
     def with_dense_adj(self) -> "GraphBatch":
-        """A copy carrying the dense adjacency (no-op if already cached);
-        models call it once at the top of their forward."""
-        if self.dense_adj is not None:
+        """A copy carrying the dense adjacency (no-op if already cached, and
+        unchanged when the batch's backend is not ``dense``: the layers then
+        take their edge-list paths); models call it once at the top of
+        their forward."""
+        if self.backend != "dense" or self.dense_adj is not None:
             return self
         return self.replace(dense_adj=self.dense_adjacency())
+
+    def with_tiled(self, *, tiling: Optional[tuple] = None,
+                   chunk_budget: Optional[int] = None, feature_dim: int = 128,
+                   locality="auto") -> "GraphBatch":
+        """A copy carrying per-channel tiled edge structures
+        (``kgcn_tpu``'s ``with_tiled``, ``graph/batch.py:191-257``).
+
+        Host side, NumPy.  ``tiling``: explicit (ts, tr, chunk), else chosen
+        per channel by ``choose_tiling`` for this batch's payload dtype.
+        ``chunk_budget``: pad the chunk lists to a fixed length.
+        ``locality``: "auto" relabels only single whole-graph batches on a
+        modelled win; a tuple pins per-channel decisions; a bool forces."""
+        if self.tiled_adj is not None:
+            return self
+        s = self.senders.cpu().numpy()
+        r = self.receivers.cpu().numpy()
+        w = self.edge_weights.cpu().numpy()
+        ev = self.edge_valid.cpu().numpy() if self.edge_valid is not None else None
+        bytes_per_elt = 2 if tiled_ops.is_bf16(self.compute_dtype) else 4
+        tes = []
+        for c in range(s.shape[0]):
+            tl = tiling
+            if locality == "auto":
+                loc = False
+                if self.n_graph == 1 and tiling is None:
+                    tl, loc = tiled_ops.choose_tiling_with_locality(
+                        s[c], r[c], self.total_nodes, feature_dim, weights=w[c],
+                        bytes_per_elt=bytes_per_elt)
+            elif isinstance(locality, (tuple, list)):
+                loc = bool(locality[c])
+            else:
+                loc = bool(locality)
+            if tl is None:
+                tl = tiled_ops.choose_tiling(s[c], r[c], self.total_nodes,
+                                             feature_dim, weights=w[c],
+                                             bytes_per_elt=bytes_per_elt)
+            ts, tr, chunk = tl
+            tes.append(tiled_ops.build_tiled(
+                s[c], r[c], self.total_nodes, weights=w[c], ts=ts, tr=tr,
+                chunk=chunk, chunk_budget=chunk_budget, locality=loc,
+                # drop by the padding mask when there is one, not by weight:
+                # a real edge of weight 0 stays for dynamic (attention) weights
+                valid_mask=ev[c] if ev is not None else None,
+            ))
+        return self.replace(tiled_adj=tuple(tes))
 
     def to(self, device) -> "GraphBatch":
         moved = {
@@ -97,6 +168,8 @@ class GraphBatch:
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
+        if self.tiled_adj is not None:
+            moved["tiled_adj"] = tuple(t.to(device) for t in self.tiled_adj)
         return self.replace(**moved)
 
 

@@ -1,8 +1,8 @@
 """Model registry — the counterpart of ``kgcn_tpu/models/registry.py``.
 
 Resolves the ``model.py`` config key (registry name or the reference's
-dotted path) to a constructor.  Only ``gcn`` is ported so far; every other name
-the JAX package knows raises ``NotImplementedError`` pointing at
+dotted path) to a constructor.  ``gcn`` and ``gat`` are ported so far; every
+other name the JAX package knows raises ``NotImplementedError`` pointing at
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -42,7 +42,18 @@ def _gcn(info, config):
     )
 
 
-_REGISTRY = {"gcn": _gcn}
+def _gat(info, config):
+    from kgcn_tpu_torch.models.standard import GATModel
+
+    return GATModel(
+        in_features=info.feature_dim,
+        channels=info.adj_channel_num,
+        label_dim=info.label_dim or 2,
+        gat_normalize=str(config.get("gat_normalize", "sender")),
+    )
+
+
+_REGISTRY = {"gcn": _gcn, "gat": _gat}
 
 
 def available() -> list:

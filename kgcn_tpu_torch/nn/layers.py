@@ -1,11 +1,19 @@
-"""Graph NN layers (torch.nn) — the dense-path counterparts of
-``kgcn_tpu/nn/layers.py:44-131, 294-383``.
+"""Graph NN layers (torch.nn) — the counterparts of
+``kgcn_tpu/nn/layers.py:44-131, 167-258, 294-383``.
 
 Semantics as there (checked against the reference, SURVEY.md §2.2):
 
 * GraphConv: per-channel weights AND biases, channel outputs summed
-  (kgcn/layers.py:52-62,107-115); aggregation through the fused ``gconv``
-  op, which runs the hand-written CUDA kernel on the GPU.
+  (kgcn/layers.py:52-62,107-115).  Dense batches aggregate through the fused
+  ``gconv`` op; tiled batches project ``X W_c + b_c`` and aggregate through
+  ``spmm_multichannel`` (the tiled SpMM kernel).  Both run hand-written CUDA
+  kernels on the GPU.
+* GAT: single-head edge attention per channel, sigmoid output, channels
+  summed (kgcn/layers.py:477-542), with the edge-list path (tiled batches:
+  the attention weights go through ``tiled_spmm``, whose backward gives
+  their gradient by the SDDMM kernel) and the dense path ``_dense``.
+  ``normalize="sender"`` keeps the reference's denominator gathered at the
+  sender (kgcn/layers.py:530-531).
 * GraphBatchNormalization: statistics over valid (un-padded) node rows only,
   biased variance, running statistics ``m·ra + (1-m)·batch`` (m = 0.9,
   ε = 1e-3), output multiplied by the node mask.  Not ``nn.BatchNorm1d``,
@@ -22,10 +30,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from kgcn_tpu_torch.graph.batch import GraphBatch
+from kgcn_tpu_torch.ops import segment
 from kgcn_tpu_torch.ops.gconv import gconv
+from kgcn_tpu_torch.ops.spmm import spmm_multichannel
+from kgcn_tpu_torch.ops.tiled_spmm import tiled_spmm
 
 
 def _flat(x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
@@ -62,7 +74,7 @@ def reset_linear_(lin: nn.Linear, generator=None) -> None:
 
 class GraphConv(nn.Module):
     """Multi-channel Kipf graph convolution ``Σ_c A_c (X W_c + b_c)``
-    (reference: kgcn/layers.py:32-119), dense path."""
+    (reference: kgcn/layers.py:32-119)."""
 
     def __init__(self, in_features: int, features: int, channels: int = 1):
         super().__init__()
@@ -76,15 +88,94 @@ class GraphConv(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
         x = _flat(x, graph)
-        if graph.dense_adj is None:
-            raise NotImplementedError(
-                "GraphConv without a dense adjacency needs the sparse "
-                "backends (tiled/stream/ELL), which are not ported yet "
-                "(ROADMAP.md queue A, sparse backends)"
+        w, b = self.kernel.to(x.dtype), self.bias.to(x.dtype)
+        if graph.dense_adj is not None:
+            xb = x.reshape(graph.n_graph, graph.max_nodes, x.shape[-1])
+            return gconv(graph.dense_adj, xb, w, b).reshape(graph.total_nodes, -1)
+        if graph.tiled_adj is not None:
+            hw = torch.einsum("vf,cfo->cvo", x, w) + b[:, None, :]
+            return spmm_multichannel(
+                graph.senders, graph.receivers, graph.edge_weights, hw,
+                graph.total_nodes, backend="tiled", tiled=graph.tiled_adj,
+                compute_dtype=graph.compute_dtype,
             )
-        xb = x.reshape(graph.n_graph, graph.max_nodes, x.shape[-1])
-        out = gconv(graph.dense_adj, xb, self.kernel.to(x.dtype), self.bias.to(x.dtype))
-        return out.reshape(graph.total_nodes, -1)
+        raise NotImplementedError(
+            "GraphConv needs a dense adjacency or tiled structures; the "
+            "stream, ELL and XLA sparse backends are not ported yet "
+            "(ROADMAP.md queue A, sparse backends)"
+        )
+
+
+class GAT(nn.Module):
+    """Single-head graph attention per adjacency channel, channel-summed,
+    sigmoid output (reference: kgcn/layers.py:477-542).  ``attn`` is
+    ``[C, 2F, 1]``: sender half, then receiver half."""
+
+    def __init__(self, in_features: int, channels: int = 1,
+                 normalize: str = "receiver"):
+        super().__init__()
+        if normalize not in ("receiver", "sender"):
+            raise ValueError(f"normalize must be receiver or sender, got {normalize!r}")
+        self.normalize = normalize
+        self.attn = nn.Parameter(torch.empty(channels, 2 * in_features, 1))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        per_channel_glorot_(self.attn, generator)
+
+    def forward(self, x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        x = _flat(x, graph)
+        Fx = x.shape[-1]
+        a = self.attn.to(x.dtype)
+        if graph.dense_adj is not None:
+            return self._dense(x, graph, a)
+        V = graph.total_nodes
+        edge_mask = graph.edge_mask()
+        out = None
+        for c in range(a.shape[0]):
+            s, r = graph.senders[c].long(), graph.receivers[c].long()
+            # the bilinear logit factorises into per-node scores gathered per
+            # edge; the softmax runs in float32 whatever the payload
+            ls = (x @ a[c, :Fx, 0]).to(torch.float32)
+            lr = (x @ a[c, Fx:, 0]).to(torch.float32)
+            logit = F.leaky_relu(ls[s] + lr[r], negative_slope=0.2)
+            if self.normalize == "receiver":
+                alpha = segment.segment_softmax(logit, r, V, mask=edge_mask[c])
+            else:  # the reference's receiver sums gathered at the sender
+                e = torch.exp(logit) * edge_mask[c]
+                alpha = e / (segment.segment_sum(e, r, V)[s] + 1e-10)
+            if graph.tiled_adj is not None:
+                agg = tiled_spmm(graph.tiled_adj[c], alpha, x,
+                                 compute_dtype=graph.compute_dtype).to(x.dtype)
+            else:
+                agg = segment.segment_sum(alpha.to(x.dtype)[:, None] * x[s], r, V)
+            out = torch.sigmoid(agg) if out is None else out + torch.sigmoid(agg)
+        return out
+
+    def _dense(self, x, graph: GraphBatch, a):
+        """Attention on the full ``[B, N, N]`` grid masked by the adjacency
+        (``kgcn_tpu``'s ``GAT._dense``)."""
+        Fx = x.shape[-1]
+        B, N = graph.n_graph, graph.max_nodes
+        xb = x.reshape(B, N, Fx)
+        neg = torch.tensor(-1e30, dtype=torch.float32, device=x.device)
+        out = torch.zeros((B, N, Fx), dtype=x.dtype, device=x.device)
+        for c in range(a.shape[0]):
+            mask = graph.dense_adj[c] != 0                    # [B, r, s]
+            ls = (xb @ a[c, :Fx, 0]).to(torch.float32)        # sender [B, N]
+            lr = (xb @ a[c, Fx:, 0]).to(torch.float32)        # receiver
+            logit = F.leaky_relu(ls[:, None, :] + lr[:, :, None], negative_slope=0.2)
+            logit = torch.where(mask, logit, neg)
+            if self.normalize == "receiver":
+                m = torch.maximum(logit.amax(dim=-1, keepdim=True), neg)
+                e = torch.exp(logit - m) * mask
+                denom = e.sum(dim=-1, keepdim=True)
+                alpha = e / torch.where(denom == 0, torch.ones_like(denom), denom)
+            else:
+                e = torch.exp(logit) * mask
+                alpha = e / (e.sum(dim=-1)[:, None, :] + 1e-10)
+            out = out + torch.sigmoid(torch.einsum("brs,bsf->brf", alpha.to(x.dtype), xb))
+        return out.reshape(graph.total_nodes, Fx)
 
 
 class GraphGather(nn.Module):

@@ -103,14 +103,22 @@ class _GConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         """dX = Σ_c A_cᵀ g W_cᵀ; dW_c = Σ_b X_bᵀ (A_cᵀ g); db_c = Σ A_cᵀ g;
-        dA[c,b,n,m] = g[b,n,:] · (X_b W_c + b_c)[m,:]."""
+        dA[c,b,n,m] = g[b,n,:] · (X_b W_c + b_c)[m,:].  Each only when asked
+        for: training never asks for dA, the [C,B,N,N] product."""
         adj, x, w, b = ctx.saved_tensors
-        at_g = torch.einsum("cbnm,bnf->cbmf", adj, g)
-        dx = torch.einsum("cbmf,cof->bmo", at_g, w)
-        dw = torch.einsum("bmi,cbmf->cif", x, at_g)
-        db = at_g.sum(dim=(1, 2))
-        hw = torch.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
-        dadj = torch.einsum("bnf,cbmf->cbnm", g, hw)
+        need_adj, need_x, need_w, need_b = ctx.needs_input_grad
+        dadj = dx = dw = db = None
+        if need_x or need_w or need_b:
+            at_g = torch.einsum("cbnm,bnf->cbmf", adj, g)
+            if need_x:
+                dx = torch.einsum("cbmf,cof->bmo", at_g, w)
+            if need_w:
+                dw = torch.einsum("bmi,cbmf->cif", x, at_g)
+            if need_b:
+                db = at_g.sum(dim=(1, 2))
+        if need_adj:
+            hw = torch.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
+            dadj = torch.einsum("bnf,cbmf->cbnm", g, hw)
         return dadj, dx, dw, db
 
 

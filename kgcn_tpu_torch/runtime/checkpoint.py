@@ -1,40 +1,62 @@
 """Checkpoints of the port.
 
-A checkpoint is ``torch.save({"params": {...}, "batch_stats": {...}})``: two
-flat dicts of CPU tensors keyed by the model's ``state_dict`` names, loaded
-with ``weights_only=True``.  File names follow ``kgcn_tpu``
-(``model.best.ckpt``, ``model.last.ckpt``, ``model.<fold>.<tag>.ckpt``).
+A checkpoint is ``torch.save`` of a dict of CPU tensors, loaded with
+``weights_only=True``.  Two forms, as the JAX package's trees
+(``kgcn_tpu/runtime/checkpoint.py``, ``Trainer.state_tree``):
 
-The JAX package's flax-msgpack checkpoints (``kgcn_tpu/runtime/
-checkpoint.py:42-72``) are not read yet (ROADMAP.md queue A); convert JAX
+* ``{"params", "batch_stats"}`` — flat dicts keyed by the model's
+  ``state_dict`` names: what serving needs (and what the first slice wrote);
+* the full training tree, which adds ``opt_state`` (the optimizer's nested
+  dicts), ``step``, ``rng`` (the dropout generator's state), ``epoch`` and
+  ``best_cost`` — written by ``Trainer.fit`` for best, interval and last
+  checkpoints, and resumable.
+
+File names follow ``kgcn_tpu`` (``model.best.ckpt``, ``model.last.ckpt``,
+``model.<NNNNN>.ckpt``, ``model.<fold>.<tag>.ckpt``).  The JAX package's
+flax-msgpack checkpoints are not read yet (ROADMAP.md queue A); convert JAX
 parameters with ``kgcn_tpu_torch.convert.params_from_jax`` instead.
 """
 from __future__ import annotations
 
 import os
 import zipfile
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-Tree = Dict[str, Dict[str, torch.Tensor]]
+Tree = Dict[str, Any]
+PARAM_KEYS = {"params", "batch_stats"}
+FULL_KEYS = PARAM_KEYS | {"opt_state", "step", "rng", "epoch", "best_cost"}
 
 
-def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
-                    batch_stats: Dict[str, torch.Tensor]) -> str:
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def save_tree(path: str, tree: Tree) -> str:
+    """Write a checkpoint tree (tensors moved to the CPU) atomically."""
+    if set(tree) not in (PARAM_KEYS, FULL_KEYS):
+        raise ValueError(f"not a checkpoint tree: keys {sorted(tree)}")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tree = {
-        "params": {k: v.detach().cpu() for k, v in params.items()},
-        "batch_stats": {k: v.detach().cpu() for k, v in batch_stats.items()},
-    }
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(tree, tmp)
+    torch.save(_to_cpu(tree), tmp)
     os.replace(tmp, path)
     return path
 
 
+def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
+                    batch_stats: Dict[str, torch.Tensor]) -> str:
+    """Parameters and BN statistics only (a serving checkpoint)."""
+    return save_tree(path, {"params": params, "batch_stats": batch_stats})
+
+
 def load_checkpoint(path: str) -> Tree:
-    """``{"params": ..., "batch_stats": ...}`` on the CPU.  Raises
+    """The tree of a checkpoint, on the CPU: ``params`` and ``batch_stats``,
+    plus the training state when the file holds it.  Raises
     FileNotFoundError for a missing file and ValueError for a file that is
     not a checkpoint of the port."""
     with open(path, "rb") as f:
@@ -47,9 +69,10 @@ def load_checkpoint(path: str) -> Tree:
             "(ROADMAP.md)"
         )
     tree = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(tree, dict) or set(tree) != {"params", "batch_stats"}:
+    if not isinstance(tree, dict) or set(tree) not in (PARAM_KEYS, FULL_KEYS):
         raise ValueError(
-            f"{path}: expected a dict with 'params' and 'batch_stats'"
+            f"{path}: expected a dict with 'params' and 'batch_stats' "
+            "(and, for a training checkpoint, the optimizer state)"
         )
     return tree
 

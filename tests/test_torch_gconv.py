@@ -88,6 +88,26 @@ def test_gconv_matches_pallas_interpret(shape):
         np.testing.assert_allclose(g, w, err_msg=f"d{name}", **TOL)
 
 
+def test_gconv_backward_computes_only_requested_grads(monkeypatch):
+    """Training never asks for dA: the backward then skips its [C,B,N,N]
+    product, and the other three gradients are unchanged."""
+    from kgcn_tpu.ops.spmm import gconv_dense
+
+    arrs, cot = _inputs((2, 3, 6, 5, 4), seed=3)
+    _, want = _jax_value_and_grads(gconv_dense, arrs, cot)
+    shapes = []
+    orig = torch.einsum
+    monkeypatch.setattr(torch, "einsum",
+                        lambda eq, *ops: shapes.append(eq) or orig(eq, *ops))
+    adj = torch.from_numpy(arrs[0])
+    rest = [torch.tensor(a, requires_grad=True) for a in arrs[1:]]
+    (gconv(adj, *rest) * torch.from_numpy(cot)).sum().backward()
+    assert adj.grad is None
+    assert "bnf,cbmf->cbnm" not in shapes  # dA
+    for name, t, w in zip(("x", "w", "b"), rest, want[1:]):
+        np.testing.assert_allclose(t.grad.numpy(), w, err_msg=f"d{name}", **TOL)
+
+
 def test_gconv_reference_is_the_channel_loop():
     """The plain version against the loop it stands for."""
     arrs, _ = _inputs((3, 2, 9, 4, 6), seed=2)

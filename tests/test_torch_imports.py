@@ -51,7 +51,7 @@ def test_every_module_imports_without_jax():
         print(len(names))
     """)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 20
+    assert int(r.stdout.split()[-1]) >= 27
 
 
 def test_entry_points_refuse_to_run_without_a_gpu():
@@ -59,9 +59,12 @@ def test_entry_points_refuse_to_run_without_a_gpu():
         from kgcn_tpu_torch.runtime.device import resolve_device
         from kgcn_tpu_torch.runtime.serve import Predictor
         from kgcn_tpu_torch.cli.serve import build_server
+        from kgcn_tpu_torch.cli.main import main as train_main
         for fn in (lambda: resolve_device(),
                    lambda: Predictor({"model.py": "gcn"}),
-                   lambda: build_server({"model.py": "gcn"}, port=0)):
+                   lambda: build_server({"model.py": "gcn"}, port=0),
+                   lambda: train_main(["train", "--config",
+                                       "example_config/gat.json"])):
             try:
                 fn()
             except RuntimeError as e:
