@@ -7,8 +7,8 @@ Phases, each announced on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. environment — the card (nvidia-smi name and power limit), torch, CUDA;
-2. build — every CUDA kernel of the port (gconv.cu, tiled.cu), from
-   kgcn_tpu_torch/ops/csrc, one nvcc per source, in parallel;
+2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu),
+   from kgcn_tpu_torch/ops/csrc, one nvcc per source, in parallel;
 3. kernel check: gconv — against its plain PyTorch version on the card at
    the serving path's shapes and two more (float32, rtol = atol = 1e-4: the
    sums run over ≤ 256 terms in another order), with its device time
@@ -41,12 +41,38 @@ non-zero exit and no result line:
    47 nodes, 81 features); answers are checked (rows sum to 1, finite,
    equal to the same model run on the CPU to 1e-4) and the kernel launch
    counts read back;
-7. summary — one JSON line of kernel numbers, then the result line.
+7. kernel check: stream — the stream backend's three kernels (the
+   iota-route scatter, the one-hot scatter, the weight gradient), forward
+   and on the transpose structure (dx), against their plain versions run on
+   CPU copies of the inputs, with the float32 and the bf16 payload,
+   rtol = atol = 1e-4, on the KG path's largest and smallest relation
+   channels (F 128), a uniform random graph of 100 000 nodes and 1 000 000
+   edges at F 128 with choose_stream's parameters, a rectangular and a
+   macro-budget-padded case; device times as in phase 3, the library calls
+   being torch.sparse.mm and torch.sparse.sampled_addmm;
+8. kg — a knowledge graph of WN18RR's published shape (40 943 entities, 11
+   relations with its training-set relation shares, 89 969 distinct
+   triples, power-law entity frequency) generated from a seed as a triple
+   TSV, preprocessed by ``python -m kgcn_tpu_torch.cli.kg``, then
+   ``cli.main train`` (KG GCN encoder, width 128, label batch 1024, 2 epochs,
+   spmm_backend auto → stream, bf16 payload) and ``cli.main infer`` in this
+   process: finite falling cost, the checkpoint, finite ranking metrics, and
+   exact launch counts (4·C one-hot scatters per step, 2·C per infer, no
+   weight gradient); the same with the float32 payload for 1 epoch (4·C
+   iota-route scatters per step); the first 3 steps of the float32 run on
+   the GPU and on the CPU from one seed (costs within 1e-3 relative); and a
+   step breakdown (the graph batch's host build and its stream structures,
+   host ms per step, step wall time, device busy time and idle share);
+9. summary — one JSON line of kernel numbers, then the result line.
 
-Kernel launch counts are set to 0 just before each run of a path (phases 5
-and 6) and read just after; the summary's ``launches`` add up the tiled GCN,
-tiled GAT and dense GCN training runs and the serve run.
+Kernel launch counts are set to 0 just before each run of a path (phases 5,
+6 and 8) and read just after; the summary's ``launches`` add up the tiled
+GCN, tiled GAT and dense GCN training runs and the serve run, and the KG
+runs (train and infer) for the stream kernels.
 Exits non-zero without a CUDA device and outside a checkout of the repo.
+``SCALE`` and ``KG_SHRINK`` cut the scale case and the KG for a rehearsal
+on the CPU, with ``DEVICE = "cpu"`` and the kernels' launch functions
+swapped for counted plain versions.
 """
 import contextlib
 import io
@@ -71,6 +97,23 @@ TOL = 1e-4
 TRAJECTORY_RTOL = 1e-3      # GPU vs CPU training cost, tests/test_reference_parity.py:434-441
 DEVICE = "cuda"
 SCALE = (100_000, 1_000_000, 128)  # uniform random graph: nodes, edges, F
+KG_CONFIG = os.path.join(ROOT, "example_config", "kg.json")
+# WN18RR (Dettmers et al. 2018): entities, and the training-set triple count
+# of each of its 11 relations; train 86 835 + test 3 134 distinct triples
+WN18RR_ENTITIES = 40_943
+WN18RR_RELATION_COUNTS = (34_796, 29_715, 7_402, 4_816, 3_116, 2_921, 1_299,
+                          1_138, 923, 629, 80)
+WN18RR_TRIPLES = 86_835 + 3_134
+KG_TEST_RATE = 0.035
+KG_OVERRIDES = dict(kg_encoder="gcn", embedding_dim=128, label_batch_size=1024,
+                    epoch=2)
+KG_SHRINK = 1        # divide entities and triples (CPU rehearsal only)
+# kernels that no main-path run launches, and why
+NO_MAIN_PATH_LAUNCH = {
+    "stream_dw": "the KG's adjacency weights are constants, so no step asks "
+                 "for their gradient",
+}
+ZIPF_EXPONENT = 0.75  # entity frequency ∝ (rank + 1)^-0.75
 
 # (C, B, N, Fin, Fout): the serving path's three GraphConv calls per batch,
 # a misaligned toy (tests/test_kernels.py:89), a reaction-scale batch
@@ -480,21 +523,24 @@ class _Tee(io.TextIOBase):
         self.stream.flush()
 
 
-def _counts():
+def _counted():
+    """{kernel name: the wrapper function that carries its launch count}."""
     from kgcn_tpu_torch.ops import gconv as gconv_mod
+    from kgcn_tpu_torch.ops import stream_spmm as ts
     from kgcn_tpu_torch.ops import tiled_spmm as tt
 
-    return {"gconv": gconv_mod.gconv.launches, "tiled_spmm": tt.tiled_spmm.launches,
-            "tiled_sddmm": tt.tiled_sddmm.launches}
+    return {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
+            "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
+            "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw}
+
+
+def _counts():
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def _zero_counts():
-    from kgcn_tpu_torch.ops import gconv as gconv_mod
-    from kgcn_tpu_torch.ops import tiled_spmm as tt
-
-    gconv_mod.gconv.launches = 0
-    tt.tiled_spmm.launches = 0
-    tt.tiled_sddmm.launches = 0
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def _write_config(workdir, name, src, **over):
@@ -568,14 +614,17 @@ def train_run(workdir, name, src, epochs, cpu=False, falling=True, **over):
 
 
 def _expect(name, counts, want):
+    """The run's launch counts equal ``want``; kernels it does not name
+    must not have launched."""
+    want = {k: want.get(k, 0) for k in counts}
     if counts != want:
-        raise AssertionError(f"train {name}: launches {counts}, want {want}")
-    say(f"-- train {name}: launch counts as predicted: {want}")
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+    say(f"-- {name}: launch counts as predicted: {want}")
 
 
 def phase_train(workdir):
     phase(5, "train: cli.main train on the tiled and dense backends")
-    launches = {"gconv": 0, "tiled_spmm": 0, "tiled_sddmm": 0}
+    launches = {k: 0 for k in _counted()}
 
     def add(counts):
         for k, v in counts.items():
@@ -583,25 +632,22 @@ def phase_train(workdir):
 
     _, counts, steps, evals = train_run(workdir, "gcn_tiled", CONFIG, 2,
                                         spmm_backend="tiled")
-    _expect("gcn_tiled", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
-                                  "tiled_sddmm": 0})
+    _expect("train gcn_tiled", counts, {"tiled_spmm": 6 * steps + 3 * evals})
     add(counts)
     _, counts, steps, evals = train_run(workdir, "gat_tiled", GAT_CONFIG, 2,
                                         spmm_backend="tiled")
-    _expect("gat_tiled", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
-                                  "tiled_sddmm": 3 * steps})
+    _expect("train gat_tiled", counts, {"tiled_spmm": 6 * steps + 3 * evals,
+                                        "tiled_sddmm": 3 * steps})
     add(counts)
     _, counts, steps, evals = train_run(workdir, "gcn_dense", CONFIG, 1, falling=False)
-    _expect("gcn_dense", counts, {"gconv": 3 * steps + 3 * evals, "tiled_spmm": 0,
-                                  "tiled_sddmm": 0})
+    _expect("train gcn_dense", counts, {"gconv": 3 * steps + 3 * evals})
     add(counts)
 
     exact = dict(spmm_backend="tiled", tiled_compute_dtype="float32", dropout_rate=0.0)
     gpu, counts, steps, evals = train_run(workdir, "gcn_f32_gpu", CONFIG, 2, **exact)
-    _expect("gcn_f32_gpu", counts, {"gconv": 0, "tiled_spmm": 6 * steps + 3 * evals,
-                                    "tiled_sddmm": 0})
+    _expect("train gcn_f32_gpu", counts, {"tiled_spmm": 6 * steps + 3 * evals})
     cpu, counts, _, _ = train_run(workdir, "gcn_f32_cpu", CONFIG, 2, cpu=True, **exact)
-    _expect("gcn_f32_cpu", counts, {"gconv": 0, "tiled_spmm": 0, "tiled_sddmm": 0})
+    _expect("train gcn_f32_cpu", counts, {})
     rel = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
     say(f"GPU vs CPU per-epoch training cost: GPU {gpu} CPU {cpu} relative "
         f"difference {rel} (limit {TRAJECTORY_RTOL})")
@@ -790,12 +836,482 @@ def phase_serve(workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the stream kernels
 
 
-def summary_rows(gconv_rows, tiled_rows, launches):
+def make_kg_triples(path, seed=0):
+    """Write a triple TSV of WN18RR's published shape (``KG_SHRINK`` 1):
+    its entity count, 11 relations with its training-set shares, its number
+    of distinct triples; heads and tails Zipf-distributed over a random
+    ranking of the entities, every entity at least once, no duplicate and no
+    self triple.  Returns the triple count."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = WN18RR_ENTITIES // KG_SHRINK
+    total = WN18RR_TRIPLES // KG_SHRINK
+    shares = np.asarray(WN18RR_RELATION_COUNTS, np.float64)
+    per_rel = np.maximum((shares / shares.sum() * total).astype(np.int64), 1)
+    per_rel[0] += total - per_rel.sum()
+    R = len(per_rel)
+    p = (np.arange(n) + 1.0) ** -ZIPF_EXPONENT
+    p /= p.sum()
+    rank_to_id = rng.permutation(n)
+
+    def draw(k):
+        return rank_to_id[rng.choice(n, k, p=p)]
+
+    rel = np.repeat(np.arange(R), per_rel)
+    heads, tails = draw(total), draw(total)
+    tails[rng.choice(total, n, replace=False)] = rng.permutation(n)  # cover all
+    while True:
+        key = (heads * R + rel) * n + tails
+        _, first = np.unique(key, return_index=True)
+        bad = np.ones(total, bool)
+        bad[first] = False
+        bad |= heads == tails
+        if not bad.any():
+            break
+        heads[bad] = draw(int(bad.sum()))
+    order = rng.permutation(total)
+    with open(path, "w") as f:
+        f.writelines(f"e{h}\tr{r}\te{t}\n"
+                     for h, r, t in zip(heads[order], rel[order], tails[order]))
+    return total
+
+
+def kg_files(workdir):
+    """(tsv, jbl): the WN18RR-shaped triples and their ``cli.kg`` output,
+    made on the first call."""
+    from kgcn_tpu_torch.cli import kg as kg_cli
+
+    d = os.path.join(workdir, "kg_data")
+    tsv, jbl_path = os.path.join(d, "triples.tsv"), os.path.join(d, "kg.jbl")
+    if not os.path.exists(jbl_path):
+        os.makedirs(d, exist_ok=True)
+        t0 = time.time()
+        n = make_kg_triples(tsv)
+        say(f"WN18RR-shaped triple TSV: {n} triples ({time.time() - t0:.2f} s)")
+        t0 = time.time()
+        kg_cli.main(["--input", tsv, "--output", jbl_path,
+                     "--test-rate", str(KG_TEST_RATE)])
+        say(f"python -m kgcn_tpu_torch.cli.kg: {time.time() - t0:.2f} s")
+    return tsv, jbl_path
+
+
+def kg_config(workdir, name, **over):
+    """The KG config of the main path (example_config/kg.json with
+    ``KG_OVERRIDES``) on the generated dataset, its outputs in its own
+    directory: (config dict, path)."""
+    _, jbl_path = kg_files(workdir)
+    with open(KG_CONFIG) as f:
+        cfg = json.load(f)
+    cfg.update(KG_OVERRIDES)
+    cfg.update(over)
+    d = os.path.join(workdir, name)
+    os.makedirs(d, exist_ok=True)
+    cfg.update(dataset=jbl_path, save_model_path=os.path.join(d, "model"),
+               save_info_train=os.path.join(d, "info_train.json"),
+               save_info_test=os.path.join(d, "info_test.json"),
+               save_edge_result=os.path.join(d, "edges.csv"))
+    path = os.path.join(d, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return _load_config(path, dataset=jbl_path), path
+
+
+def kg_batcher(cfg, device=None, seed=0):
+    """(KGBatcher, info, backend) of a KG config, graph batch built on the
+    host and moved to ``device``."""
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.models.kg import KGBatcher
+    from kgcn_tpu_torch.runtime import backend
+
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    kb = KGBatcher(ds, info, label_batch_size=cfg["label_batch_size"], seed=seed,
+                   backend=be, device=device)
+    return kb, info, be
+
+
+def stream_cases(workdir):
+    """(label, StreamCOO on the CPU, widths, on the main path)."""
+    import numpy as np
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    def uniform(V, E, seed, vs=None):
+        rng = np.random.RandomState(seed)
+        return (rng.randint(0, vs or V, E), rng.randint(0, V, E),
+                (rng.random_sample(E) + 0.1).astype(np.float32))
+
+    cfg, _ = kg_config(workdir, "kg_structures")
+    kb, info, be = kg_batcher(cfg)
+    if be.name != "stream":
+        raise AssertionError(f"the KG resolved to {be.name}, want stream")
+    sts = kb.graph_batch.graph.stream_adj
+    real = [int((st.slot_src < st.meta.num_edges).sum()) for st in sts]
+    say(f"KG graph batch: {info.all_node_num} entities ({sts[0].meta.num_receivers} "
+        f"padded), {len(sts)} channels, {sum(real)} edges, built in "
+        f"{kb.host_seconds:.2f} s (stream structures {kb.stream_seconds:.2f} s)")
+    F = int(cfg["embedding_dim"])
+    big, small = int(np.argmax(real)), int(np.argmin(real))
+    cases = [(f"KG channel {big} (largest)", sts[big], (F,), True),
+             (f"KG channel {small} (smallest)", sts[small], (F,), True)]
+    V, E, Fs = SCALE
+    s, r, w = uniform(V, E, seed=5)
+    cases.append((f"scale V={V} E={E}", ts.build_stream(
+        s, r, V, weights=w, **ts.choose_stream(s, r, V, Fs)), (Fs,), False))
+    s, r, w = uniform(3000, 30000, seed=1, vs=5000)
+    cases.append(("rectangular 5000->3000", ts.build_stream(
+        s, r, 3000, weights=w, num_sender_nodes=5000), (64,), False))
+    s, r, w = uniform(2000, 12000, seed=2)
+    w[::5] = 0.0  # padding edges, dropped from the structure
+    need = ts.build_stream(s, r, 2000, weights=w)
+    budget = 2 * max(need.meta.n_macros, need.transpose.meta.n_macros)
+    cases.append((f"budget-padded ({budget} macros)", ts.build_stream(
+        s, r, 2000, weights=w, macro_budget=budget), (40,), False))
+    return cases
+
+
+def _stream_csr(ss):
+    """The structure's matrix (receiver rows, sender columns, baked
+    weights) as CSR, and its 0/1 pattern, from the slots the kernels walk."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    m = ss.meta
+    valid, send, recv = ts._slot_rows(ss)
+    idx = torch.stack([recv[valid], send[valid]])
+    vals = ss.w_slots[valid]
+    shape = (m.num_receivers, m.num_senders)
+    mat = torch.sparse_coo_tensor(idx, vals, shape).coalesce().to_sparse_csr()
+    pat = torch.sparse_coo_tensor(idx, torch.ones_like(vals), shape).coalesce()
+    pat = torch.sparse_coo_tensor(pat.indices(), torch.ones_like(pat.values()),
+                                  shape).to_sparse_csr()
+    return mat, pat
+
+
+def stream_bound(ss, F, kind):
+    """(bound_ms, bound_by) on this structure's real edges: the
+    [num_senders, F] and [num_receivers, F] f32 operands moved once (the
+    scatters read x and write out, the weight gradient reads x and dy), per
+    edge its sender and, by kind, its receiver row and weight (scatter),
+    its one-hot row of tr_w bf16 (scatter_mat) or its receiver row and
+    output (dw); 2·F FLOP per edge.  Padding slots are not needed work."""
+    m = ss.meta
+    n_edges = int((ss.slot_src < m.num_edges).sum())
+    per_edge = {"scatter": 12, "scatter_mat": 4 + 2 * m.tr_w, "dw": 12}[kind]
+    nbytes = 4 * (m.num_senders + m.num_receivers) * F + per_edge * n_edges
+    return bound(nbytes, 2 * n_edges * F)
+
+
+def phase_stream_check(workdir):
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    phase(7, "kernel check: stream scatter, one-hot scatter and weight gradient "
+          "(kgcn_tpu_torch/ops/csrc/stream.cu)")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.time()
+    cases = stream_cases(workdir)
+    say(f"structures built on the host in {time.time() - t0:.2f} s")
+    rows = []
+    for label, ss_cpu, widths, on_path in cases:
+        ss = ss_cpu.to(DEVICE)
+        m, mt = ss.meta, ss.transpose.meta
+        n_edges = int((ss_cpu.slot_src < m.num_edges).sum())
+        say(f"stream {label}: {m.num_senders} -> {m.num_receivers} nodes, {n_edges} "
+            f"edges of {m.num_edges}, (tr_w, chunk, mc, wb) = "
+            f"{(m.tr_w, m.chunk, m.mc, m.wb)}, slots {m.slots} (transpose "
+            f"{mt.slots}), one-hots {ss.oh is not None}")
+        mat, pat = _stream_csr(ss)
+        for F in widths:
+            x = torch.randn((m.num_senders, F), device=DEVICE, generator=gen)
+            g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
+            # plain versions on CPU copies: index_add_ sums in slot order there
+            xc, gc = x.cpu(), g.cpu()
+            errs = {}
+            for dt in ("float32", "bfloat16"):
+                bf16 = dt == "bfloat16"
+                errs[f"scatter {dt}"] = _check(
+                    f"stream_scatter {label} F={F} {dt}",
+                    ts._scatter_launch(ss, ss.w_slots, x, bf16),
+                    ts.stream_scatter_reference(ss_cpu, ss_cpu.w_slots, xc, dt).to(DEVICE))
+                errs[f"scatter^T {dt}"] = _check(
+                    f"stream_scatter (transpose) {label} F={F} {dt}",
+                    ts._scatter_launch(ss.transpose, ss.transpose.w_slots, g, bf16),
+                    ts.stream_scatter_reference(ss_cpu.transpose, ss_cpu.transpose.w_slots,
+                                                gc, dt).to(DEVICE))
+                errs[f"dw {dt}"] = _check(
+                    f"stream_dw {label} F={F} {dt}", ts._dw_launch(ss, x, g, bf16),
+                    ts.stream_dw_reference(ss_cpu, xc, gc, dt).to(DEVICE))
+            errs["scatter_mat"] = _check(
+                f"stream_scatter_mat {label} F={F}", ts._scatter_mat_launch(ss, x),
+                ts.stream_scatter_mat_reference(ss_cpu, ss_cpu.oh, xc).to(DEVICE))
+            errs["scatter_mat^T"] = _check(
+                f"stream_scatter_mat (transpose) {label} F={F}",
+                ts._scatter_mat_launch(ss.transpose, g),
+                ts.stream_scatter_mat_reference(ss_cpu.transpose, ss_cpu.transpose.oh,
+                                                gc).to(DEVICE))
+            lib_err = float((torch.sparse.mm(mat, x) - ts.stream_scatter_reference(
+                ss, ss.w_slots, x, "float32")).abs().max())
+            iters = 10 if n_edges > 500_000 else 50
+            xt = x.t().contiguous()
+            w = ss.w_slots
+            t = dict(
+                scatter=device_ms(lambda: ts._scatter_launch(ss, w, x, False), iters),
+                scatter_bf16=device_ms(lambda: ts._scatter_launch(ss, w, x, True), iters),
+                scatter_plain=device_ms(
+                    lambda: ts.stream_scatter_reference(ss, w, x, "float32"), iters),
+                scatter_mat=device_ms(lambda: ts._scatter_mat_launch(ss, x), iters),
+                scatter_mat_plain=device_ms(
+                    lambda: ts.stream_scatter_mat_reference(ss, ss.oh, x), iters),
+                spmm_library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
+                dw=device_ms(lambda: ts._dw_launch(ss, x, g, True), iters),
+                dw_f32=device_ms(lambda: ts._dw_launch(ss, x, g, False), iters),
+                dw_plain=device_ms(
+                    lambda: ts.stream_dw_reference(ss, x, g, "bfloat16"), iters),
+                dw_library=library_ms(
+                    lambda: torch.sparse.sampled_addmm(pat, g, xt, beta=0.0), iters),
+            )
+            bounds = {k: stream_bound(ss_cpu, F, k) for k in ("scatter", "scatter_mat", "dw")}
+            rows.append(dict(label=label, F=F, on_path=on_path, bounds=bounds,
+                             scatter_err=max(v for k, v in errs.items()
+                                             if k.startswith("scatter ")
+                                             or k.startswith("scatter^T")),
+                             mat_err=max(errs["scatter_mat"], errs["scatter_mat^T"]),
+                             dw_err=max(v for k, v in errs.items() if k.startswith("dw")),
+                             **t))
+            say(f"  F={F}: max |kernel - plain| "
+                + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (library spmm vs plain f32 {lib_err:.3g})")
+            say(f"  F={F} device ms: scatter f32 {t['scatter']:.6f} (bf16 "
+                f"{t['scatter_bf16']:.6f}) plain f32 {t['scatter_plain']:.6f}; "
+                f"scatter_mat {t['scatter_mat']:.6f} plain {t['scatter_mat_plain']:.6f}; "
+                f"library spmm {t['spmm_library']}; dw bf16 {t['dw']:.6f} (f32 "
+                f"{t['dw_f32']:.6f}) plain {t['dw_plain']:.6f} library {t['dw_library']}; "
+                "bounds " + ", ".join(f"{k} {b:.6f} ({by})" for k, (b, by) in bounds.items()))
+    _check_stream_gradients(cases)
+    return rows
+
+
+def _check_stream_gradients(cases):
+    """The public ``stream_spmm_edges`` (the autograd Function: dx on the
+    transpose, dw by the weight-gradient kernel) and the static route's dx,
+    on the card against the same calls on the CPU, both payloads."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    for label, ss_cpu, widths, _ in cases:
+        if "smallest" not in label and not label.startswith("rectangular"):
+            continue
+        F, m = widths[0], ss_cpu.meta
+        gen = torch.Generator().manual_seed(1)
+        x0 = torch.randn((m.num_senders, F), generator=gen)
+        cot = torch.randn((m.num_receivers, F), generator=gen)
+        w0 = torch.rand(m.num_edges, generator=gen) + 0.1
+        for dt in ("float32", "bfloat16"):
+            res = []
+            for dev, ss in ((DEVICE, ss_cpu.to(DEVICE)), ("cpu", ss_cpu)):
+                # fresh leaves on both devices (.to("cpu") would alias x0)
+                w = w0.to(dev).clone().requires_grad_(True)
+                x = x0.to(dev).clone().requires_grad_(True)
+                out = ts.stream_spmm_edges(ss, w, x, compute_dtype=dt)
+                (out * cot.to(dev)).sum().backward()
+                xs = x0.to(dev).clone().requires_grad_(True)
+                (ts.stream_spmm(ss, x=xs, compute_dtype=dt) * cot.to(dev)).sum().backward()
+                res.append([t.detach().cpu() for t in (out, x.grad, w.grad, xs.grad)])
+            for name, a, b in zip(("value", "dx", "dw", "baked dx"), *res):
+                err = float((a - b).abs().max())
+                if not torch.allclose(a, b, rtol=TOL, atol=TOL):
+                    raise AssertionError(f"stream_spmm {label} {dt} {name}: GPU vs CPU {err}")
+                say(f"stream_spmm {label} {dt}: {name} GPU vs CPU max |diff| {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: knowledge-graph link prediction through the CLIs
+
+
+def _cli(argv, cpu=False):
+    """One ``cli.main`` run in this process: (stdout text, returned value,
+    launch counts, wall seconds)."""
+    from kgcn_tpu_torch.cli import main as cli
+
+    tee = _Tee(sys.stdout)
+    _zero_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(tee):
+        result = cli.main(argv + (["--cpu"] if cpu else []))
+    return tee.buf.getvalue(), result, _counts(), time.time() - t0
+
+
+def kg_run(workdir, name, **over):
+    """``train`` then ``infer`` of one KG config on the GPU, lines, files
+    and launch counts checked; returns (launches, training costs, infer
+    result)."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.dataset import load_jbl
+
+    cfg, path = kg_config(workdir, name, **over)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    C = info.adj_channel_num
+    epochs = int(cfg["epoch"])
+    L = int(cfg["label_batch_size"])
+    n_train = len(ds.label_list[0])
+    steps = epochs * -(-n_train // L)
+    payload = cfg.get("tiled_compute_dtype", "bfloat16")
+    kernel = "stream_scatter_mat" if payload == "bfloat16" else "stream_scatter"
+    say(f"-- kg {name}: {info.all_node_num} entities, {C} relations, {n_train} "
+        f"training triples, label batch {L}, {epochs} epoch(s) = {steps} steps, "
+        f"payload {payload}")
+    launches = {k: 0 for k in _counted()}
+    out, _, counts, wall = _cli(["train", "--config", path])
+    if "[spmm] backend: stream" not in out:
+        raise AssertionError(f"kg {name}: the run did not take the stream backend")
+    costs = [float(line.split("training cost ")[1].split()[0])
+             for line in out.splitlines() if line.startswith("epoch ")]
+    if len(costs) != epochs or not np.isfinite(costs).all():
+        raise AssertionError(f"kg {name}: training costs {costs}")
+    if epochs > 1 and not costs[-1] < costs[0]:
+        raise AssertionError(f"kg {name}: training cost did not fall: {costs}")
+    model = cfg["save_model_path"]
+    if os.listdir(model) != ["model.last.ckpt"] or not os.path.exists(cfg["save_info_train"]):
+        raise AssertionError(f"kg {name}: files {os.listdir(model)}")
+    say(f"-- kg {name} train: {wall:.2f} s, training costs {costs}")
+    _expect(f"kg {name} train", counts, {kernel: 4 * C * steps})
+    for k, v in counts.items():
+        launches[k] += v
+    out, result, counts, wall = _cli(["infer", "--config", path])
+    n_test = int(WN18RR_TRIPLES // KG_SHRINK * KG_TEST_RATE)
+    ok = (np.isfinite(list(result.values())).all() and 1.0 <= result["mean_rank"]
+          <= info.all_node_num and all(0.0 <= result[k] <= 1.0
+                                       for k in ("mrr", "hits@1", "hits@10")))
+    if not ok or result["num_test_triples"] != n_test:
+        raise AssertionError(f"kg {name}: infer result {result}, want {n_test} triples")
+    for f in (cfg["save_info_test"], cfg["save_edge_result"]):
+        if not os.path.exists(f):
+            raise AssertionError(f"kg {name}: infer wrote no {f}")
+    say(f"-- kg {name} infer: {wall:.2f} s, {json.dumps(result)}")
+    _expect(f"kg {name} infer", counts, {kernel: 2 * C})
+    for k, v in counts.items():
+        launches[k] += v
+    return launches, costs, result
+
+
+def kg_gpu_vs_cpu(workdir, steps=3):
+    """The float32-payload KG training's first steps on the GPU and on the
+    CPU, from one seed (weights drawn on the CPU, the same label slices and
+    negatives): per-step costs within TRAJECTORY_RTOL."""
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg, _ = kg_config(workdir, "kg_gpu_vs_cpu", tiled_compute_dtype="float32")
+    costs = {}
+    for dev in (DEVICE, "cpu"):
+        kb, info, _ = kg_batcher(cfg, device=dev)
+        trainer = Trainer(build_model("kg_distmult", info, cfg), cfg, info, device=dev)
+        state = trainer.init_state(seed=0)
+        _zero_counts()
+        c = []
+        for _, batch in zip(range(steps), kb.batches()):
+            state, cost, _ = trainer.train_step(state, batch)
+            c.append(float(cost))
+        costs[dev] = c
+        want = {"stream_scatter": 4 * info.adj_channel_num * steps} if dev == DEVICE else {}
+        _expect(f"kg steps on {dev}", _counts(), want)
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
+    say(f"GPU vs CPU KG step costs (float32 payload): GPU {costs[DEVICE]} CPU "
+        f"{costs['cpu']} relative difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"GPU and CPU KG step costs differ by {max(rel)}")
+
+
+def kg_step_breakdown(workdir, steps=20):
+    """The bf16 KG training step by step: the graph batch's one-time host
+    build (and its stream structures), then per step the host time of the
+    label slice and its negatives, the step's wall time to a synchronise,
+    and over a profiled window the device's busy time and idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg, _ = kg_config(workdir, "kg_breakdown")
+    t0 = time.perf_counter()
+    kb, info, be = kg_batcher(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    trainer = Trainer(build_model("kg_distmult", info, cfg), cfg, info, device=DEVICE)
+    state = trainer.init_state(seed=0)
+    t0 = time.perf_counter()
+    lls, lvs = kb._epoch_label_lists(True)
+    lists = (time.perf_counter() - t0) / len(lls)
+    S = len(lls)
+    for i in range(3):  # warm-up
+        state, _, _ = trainer.train_step(state, kb._with_labels(lls[i % S], lvs[i % S]))
+    torch.cuda.synchronize()
+    host, step = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = kb._with_labels(lls[i % S], lvs[i % S])
+        t1 = time.perf_counter()
+        state, _, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        host.append(lists + t1 - t0)
+        step.append(time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _, _ = trainer.train_step(state, kb._with_labels(lls[i % S], lvs[i % S]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(getattr(ev, "device_time_total", 0.0) for ev in events) / 1e6
+    top = sorted(events, key=lambda ev: -getattr(ev, "device_time_total", 0.0))[:10]
+    for ev in top:
+        t = getattr(ev, "device_time_total", 0.0) / 1e3 / steps
+        say(f"  kg step device ms {t:.4f} ({t / (busy * 1e3 / steps):.3f} of busy) "
+            f"in {ev.count / steps:.1f} launches a step: {ev.key[:90]}")
+    say(f"step time kg ({be.name}, payload {be.compute_dtype}, {info.adj_channel_num} "
+        f"channels, label batch {cfg['label_batch_size']}, {steps} steps): graph "
+        f"batch host build ms {build * 1e3:.2f} (of which stream structures "
+        f"{kb.stream_seconds * 1e3:.2f}); host ms per step {np.mean(host) * 1e3:.4f}, "
+        f"step wall ms to sync {np.mean(step) * 1e3:.4f} (median "
+        f"{np.median(step) * 1e3:.4f}); profiled: wall ms/step {wall / steps * 1e3:.4f}, "
+        f"device busy ms/step {busy / steps * 1e3:.4f}, idle share {1 - busy / wall:.4f}")
+
+
+def phase_kg(workdir):
+    phase(8, "kg: cli.kg, cli.main train and infer on a WN18RR-shaped knowledge graph")
+    kg_files(workdir)
+    launches = {k: 0 for k in _counted()}
+    for name, over in (("kg_bf16", {}),
+                       ("kg_f32", {"tiled_compute_dtype": "float32", "epoch": 1})):
+        counts, _, _ = kg_run(workdir, name, **over)
+        for k, v in counts.items():
+            launches[k] += v
+    kg_gpu_vs_cpu(workdir)
+    kg_step_breakdown(workdir)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def summary_rows(gconv_rows, tiled_rows, stream_rows, launches):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
     the served batch's three GraphConv calls; tiled: the solubility batch at
-    F 81 and 50 and the GAT batch, bf16 payload), errors over every shape."""
+    F 81 and 50 and the GAT batch, bf16 payload; stream: the KG's largest
+    and smallest relation channels at F 128 — the iota-route scatter with
+    the float32 payload of its KG run, the one-hot scatter and the weight
+    gradient with bf16), errors over every shape."""
     def mean(rows, key):
         vals = [r[key] for r in rows]
         return None if None in vals else sum(vals) / len(vals)
@@ -839,7 +1355,31 @@ def summary_rows(gconv_rows, tiled_rows, launches):
         "bound_ms": mean(gat, "bound"),
         "bound_by": gat[0]["bound_by"],
         "library_ms": mean(gat, "sddmm_library"),
-    }]
+    }] + stream_summary_rows(stream_rows, launches, mean)
+
+
+def stream_summary_rows(rows, launches, mean):
+    kg = [r for r in rows if r["on_path"]]
+    out = []
+    for name, line, key, kind, err in (
+            ("stream_scatter", 335, "scatter", "scatter", "scatter_err"),
+            ("stream_scatter_mat", 374, "scatter_mat", "scatter_mat", "mat_err"),
+            ("stream_dw", 448, "dw", "dw", "dw_err")):
+        bounds = [r["bounds"][kind] for r in kg]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "kgcn_tpu_torch/ops/csrc/stream.cu",
+            "replaces": f"kgcn_tpu/ops/stream_spmm.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r[err] for r in rows),
+            "ms": mean(kg, key),
+            "plain_ms": mean(kg, f"{key}_plain"),
+            "bound_ms": sum(b for b, _ in bounds) / len(bounds),
+            "bound_by": bounds[0][1],
+            "library_ms": mean(kg, "dw_library" if kind == "dw" else "spmm_library"),
+        })
+    return out
 
 
 def main():
@@ -853,14 +1393,24 @@ def main():
         launches = phase_train(workdir)
         say(f"train done at {time.time() - t_start:.1f} s")
         launches["gconv"] += phase_serve(workdir)
+        say(f"serve done at {time.time() - t_start:.1f} s")
+        stream_rows = phase_stream_check(workdir)
+        say(f"stream check done at {time.time() - t_start:.1f} s")
+        for k, v in phase_kg(workdir).items():
+            launches[k] += v
 
     import torch
 
-    phase(7, "summary")
+    phase(9, "summary")
     for k, v in launches.items():
-        if v <= 0:
+        if k in NO_MAIN_PATH_LAUNCH:
+            if v != 0:
+                raise AssertionError(f"{k} launched {v} times on the main path, want 0")
+            say(f"{k}: 0 launches on the main path, as predicted "
+                f"({NO_MAIN_PATH_LAUNCH[k]}); checked against its plain version in phase 7")
+        elif v <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
-    kernels = summary_rows(gconv_rows, tiled_rows, launches)
+    kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, launches)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

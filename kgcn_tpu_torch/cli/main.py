@@ -1,24 +1,34 @@
 """Command-line entry point of the port — the counterpart of
-``kgcn_tpu/cli/main.py`` for the ``train`` subcommand.
+``kgcn_tpu/cli/main.py`` for the ``train`` subcommand and for ``infer`` on
+knowledge graphs.
 
     python -m kgcn_tpu_torch.cli.main train --config example_config/gat.json [--cpu]
+    python -m kgcn_tpu_torch.cli.main train --config kg.json [--cpu]
+    python -m kgcn_tpu_torch.cli.main infer --config kg.json [--cpu]
 
-Same JSON configs and the same outputs as ``kgcn-tpu train``: per-epoch
-lines, best / interval / last checkpoints under ``save_model_path`` (the
-port's own format, ``runtime/checkpoint.py``), ``serve_info.json`` beside
-them, and ``save_info_train`` / ``save_info_valid`` / ``save_result_valid``.
-Runs on the GPU unless ``--cpu`` is given.
+Same JSON configs and the same outputs as ``kgcn-tpu``: per-epoch lines,
+best / interval / last checkpoints under ``save_model_path`` (the port's
+own format, ``runtime/checkpoint.py``), ``serve_info.json`` beside them, and
+``save_info_train`` / ``save_info_valid`` / ``save_result_valid``.  A
+``task: link_prediction`` dataset with a ``label_list`` trains the KG link
+predictor (``cmd_train_kg``: preference pairs, the ``last`` checkpoint,
+``save_info_train``), and ``infer`` ranks its held-out triples
+(``cmd_infer_kg``: mean rank, MRR, hits@1/10; ``save_edge_result`` or
+``save_result_test``, ``save_info_test``).  Runs on the GPU unless ``--cpu``
+is given.
 
 The config's ``spmm_backend`` picks the path: ``"auto"`` resolves as in
-``kgcn_tpu`` (dense up to 256 padded nodes, the CUDA gconv kernel),
-``"tiled"`` takes the tiled SpMM/SDDMM kernels with the payload dtype
+``kgcn_tpu`` (dense up to 256 padded nodes, the CUDA gconv kernel; stream
+for whole-graph work beyond, the CUDA stream kernels), ``"tiled"`` takes the
+tiled SpMM/SDDMM kernels; the tiled and stream payload dtype is
 ``tiled_compute_dtype`` (``"bfloat16"`` default, or ``"float32"``).
 
 Not ported yet, each raising "not yet ported" (ROADMAP.md A.2): the
-``train_cv``, ``infer``/``predict`` and ``visualize`` subcommands,
-``mesh``, ``make_plot``, ``export_model`` and ``"precision": "bfloat16"``.
-The offline scikit-learn battery (``valid_metrics`` in ``save_info_valid``)
-is left out: the GPU machine has no scikit-learn.
+``train_cv`` and ``visualize`` subcommands, ``infer``/``predict`` on
+datasets other than KGs, ``mesh`` (KG: the sharded and resident training),
+``make_plot``, ``export_model`` and ``"precision": "bfloat16"``.  The offline
+scikit-learn battery (``valid_metrics`` in ``save_info_valid``) is left
+out: the GPU machine has no scikit-learn.
 """
 from __future__ import annotations
 
@@ -29,11 +39,14 @@ import time
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from kgcn_tpu_torch.data.batcher import Batcher
 from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
+from kgcn_tpu_torch.models.kg import KGBatcher
 from kgcn_tpu_torch.models.registry import build_model
 from kgcn_tpu_torch.runtime import backend as backend_mod
+from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime.config import load_config
 from kgcn_tpu_torch.runtime.device import device_from_arg
 from kgcn_tpu_torch.runtime.train import Trainer
@@ -83,10 +96,119 @@ def _not_ported(what: str):
                               "(ROADMAP.md A.2)")
 
 
-def _prepare(config, dataset_key="dataset"):
+def _prepare(config, dataset_key="dataset", test_mode=False):
     """Dataset, info and the resolved backend (pinned in the config)."""
-    ds, info = load_jbl(config[dataset_key], config)
+    ds, info = load_jbl(config[dataset_key], config, test_mode=test_mode)
     return ds, info, backend_mod.resolve(config, info)
+
+
+def _is_kg(config) -> bool:
+    return (config.get("task") == "link_prediction"
+            or bool(config.get("with_node_embedding")))
+
+
+def _kg_model_name(config) -> str:
+    name = config.get("model.py", "kg_distmult")
+    return "kg_distmult" if name in ("model", "gcn") else name
+
+
+def cmd_train_kg(config, ds, info, backend, device) -> Dict[str, Any]:
+    """Whole-graph link-prediction training (``kgcn_tpu``'s
+    ``cmd_train_kg``): batch 1, preference pairs over ``label_batch_size``
+    slices with negatives resampled every step, one line per epoch, the
+    ``last`` checkpoint, ``save_info_train``."""
+    if config.get("mesh"):
+        _not_ported("sharded KG training (config 'mesh': kgcn_tpu's "
+                    "_train_kg_sharded and its resident fit)")
+    model = build_model(_kg_model_name(config), info, config)
+    trainer = Trainer(model, config, info, device=device)
+    seed = int(config.get("seed", 0))
+    kb = KGBatcher(ds, info, label_batch_size=config.get("label_batch_size"),
+                   pair_mode=config.get("preference_pair_mode", "both"),
+                   seed=seed, backend=backend, device=trainer.device)
+    state = trainer.init_state(seed)
+    t0 = time.time()
+    best_acc = 0.0
+    for epoch in range(int(config.get("epoch", 50))):
+        state, cost, metrics, _ = trainer.run_epoch(state, kb)
+        tc = sum(float(m["correct_count"]) for m in metrics)
+        tn = sum(float(m["count"]) for m in metrics)
+        acc = tc / max(tn, 1)
+        best_acc = max(best_acc, acc)
+        print(f"epoch {epoch}, training cost {cost:.6g} (rank acc={acc:.4g})")
+    train_time = time.time() - t0
+    print(f"training time: {train_time}[sec]")
+    model_dir = config.get("save_model_path") or "model"
+    path = ckpt.save_tree(ckpt.ckpt_name(model_dir, "last"),
+                          trainer.state_tree(state, 0, 0.0))
+    print(f"[SAVE] {path}")
+    result = {"train_time": train_time, "ranking_accuracy": best_acc}
+    if config.get("save_info_train"):
+        _save_json(config["save_info_train"], result)
+    return result
+
+
+def cmd_infer_kg(config, ds, info, backend, device) -> Dict[str, Any]:
+    """KG link-prediction inference (``kgcn_tpu``'s ``cmd_infer_kg``): the
+    checkpoint's model scores every entity as head of each held-out triple
+    (``left_prediction``); ranks over the real entities give mean rank,
+    MRR, hits@1 and hits@10."""
+    model = build_model(_kg_model_name(config), info, config)
+    trainer = Trainer(model, config, info, device=device)
+    kb = KGBatcher(ds, info, label_batch_size=config.get("label_batch_size"),
+                   seed=0, test=True, backend=backend, device=trainer.device)
+    load_path = config.get("load_model") or os.path.join(
+        config.get("save_model_path", "model"), "model.last.ckpt")
+    state = trainer.restore(load_path)
+    print(f"[LOAD] {load_path}")
+
+    triples = kb.label_list
+    heads, rels, tails = triples[:, 0], triples[:, 1], triples[:, 2]
+    model = trainer.model
+    model.load_state_dict({**state.params, **state.batch_stats})
+    dev = trainer.device
+    with torch.no_grad():
+        scores = model.left_prediction(
+            kb.init_batch(), torch.from_numpy(tails).to(dev),
+            torch.from_numpy(rels).to(dev)).cpu().numpy()  # [K, V padded]
+    # the node axis is padded past the true entity count; padding rows score
+    # exactly 0 and would outrank any negative true score
+    scores = scores[:, : int(info.all_node_num)]
+    true_scores = scores[np.arange(len(heads)), heads]
+    ranks = (scores > true_scores[:, None]).sum(axis=1) + 1
+    result = {
+        "mean_rank": float(ranks.mean()),
+        "mrr": float((1.0 / ranks).mean()),
+        "hits@1": float((ranks <= 1).mean()),
+        "hits@10": float((ranks <= 10).mean()),
+        "num_test_triples": int(len(triples)),
+    }
+    print(json.dumps(result))
+    out_path = config.get("save_edge_result") or config.get("save_result_test")
+    if out_path:
+        d = os.path.dirname(out_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(out_path, "w") as f:
+            f.write("head,relation,tail,score,head_rank\n")
+            for h, r, t, sc, rk in zip(heads, rels, tails, true_scores, ranks):
+                f.write(f"{h},{r},{t},{sc:.6g},{rk}\n")
+        print(f"[SAVE] {out_path}")
+    if config.get("save_info_test"):
+        _save_json(config["save_info_test"], result)
+    return result
+
+
+def cmd_infer(config, device=None) -> Dict[str, Any]:
+    """``infer`` / ``predict``: ranking of a KG's held-out triples; other
+    datasets are not ported yet."""
+    device = device_from_arg(device)
+    if not _is_kg(config):
+        _not_ported("infer/predict on datasets other than knowledge graphs")
+    ds, info, backend = _prepare(config, test_mode=True)
+    if ds.label_list is None:
+        _not_ported("infer/predict on node-embedding datasets without a label_list")
+    return cmd_infer_kg(config, ds, info, backend, device)
 
 
 def _fit_once(config, train_ds, valid_ds, info, backend, device):
@@ -134,21 +256,24 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
     for the GPU (raises without one) or "cpu"."""
     device = device_from_arg(device)
     task = config.get("task", "")
-    if task == "link_prediction" or config.get("with_node_embedding"):
-        _not_ported("knowledge-graph / node-embedding training")
     for key in ("make_plot", "export_model", "export_savedmodel"):
         if config.get(key):
             _not_ported(f"config {key!r}")
     if str(config.get("precision", "float32")) != "float32":
         _not_ported(f"config precision {config['precision']!r} (ROADMAP.md A.4)")
+    preloaded = None
+    if _is_kg(config):
+        preloaded = _prepare(config)
+        if preloaded[0].label_list is not None:
+            return cmd_train_kg(config, *preloaded, device)
     if config.get("validation_dataset"):
-        train_ds, info, backend = _prepare(config)
+        train_ds, info, backend = preloaded or _prepare(config)
         valid_ds, valid_info, _ = _prepare(config, dataset_key="validation_dataset")
         info.graph_node_num = max(info.graph_node_num, valid_info.graph_node_num)
         valid_ds.max_node_num = train_ds.max_node_num = max(
             train_ds.max_node_num, valid_ds.max_node_num)
     else:
-        ds, info, backend = _prepare(config)
+        ds, info, backend = preloaded or _prepare(config)
         train_ds, valid_ds, _, _ = split_dataset(
             ds, config.get("validation_data_rate", 0.3),
             seed=int(config.get("seed", 0)),
@@ -220,9 +345,12 @@ def main(argv=None):
         "learning_rate": args.learning_rate,
         "seed": args.seed,
     })
-    if args.mode != "train":
-        _not_ported(f"the {args.mode!r} subcommand")
-    return cmd_train(config, device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else None
+    if args.mode == "train":
+        return cmd_train(config, device=device)
+    if args.mode in ("infer", "predict"):
+        return cmd_infer(config, device=device)
+    _not_ported(f"the {args.mode!r} subcommand")
 
 
 if __name__ == "__main__":

@@ -7,14 +7,16 @@ e.g. ``jax.device_get(state.params)``) and returns the port's checkpoint tree
 loads into the matching port model with ``load_state_dict``.
 
 The port's modules carry flax's scope and parameter names, so the mapping is
-a rule, not a table: scopes join with ``.``, and a 2-D ``kernel`` (a flax
-``Dense``, stored ``[in, out]``) becomes the ``nn.Linear`` ``weight``,
-transposed to ``[out, in]``.  Every other leaf (GraphConv's ``kernel``
-``[C, Fin, Fout]``, biases, BN ``scale``/``mean``/``var``) keeps its name
-and layout.
+a rule, not a table: scopes join with ``.``, and the ``kernel`` of a flax
+``Dense`` (scope ``Dense_<n>``, stored ``[in, out]``) becomes the
+``nn.Linear`` ``weight``, transposed to ``[out, in]``.  Every other leaf
+keeps its name and layout: GraphConv's ``kernel`` ``[C, Fin, Fout]``,
+DistMult's relation table ``kernel`` ``[C, dim]``, the ``embedding`` table,
+GIN's ``epsilon``, biases, BN ``scale``/``mean``/``var``.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -32,9 +34,12 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+_DENSE_SCOPE = re.compile(r"Dense_\d+")  # flax's name for an nn.Dense
+
+
 def _convert_leaf(name: str, arr: np.ndarray):
     scope, dot, leaf = name.rpartition(".")
-    if leaf == "kernel" and arr.ndim == 2:
+    if leaf == "kernel" and _DENSE_SCOPE.fullmatch(scope.rpartition(".")[2]):
         return f"{scope}{dot}weight", np.ascontiguousarray(arr.T)
     return name, arr
 

@@ -9,11 +9,13 @@ moves them.
 
 The batcher carries the resolved backend (``runtime/backend.Backend``) and
 stamps it on every batch; with ``tiled`` it attaches the tiled edge
-structures (``_attach_tiled``, as ``kgcn_tpu/data/batcher.py:354-393``).
-``host_seconds`` accumulates the host time spent assembling batches, and
-``tiled_seconds`` the part of it spent building tiled structures.  The JAX
-package's native C++ packer and its ELL / stream attachments are not
-ported (ROADMAP.md queue A).
+structures (``_attach_tiled``, as ``kgcn_tpu/data/batcher.py:354-393``),
+with ``stream`` the stream structures (``_attach_stream``, as
+``kgcn_tpu/data/batcher.py:395-418``).  ``host_seconds`` accumulates the
+host time spent assembling batches, and ``tiled_seconds`` /
+``stream_seconds`` the part of it spent building tiled / stream structures.
+The JAX package's native C++ packer and its ELL attachments are not ported
+(ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ class Batch:
     node_label: Optional[torch.Tensor] = None
     mask_node_label: Optional[torch.Tensor] = None
     pad_mask: Optional[torch.Tensor] = None  # [B] 1.0 = real example
+    label_list: Optional[torch.Tensor] = None  # [B, L, 6] KG preference triples
+    label_valid: Optional[torch.Tensor] = None  # [B, L] 1.0 = real pair (0 = wrap pad)
 
     def to(self, device) -> "Batch":
         moved = {
@@ -58,6 +62,9 @@ class Batch:
             if getattr(self, f.name) is not None
         }
         return dataclasses.replace(self, **moved)
+
+    def replace(self, **changes) -> "Batch":
+        return dataclasses.replace(self, **changes)
 
 
 def epoch_permutation(n: int, seed: int, epoch: Optional[int] = None,
@@ -97,8 +104,11 @@ class Batcher:
         self._tiled_cfg = None
         self._tiled_loc = None
         self._tiled_budget = None
+        # stream: the macro budget is pinned by the first batch likewise
+        self._stream_budget = None
         self.host_seconds = 0.0
         self.tiled_seconds = 0.0
+        self.stream_seconds = 0.0
 
     @property
     def valid_per_epoch(self) -> int:
@@ -152,6 +162,7 @@ class Batcher:
             adjs,
             ds.features[idx] if ds.features is not None else None,
             self.max_nodes,
+            node_ids=[ds.nodes[i] for i in idx] if ds.nodes is not None else None,
             n_nodes=(
                 ds.enabled_node_nums[idx] if ds.enabled_node_nums is not None else None
             ),
@@ -163,6 +174,10 @@ class Batcher:
             t0 = time.perf_counter()
             graph = self._attach_tiled(graph)
             self.tiled_seconds += time.perf_counter() - t0
+        elif self.backend.name == "stream":
+            t0 = time.perf_counter()
+            graph = self._attach_stream(graph)
+            self.stream_seconds += time.perf_counter() - t0
 
         def pad_rows(x):
             if x is None:
@@ -212,6 +227,24 @@ class Batcher:
                                         feature_dim=F, locality=self._tiled_loc)
             except ValueError:
                 self._tiled_budget *= 2
+
+    def _attach_stream(self, graph: GraphBatch) -> GraphBatch:
+        """Per-channel stream structures, weights baked in.  The first batch
+        is a probe: the macro budget is set to 1.25× its largest macro count
+        (either direction), at least one more; a later batch that overflows
+        it doubles it."""
+        if self._stream_budget is None:
+            probe = graph.with_stream()
+            budget = max(
+                max(t.meta.n_macros for t in probe.stream_adj),
+                max(t.transpose.meta.n_macros for t in probe.stream_adj),
+            )
+            self._stream_budget = max(int(budget * 1.25), budget + 1)
+        while True:
+            try:
+                return graph.with_stream(macro_budget=self._stream_budget)
+            except ValueError:
+                self._stream_budget *= 2
 
     def _pad_node_axis(self, x):
         """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the

@@ -5,10 +5,11 @@ throughout.  Covered: ``feature``, the adjacency keys ``adj`` (per-graph COO
 tuples), ``dense_adj`` and ``multi_dense_adj``, the transform flags
 ``order`` / ``split_adj_flag`` / ``normalize_adj_flag``, ``label`` /
 ``mask_label`` (and their ``*_sparse`` forms), ``node_label`` /
-``mask_node_label``, ``class_weight``, ``mol_info`` and ``max_node_num``.
+``mask_node_label``, ``class_weight``, ``mol_info``, ``max_node_num``, and
+the node-embedding mode of KG datasets (``node`` / ``node_num`` with
+``with_node_embedding``, ``label_list`` / ``test_label_list``).
 
-Not read yet, because no ported model uses them (ROADMAP.md queue A): the
-node-embedding mode (``node`` / ``node_num``), KG ``label_list``,
+Not read yet, because no ported model uses them (ROADMAP.md queue A):
 ``sequence*``, the vector modals and ``graph_index_list``.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ class DatasetInfo:
     graph_num: int = 0
     label_dim: Optional[int] = None
     adj_channel_num: int = 1
+    all_node_num: Optional[int] = None
     feature_enabled: bool = True
     pos_weight: Optional[np.ndarray] = None
     class_weight: Optional[np.ndarray] = None
@@ -47,10 +49,12 @@ class Dataset:
     # adjs[g] = list of (row, col, val) numpy triples, one per channel
     adjs: Optional[List[List[tuple]]] = None
     features: Optional[np.ndarray] = None  # [G, N, F]
+    nodes: Optional[np.ndarray] = None  # [G, N] int vocab ids (embedding mode)
     labels: Optional[np.ndarray] = None
     mask_label: Optional[np.ndarray] = None
     node_label: Optional[np.ndarray] = None
     mask_node_label: Optional[np.ndarray] = None
+    label_list: Optional[Any] = None  # KG triple lists
     enabled_node_nums: Optional[np.ndarray] = None
     num: int = 0
     max_node_num: int = 0
@@ -69,10 +73,12 @@ class Dataset:
         return Dataset(
             adjs=take(self.adjs),
             features=take(self.features),
+            nodes=take(self.nodes),
             labels=take(self.labels),
             mask_label=take(self.mask_label),
             node_label=take(self.node_label),
             mask_node_label=take(self.mask_node_label),
+            label_list=self.label_list,
             enabled_node_nums=take(self.enabled_node_nums),
             num=len(idx),
             max_node_num=self.max_node_num,
@@ -178,12 +184,8 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
     """Assemble (Dataset, DatasetInfo) from a raw jbl dict, as
     ``kgcn_tpu.data.build_dataset`` does (reference: kgcn/data_util.py:374-592),
     for the keys listed in the module docstring.  ``test_mode`` selects the
-    KG test labels there; it is accepted here for the same call signature."""
+    KG test triples (``test_label_list``) instead of the training ones."""
     config = config or {}
-    if config.get("with_node_embedding", False):
-        raise NotImplementedError(
-            "node-embedding mode is not ported yet (ROADMAP.md queue A)"
-        )
     order = int(config.get("order", 1) or 1)
     split_flag = bool(config.get("split_adj_flag", False))
     normalize_flag = bool(config.get("normalize_adj_flag", False))
@@ -193,6 +195,9 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
         features = None
     if features is not None:
         features = np.asarray(features, dtype=np.float32)
+    nodes = None
+    if config.get("with_node_embedding", False) and "node" in data:
+        nodes = np.array(data["node"], np.int32)
 
     adjs, enabled, max_node_num = _adjacency(data)
     if adjs is not None:
@@ -235,17 +240,22 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
         mask_label = np.asarray(mask_label)
     node_label = data.get("node_label")
     mask_node_label = data.get("mask_node_label")
+    label_list = None
+    if "label_list" in data:
+        label_list = data["test_label_list"] if test_mode else data["label_list"]
 
     num = len(adjs) if adjs is not None else (len(labels) if labels is not None else 0)
     ds = Dataset(
         adjs=adjs,
         features=features,
+        nodes=nodes,
         labels=labels,
         mask_label=mask_label,
         node_label=np.asarray(node_label) if node_label is not None else None,
         mask_node_label=(
             np.asarray(mask_node_label) if mask_node_label is not None else None
         ),
+        label_list=label_list,
         enabled_node_nums=enabled,
         num=num,
         max_node_num=max_node_num,
@@ -258,6 +268,11 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
         info.feature_dim = features.shape[2]
         info.graph_node_num = features.shape[1]
         info.feature_enabled = True
+    elif nodes is not None:
+        info.feature_dim = 0
+        info.graph_node_num = nodes.shape[1]
+        info.all_node_num = int(data["node_num"])
+        info.feature_enabled = False
     if max_node_num:
         info.graph_node_num = max(info.graph_node_num, max_node_num)
     if labels is not None:

@@ -13,14 +13,18 @@ rules —
   the fused graph convolution (``ops/gconv.py``) consumes;
 * ``tiled_adj`` optionally carries the per-channel ``TiledCOO`` structures
   of the tiled sparse kernels (``ops/tiled_spmm.py``), built on the host by
-  ``with_tiled``.
+  ``with_tiled``;
+* ``stream_adj`` optionally carries the per-channel ``StreamCOO``
+  structures of the stream kernels (``ops/stream_spmm.py``), adjacency
+  weights baked in, built on the host by ``with_stream``;
+* ``node_ids`` replaces ``nodes`` in node-embedding mode (KG workloads):
+  ``[V]`` vocabulary ids into an embedding table.
 
 Where the JAX package reads process globals (the dense-path switch, the
-tiled compute dtype), a batch here carries ``backend`` and
+tiled/stream compute dtype), a batch here carries ``backend`` and
 ``compute_dtype``, set by the ``Batcher`` from the resolved backend
-(``runtime/backend.py``).  The JAX container's ``node_ids`` (node-embedding
-mode) and its ``ell_*`` / ``stream_adj`` attachments come with the slices
-that use them (ROADMAP.md queue A).
+(``runtime/backend.py``).  The JAX container's ``ell_*`` attachments come
+with the slice that uses them (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from kgcn_tpu_torch.ops import stream_spmm as stream_ops
 from kgcn_tpu_torch.ops import tiled_spmm as tiled_ops
 
 LANE = 128  # edge budgets are rounded up to a multiple (as in kgcn_tpu)
@@ -50,13 +55,16 @@ class GraphBatch:
     n_edge: ``[C]`` int32 count of valid (packed-first) edges.
     n_node: ``[B]`` int32 true node count per graph.
     node_mask: ``[V]`` float32, 1 for real nodes and 0 for padding.
-    nodes: ``[V, F]`` float32 features.
+    nodes: ``[V, F]`` float32 features, or None in node-embedding mode.
+    node_ids: ``[V]`` int32 vocabulary ids (node-embedding mode), or None.
     dense_adj: cached ``[C, B, N, N]`` adjacency, or None.
     edge_valid: optional explicit ``[C, E]`` edge-validity mask.
     tiled_adj: tuple of per-channel ``TiledCOO``, or None.
+    stream_adj: tuple of per-channel ``StreamCOO``, or None.
     n_graph, max_nodes: Python ints.
-    backend: the resolved spmm backend (``"dense"`` or ``"tiled"``).
-    compute_dtype: the tiled kernels' payload dtype.
+    backend: the resolved spmm backend (``"dense"``, ``"tiled"`` or
+        ``"stream"``).
+    compute_dtype: the tiled and stream kernels' payload dtype.
     """
 
     senders: torch.Tensor
@@ -66,9 +74,11 @@ class GraphBatch:
     n_node: torch.Tensor
     node_mask: torch.Tensor
     nodes: Optional[torch.Tensor] = None
+    node_ids: Optional[torch.Tensor] = None
     dense_adj: Optional[torch.Tensor] = None
     edge_valid: Optional[torch.Tensor] = None
     tiled_adj: Optional[tuple] = None
+    stream_adj: Optional[tuple] = None
     n_graph: int = 1
     max_nodes: int = 1
     backend: str = "dense"
@@ -162,14 +172,41 @@ class GraphBatch:
             ))
         return self.replace(tiled_adj=tuple(tes))
 
+    def with_stream(self, *, macro_budget: Optional[int] = None,
+                    params: Optional[dict] = None) -> "GraphBatch":
+        """A copy carrying per-channel stream structures
+        (``kgcn_tpu``'s ``with_stream``, ``graph/batch.py:259-288``).
+
+        Host side, NumPy.  The adjacency weights are baked in (and into
+        bf16 one-hots where they fit), so the layers call the kernels
+        weight-free.  ``macro_budget``: pad the macro lists to a fixed
+        length; ``params``: ``build_stream`` keyword arguments (tr_w, chunk,
+        mc, wb, materialize)."""
+        if self.stream_adj is not None:
+            return self
+        s = self.senders.cpu().numpy()
+        r = self.receivers.cpu().numpy()
+        w = self.edge_weights.cpu().numpy()
+        ev = self.edge_valid.cpu().numpy() if self.edge_valid is not None else None
+        kw = dict(params or {})
+        sss = tuple(
+            stream_ops.build_stream(s[c], r[c], self.total_nodes, weights=w[c],
+                                    macro_budget=macro_budget,
+                                    valid_mask=ev[c] if ev is not None else None, **kw)
+            for c in range(s.shape[0])
+        )
+        return self.replace(stream_adj=sss)
+
     def to(self, device) -> "GraphBatch":
         moved = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
-        if self.tiled_adj is not None:
-            moved["tiled_adj"] = tuple(t.to(device) for t in self.tiled_adj)
+        for name in ("tiled_adj", "stream_adj"):
+            structs = getattr(self, name)
+            if structs is not None:
+                moved[name] = tuple(t.to(device) for t in structs)
         return self.replace(**moved)
 
 
@@ -205,6 +242,7 @@ def batch_graphs(
     features: Optional[np.ndarray],
     max_nodes: int,
     *,
+    node_ids: Optional[Sequence[Sequence[int]]] = None,
     n_nodes: Optional[Sequence[int]] = None,
     edge_budget: Optional[int] = None,
     n_graph: Optional[int] = None,
@@ -215,6 +253,7 @@ def batch_graphs(
     adjs: ``adjs[g][c]`` is graph g's channel-c adjacency (scipy sparse, COO
         tuple, or dense ndarray).
     features: ``[G, N, F]`` padded node features or None.
+    node_ids: per-graph node vocabulary ids (node-embedding mode).
     n_nodes: true node counts; inferred from feature non-zero rows if omitted.
     edge_budget: static per-channel edge capacity; lane-rounded from this
         batch if omitted.
@@ -273,6 +312,13 @@ def batch_graphs(
         nodes_np = np.zeros((B, N, F), dtype=np.float32)
         nodes_np[:G, : features.shape[1]] = features[:, :N]
         nodes = torch.from_numpy(nodes_np.reshape(B * N, F))
+    ids = None
+    if node_ids is not None:
+        ids_np = np.zeros((B, N), dtype=np.int32)
+        for g, row in enumerate(node_ids):
+            row = np.asarray(row, dtype=np.int32)
+            ids_np[g, : len(row)] = row
+        ids = torch.from_numpy(ids_np.reshape(-1))
 
     return GraphBatch(
         senders=torch.from_numpy(senders),
@@ -282,6 +328,7 @@ def batch_graphs(
         n_node=torch.from_numpy(nn_pad),
         node_mask=torch.from_numpy(mask),
         nodes=nodes,
+        node_ids=ids,
         n_graph=B,
         max_nodes=N,
     )

@@ -1,9 +1,9 @@
 """Model registry — the counterpart of ``kgcn_tpu/models/registry.py``.
 
 Resolves the ``model.py`` config key (registry name or the reference's
-dotted path) to a constructor.  ``gcn`` and ``gat`` are ported so far; every
-other name the JAX package knows raises ``NotImplementedError`` pointing at
-ROADMAP.md.
+dotted path) to a constructor.  ``gcn``, ``gat`` and ``kg_distmult`` are
+ported so far; every other name the JAX package knows raises
+``NotImplementedError`` pointing at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -53,7 +53,18 @@ def _gat(info, config):
     )
 
 
-_REGISTRY = {"gcn": _gcn, "gat": _gat}
+def _kg_distmult(info, config):
+    from kgcn_tpu_torch.models.kg import KGLinkPredictor
+
+    return KGLinkPredictor(
+        all_node_num=info.all_node_num,
+        embedding_dim=int(config.get("embedding_dim", 10)),
+        channels=info.adj_channel_num,
+        encoder=config.get("kg_encoder", "embedding"),
+    )
+
+
+_REGISTRY = {"gcn": _gcn, "gat": _gat, "kg_distmult": _kg_distmult}
 
 
 def available() -> list:

@@ -1,13 +1,23 @@
 """Graph NN layers (torch.nn) — the counterparts of
-``kgcn_tpu/nn/layers.py:44-131, 167-258, 294-383``.
+``kgcn_tpu/nn/layers.py:44-258, 294-396, 424-467``.
 
 Semantics as there (checked against the reference, SURVEY.md §2.2):
 
 * GraphConv: per-channel weights AND biases, channel outputs summed
   (kgcn/layers.py:52-62,107-115).  Dense batches aggregate through the fused
-  ``gconv`` op; tiled batches project ``X W_c + b_c`` and aggregate through
-  ``spmm_multichannel`` (the tiled SpMM kernel).  Both run hand-written CUDA
-  kernels on the GPU.
+  ``gconv`` op; stream and tiled batches project ``X W_c + b_c`` and
+  aggregate through ``spmm_multichannel`` (the stream kernels with the
+  baked adjacency weights, or the tiled SpMM kernel).  All run hand-written
+  CUDA kernels on the GPU.
+* GINAggregate: ``Σ_c (ε_c X + A_c X)`` with a learnable scalar ε per
+  channel, zeros init, applied as ``(Σ_c ε_c)·X + Σ_c A_c X`` — the naive
+  path of the reference (kgcn/layers.py:464-471), as ``kgcn_tpu`` keeps it.
+* Embed / NodeEmbedding: the node-id embedding table of node-embedding
+  mode (kgcn/default_model.py:24-27), flax ``nn.Embed``'s initialisation.
+* DistMult: the multi-relation scorer ``Σ_f h_f w_{r,f} t_f``
+  (kgcn/layers.py:307-358) with all-entity left/right prediction; the
+  relation rows are gathered by index (``kgcn_tpu`` gathers them by a
+  one-hot matmul, a TPU device for the same values).
 * GAT: single-head edge attention per channel, sigmoid output, channels
   summed (kgcn/layers.py:477-542), with the edge-list path (tiled batches:
   the attention weights go through ``tiled_spmm``, whose backward gives
@@ -36,7 +46,7 @@ from torch import nn
 from kgcn_tpu_torch.graph.batch import GraphBatch
 from kgcn_tpu_torch.ops import segment
 from kgcn_tpu_torch.ops.gconv import gconv
-from kgcn_tpu_torch.ops.spmm import spmm_multichannel
+from kgcn_tpu_torch.ops.spmm import spmm_dense, spmm_multichannel
 from kgcn_tpu_torch.ops.tiled_spmm import tiled_spmm
 
 
@@ -92,18 +102,60 @@ class GraphConv(nn.Module):
         if graph.dense_adj is not None:
             xb = x.reshape(graph.n_graph, graph.max_nodes, x.shape[-1])
             return gconv(graph.dense_adj, xb, w, b).reshape(graph.total_nodes, -1)
+        hw = torch.einsum("vf,cfo->cvo", x, w) + b[:, None, :]
+        if graph.stream_adj is not None:
+            # the adjacency weights are baked into the structures: weights
+            # None takes them (the static route)
+            return spmm_multichannel(
+                graph.senders, graph.receivers, None, hw, graph.total_nodes,
+                backend="stream", stream=graph.stream_adj,
+                compute_dtype=graph.compute_dtype,
+            )
         if graph.tiled_adj is not None:
-            hw = torch.einsum("vf,cfo->cvo", x, w) + b[:, None, :]
             return spmm_multichannel(
                 graph.senders, graph.receivers, graph.edge_weights, hw,
                 graph.total_nodes, backend="tiled", tiled=graph.tiled_adj,
                 compute_dtype=graph.compute_dtype,
             )
         raise NotImplementedError(
-            "GraphConv needs a dense adjacency or tiled structures; the "
-            "stream, ELL and XLA sparse backends are not ported yet "
+            "GraphConv needs a dense adjacency, stream or tiled structures; "
+            "the ELL and XLA sparse backends are not ported yet "
             "(ROADMAP.md queue A, sparse backends)"
         )
+
+
+class GINAggregate(nn.Module):
+    """GIN aggregation ``Σ_c (ε_c X + A_c X)``; ε a learnable scalar per
+    channel, zeros init (reference: kgcn/layers.py:400-475, naive path)."""
+
+    def __init__(self, channels: int = 1):
+        super().__init__()
+        self.epsilon = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.zeros_(self.epsilon)
+
+    def forward(self, x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        x = _flat(x, graph)
+        if graph.dense_adj is not None:
+            xb = x.reshape(graph.n_graph, graph.max_nodes, -1)
+            agg = spmm_dense(graph.dense_adj, xb).reshape(x.shape)
+        elif graph.stream_adj is not None:
+            agg = spmm_multichannel(
+                graph.senders, graph.receivers, None, x, graph.total_nodes,
+                backend="stream", stream=graph.stream_adj,
+                compute_dtype=graph.compute_dtype,
+            )
+        elif graph.tiled_adj is not None:
+            agg = spmm_multichannel(
+                graph.senders, graph.receivers, graph.edge_weights, x,
+                graph.total_nodes, backend="tiled", tiled=graph.tiled_adj,
+                compute_dtype=graph.compute_dtype,
+            )
+        else:
+            agg = spmm_multichannel(graph.senders, graph.receivers,
+                                    graph.edge_weights, x, graph.total_nodes)
+        return torch.sum(self.epsilon).to(x.dtype) * x + agg
 
 
 class GAT(nn.Module):
@@ -242,3 +294,72 @@ class GraphBatchNormalization(nn.Module):
                 self.var.mul_(m).add_((1 - m) * var)
         y = (x - mean) * torch.rsqrt(var + self.EPSILON) * self.scale + self.bias
         return (y * mask).to(in_dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed``: an ``embedding`` table ``[num, features]`` drawn
+    from N(0, 1/features) (flax's ``variance_scaling(1, "fan_in",
+    "normal", out_axis=0)``), looked up by index."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        std = 1.0 / math.sqrt(self.embedding.shape[1])
+        self.embedding.normal_(0.0, std, generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids.long()]
+
+
+class NodeEmbedding(nn.Module):
+    """Node-id embedding for KG / featureless mode, padding rows zeroed
+    (reference: kgcn/default_model.py:24-27 ``with_node_embedding``).
+    ``Embed_0`` is flax's name for the inner table."""
+
+    def __init__(self, vocab_size: int, features: int):
+        super().__init__()
+        self.Embed_0 = Embed(vocab_size, features)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.Embed_0.reset_parameters(generator)
+
+    def forward(self, graph: GraphBatch) -> torch.Tensor:
+        return self.Embed_0(graph.node_ids) * graph.node_mask[:, None]
+
+
+class DistMult(nn.Module):
+    """Multi-relation DistMult scorer (reference: kgcn/layers.py:307-358).
+    ``kernel`` ``[channels, dim]`` holds one relation vector per channel,
+    Glorot-uniform initialised as ``kgcn_tpu``'s ``glorot_uniform_nd``."""
+
+    def __init__(self, dim: int, channels: int = 1):
+        super().__init__()
+        if dim <= 0:
+            raise ValueError("DistMult requires dim")
+        self.kernel = nn.Parameter(torch.empty(channels, dim))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        per_channel_glorot_(self.kernel, generator)
+
+    def forward(self, z: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        """Full reconstruction ``[B, C, N, N]``."""
+        zb = _flat(z, graph).reshape(graph.n_graph, graph.max_nodes, -1)
+        return torch.einsum("cf,bnf,bmf->bcnm", self.kernel, zb, zb)
+
+    def score(self, z_head, z_tail, channel):
+        """``Σ_f h_f · w_{r,f} · t_f`` per row (kgcn/layers.py:321-325)."""
+        return torch.sum(z_head * z_tail * self.kernel[channel.long()], dim=-1)
+
+    def left_prediction(self, z_all, z_tail, channel):
+        """Score every entity as head: ``[K, num_nodes]``
+        (kgcn/layers.py:327-337)."""
+        return (z_tail * self.kernel[channel.long()]) @ z_all.T
+
+    def right_prediction(self, z_head, z_all, channel):
+        """Score every entity as tail (kgcn/layers.py:339-347)."""
+        return (z_head * self.kernel[channel.long()]) @ z_all.T

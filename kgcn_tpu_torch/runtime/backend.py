@@ -8,9 +8,11 @@ carries it instead: ``resolve`` returns a :class:`Backend` that the
 payload dtype to the layers.  Nothing here is global, so tests may run in any
 order and in one process.
 
-Ported backends: ``dense`` (the CUDA gconv kernel) and ``tiled`` (the CUDA
-tiled SpMM/SDDMM kernels).  ``xla``, ``pallas`` and ``stream`` resolve the
-same way but raise until they are ported (ROADMAP.md A.5).
+Ported backends: ``dense`` (the CUDA gconv kernel), ``tiled`` (the CUDA
+tiled SpMM/SDDMM kernels) and ``stream`` (the CUDA stream scatter kernels;
+its payload dtype is ``tiled_compute_dtype`` too, as in ``kgcn_tpu``).
+``xla`` and ``pallas`` resolve the same way but raise until they are ported
+(ROADMAP.md A.5).
 """
 from __future__ import annotations
 
@@ -19,12 +21,12 @@ import dataclasses
 DENSE_MAX_NODES = 256
 
 _EXPLICIT = ("dense", "xla", "pallas", "tiled", "stream")
-PORTED = ("dense", "tiled")
+PORTED = ("dense", "tiled", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """A resolved backend: its name and the tiled payload dtype."""
+    """A resolved backend: its name and the tiled/stream payload dtype."""
 
     name: str = "dense"
     compute_dtype: str = "bfloat16"

@@ -1,0 +1,329 @@
+"""The port's stream backend (kgcn_tpu_torch/ops/stream_spmm.py, the stream
+branches of ops/spmm.py) against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and fed to both packages.  The JAX
+stream kernels run in Pallas interpret mode with the tiny parameters of
+tests/test_stream_spmm.py; the port runs its plain versions (the CUDA
+kernels' CPU path).  Tolerances: structures equal array for array; the
+float32 payload rtol = atol = 1e-5 (summation order only); the bf16 payload
+atol 1e-4 × max|reference| (both packages round the same operands to bf16,
+the products are exact in f32, only the order of the f32 sums differs).
+No JAX process global is flipped: the compute dtype is passed per call.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kgcn_tpu.ops import stream_spmm as js
+from kgcn_tpu_torch.ops import stream_spmm as ts
+
+torch.set_num_threads(1)
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+FIELDS = ("slot_sender", "r_loc", "slot_src", "sub_wid", "macro_rb",
+          "macro_first", "t_from_f", "w_slots", "oh")
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+# (name, receivers V, senders Vs, edges E, F, build kwargs): the JAX suite's
+# parameter sets and the structure's trouble spots
+CASES = [
+    ("square", 100, 100, 400, 16, dict(tr_w=16, chunk=8, mc=4, wb=2)),
+    ("odd", 37, 37, 150, 5, dict(tr_w=8, chunk=8, mc=2, wb=4)),
+    ("wide", 300, 300, 900, 33, dict(tr_w=32, chunk=16, mc=8, wb=8)),
+    ("rectangular", 40, 90, 300, 12, dict(tr_w=8, chunk=8, mc=2, wb=2)),
+    ("budget", 64, 64, 256, 12, dict(tr_w=16, chunk=8, mc=4, wb=2, macro_budget=40)),
+    ("no_onehots", 64, 64, 256, 12, dict(tr_w=16, chunk=8, mc=4, wb=2,
+                                          materialize=False)),
+]
+NAMES = [c[0] for c in CASES]
+
+
+def _case(name, zero_every=4):
+    _, V, Vs, E, F, kw = next(c for c in CASES if c[0] == name)
+    rng = np.random.RandomState(V + E)
+    s = rng.randint(0, Vs, E).astype(np.int32)
+    r = rng.randint(0, V, E).astype(np.int32)
+    w = rng.standard_normal(E).astype(np.float32)
+    w[::zero_every] = 0.0  # padding edges, dropped from the structure
+    if Vs != V:
+        kw = dict(kw, num_sender_nodes=Vs)
+    return V, Vs, F, s, r, w, kw
+
+
+def _both(name, **over):
+    V, Vs, F, s, r, w, kw = _case(name)
+    kw = dict(kw, **over)
+    return (V, Vs, F, s, r, w, js.build_stream(s, r, V, weights=w, **kw),
+            ts.build_stream(s, r, V, weights=w, **kw))
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype == jnp.bfloat16 else a
+
+
+def assert_same_structure(je, te):
+    assert dataclasses.asdict(je.meta) == dataclasses.asdict(te.meta)
+    for name in FIELDS:
+        a, b = getattr(je, name), getattr(te, name)
+        assert (a is None) == (b is None), name
+        if a is None:
+            continue
+        if name == "oh":
+            assert b.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_np(a), b.to(torch.float32).numpy(), err_msg=name)
+        else:
+            assert b.dtype == (torch.float32 if name == "w_slots" else torch.int32), name
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    assert (je.transpose is None) == (te.transpose is None)
+    if je.transpose is not None:
+        assert_same_structure(je.transpose, te.transpose)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_build_stream_matches_jax(name):
+    *_, je, te = _both(name)
+    assert_same_structure(je, te)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_window_ranges_cover_every_real_slot_once(name):
+    """win_subs (the port's addition) names each receiver window's own
+    sub-chunks: their block and window match macro_rb / sub_wid, and the
+    ranges together hold every real slot exactly once."""
+    *_, te = _both(name)
+    for ss in (te, te.transpose):
+        m = ss.meta
+        n_win = -(-m.num_receivers // m.tr_w)
+        assert tuple(ss.win_subs.shape) == (n_win, 2)
+        seen = np.zeros(m.slots, bool)
+        for w, (first, count) in enumerate(ss.win_subs.numpy()):
+            assert count >= 1
+            subs = np.arange(first, first + count)
+            np.testing.assert_array_equal(ss.macro_rb.numpy()[subs // m.mc], w // m.wb)
+            np.testing.assert_array_equal(ss.sub_wid.numpy()[subs, 0], w % m.wb)
+            slots = (subs[:, None] * m.chunk + np.arange(m.chunk)).ravel()
+            assert not seen[slots].any()
+            seen[slots] = True
+        real = ss.slot_sender.numpy() < m.num_senders
+        assert seen[real].all()
+
+
+def test_build_stream_valid_mask_keeps_zero_weight_edges():
+    V, Vs, F, s, r, w, kw = _case("square", zero_every=3)
+    valid = np.ones_like(w)
+    valid[1::5] = 0.0
+    je = js.build_stream(s, r, V, weights=w, valid_mask=valid, **kw)
+    te = ts.build_stream(s, r, V, weights=w, valid_mask=valid, **kw)
+    assert_same_structure(je, te)
+    kept = set(te.slot_src.numpy().tolist()) - {len(w)}
+    assert kept == set(np.nonzero(valid)[0].tolist())
+
+
+def test_macro_budget_too_small_raises():
+    V, Vs, F, s, r, w, kw = _case("square")
+    with pytest.raises(ValueError, match="macro budget"):
+        ts.build_stream(s, r, V, weights=w, **dict(kw, macro_budget=1))
+
+
+def _x(rows, F, seed=0):
+    return np.random.RandomState(seed).standard_normal((rows, F)).astype(np.float32)
+
+
+def _close(got, want, dtype):
+    got, want = np.asarray(got, np.float32), _np(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **F32)
+    else:
+        scale = float(np.abs(want).max()) or 1.0
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", NAMES)
+def test_stream_spmm_baked_matches_jax(name, dtype):
+    """Baked weights: the static route (bf16 with one-hots) or the iota
+    route, as the JAX package picks."""
+    V, Vs, F, *_, je, te = _both(name)
+    x = _x(Vs, F)
+    want = js.stream_spmm(je, x=jnp.asarray(x), compute_dtype=JDT[dtype])
+    got = ts.stream_spmm(te, x=torch.from_numpy(x), compute_dtype=dtype)
+    assert tuple(got.shape) == (V, F)
+    _close(got.numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["square", "rectangular", "budget"])
+def test_stream_spmm_gradients_match_jax_grad(name, dtype):
+    """Dynamic edge-order weights (``stream_spmm_edges``): value, dx through
+    the transpose structure and d(weights) through the weight-gradient
+    kernel's plain version, against ``jax.grad``."""
+    V, Vs, F, s, r, w, je, te = _both(name)
+    x = _x(Vs, F, seed=1)
+    cot = _x(V, F, seed=2)
+    w2 = np.random.RandomState(3).standard_normal(len(w)).astype(np.float32)
+
+    def jloss(wv, xv):
+        out = js.stream_spmm_edges(je, wv, xv, compute_dtype=JDT[dtype])
+        return jnp.sum(out * jnp.asarray(cot)), out
+
+    (_, jout), (jdw, jdx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(w2), jnp.asarray(x))
+    tw = torch.from_numpy(w2).requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tout = ts.stream_spmm_edges(te, tw, tx, compute_dtype=dtype)
+    (tout * torch.from_numpy(cot)).sum().backward()
+    _close(tout.detach().numpy(), jout, dtype)
+    _close(tx.grad.numpy(), jdx, dtype)
+    _close(tw.grad.numpy(), jdw, dtype)
+
+
+@pytest.mark.parametrize("name", ["square", "rectangular", "odd"])
+def test_static_route_dx_matches_jax_grad(name):
+    """The static route's backward (the one-hot kernel on the transpose
+    one-hots), bf16 payload."""
+    V, Vs, F, *_, je, te = _both(name)
+    x = _x(Vs, F, seed=4)
+    cot = _x(V, F, seed=5)
+    jdx = jax.grad(lambda xv: jnp.sum(js.stream_spmm(je, x=xv, compute_dtype=jnp.bfloat16)
+                                      * jnp.asarray(cot)))(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (ts.stream_spmm(te, x=tx, compute_dtype="bfloat16")
+     * torch.from_numpy(cot)).sum().backward()
+    _close(tx.grad.numpy(), jdx, "bfloat16")
+
+
+def test_slot_weights_and_transpose_alignment_match_jax():
+    V, Vs, F, s, r, w, je, te = _both("square")
+    ws = js.edge_to_slot(je, w)
+    np.testing.assert_array_equal(ts.edge_to_slot(te, w), ws)
+    np.testing.assert_array_equal(
+        ts.transpose_w_slots(te, torch.from_numpy(ws)).numpy(),
+        np.asarray(js.transpose_w_slots(je, jnp.asarray(ws))))
+    x = _x(Vs, F, seed=6)
+    for dtype in ("float32", "bfloat16"):
+        want = js.stream_spmm(je, jnp.asarray(ws), jnp.asarray(x), compute_dtype=JDT[dtype])
+        got = ts.stream_spmm(te, torch.from_numpy(ws), torch.from_numpy(x),
+                             compute_dtype=dtype)
+        _close(got.numpy(), want, dtype)
+
+
+def test_bake_stream_is_the_static_route():
+    V, Vs, F, *_, je, te = _both("square")
+    x = _x(Vs, F, seed=7)
+    want = js.stream_spmm_baked(js.bake_stream(je), jnp.asarray(x))
+    got = ts.stream_spmm_baked(ts.bake_stream(te), torch.from_numpy(x))
+    _close(got.numpy(), want, "bfloat16")
+    with pytest.raises(ValueError, match="one-hots"):
+        ts.bake_stream(_both("no_onehots")[-1])
+
+
+def test_choose_stream_matches_jax():
+    assert ts.choose_stream(None, None, 100_000, 128) == js.choose_stream(
+        None, None, 100_000, 128)
+
+
+def _coo_oracle(s, r, w, x, V, bf16):
+    """``out[r] = Σ w·x[s]`` straight from the edge list, float64."""
+    xs = x[s].astype(np.float64)
+    wv = w.astype(np.float64)
+    if bf16:
+        xs = torch.from_numpy(x[s]).to(torch.bfloat16).double().numpy()
+        wv = torch.from_numpy(w).to(torch.bfloat16).double().numpy()
+    out = np.zeros((V, x.shape[1]))
+    np.add.at(out, r, wv[:, None] * xs)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_against_the_coo_oracle(dtype):
+    bf16 = dtype == "bfloat16"
+    V, Vs, F, s, r, w, kw = _case("rectangular")
+    te = ts.build_stream(s, r, V, weights=w, **kw)
+    x = _x(Vs, F, seed=8)
+    g = _x(V, F, seed=9)
+    want = _coo_oracle(s, r, w, x, V, bf16)
+    got = ts.stream_scatter_reference(te, te.w_slots, torch.from_numpy(x), dtype)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if bf16:
+        got = ts.stream_scatter_mat_reference(te, te.oh, torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # transpose: the adjoint
+    want_t = _coo_oracle(r, s, w, g, Vs, bf16)
+    got_t = ts.stream_scatter_reference(te.transpose, te.transpose.w_slots,
+                                        torch.from_numpy(g), dtype)
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=1e-5, atol=1e-5)
+    # weight gradient: per edge <g[r], x[s]>, read back in slot order
+    dw = ts.stream_dw_reference(te, torch.from_numpy(x), torch.from_numpy(g), dtype).numpy()
+    xs, gr = x[s].astype(np.float64), g[r].astype(np.float64)
+    if bf16:
+        xs = torch.from_numpy(x[s]).to(torch.bfloat16).double().numpy()
+        gr = torch.from_numpy(g[r]).to(torch.bfloat16).double().numpy()
+    per_edge = (xs * gr).sum(axis=1)
+    src = te.slot_src.numpy()
+    real = src < len(w)
+    np.testing.assert_allclose(dw[real], per_edge[src[real]], rtol=1e-5, atol=1e-5)
+    assert not dw[~real].any()
+
+
+def test_cpu_tensors_launch_no_kernel():
+    V, Vs, F, *_, te = _both("square")
+    before = (ts.stream_scatter.launches, ts.stream_scatter_mat.launches,
+              ts.stream_dw.launches)
+    w = torch.ones(400, requires_grad=True)
+    x = torch.from_numpy(_x(Vs, F)).requires_grad_(True)
+    ts.stream_spmm(te, x=x).sum().backward()
+    ts.stream_spmm_edges(te, w, x, compute_dtype="float32").sum().backward()
+    assert (ts.stream_scatter.launches, ts.stream_scatter_mat.launches,
+            ts.stream_dw.launches) == before
+
+
+def test_stream_spmm_rejects_bad_operands():
+    V, Vs, F, s, r, w, kw = _case("square")
+    te = ts.build_stream(s, r, V, weights=w, **kw)
+    with pytest.raises(ValueError, match="num_senders"):
+        ts.stream_spmm(te, x=torch.zeros(V + 1, F))
+    with pytest.raises(ValueError, match="with_transpose"):
+        ts.stream_spmm(ts.build_stream(s, r, V, weights=w, with_transpose=False, **kw),
+                       x=torch.zeros(Vs, F))
+    with pytest.raises(ValueError, match="no weights"):
+        ts.stream_spmm(ts.build_stream(s, r, V, **kw), x=torch.zeros(Vs, F))
+    with pytest.raises(ValueError, match="compute dtype"):
+        ts.stream_spmm(te, x=torch.zeros(Vs, F), compute_dtype="float16")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ts.build_stream(s, r, V, tr_w=12)
+
+
+def test_spmm_multichannel_stream_matches_jax():
+    """The channel loop of ``spmm_multichannel`` on stream structures:
+    baked weights (None) and given weights, shared and per-channel x."""
+    from kgcn_tpu.ops.spmm import spmm_multichannel as j_mc
+    from kgcn_tpu_torch.ops.spmm import spmm_multichannel as t_mc
+
+    rng = np.random.RandomState(11)
+    C, V, E, F = 2, 48, 200, 6
+    s = rng.randint(0, V, (C, E)).astype(np.int32)
+    r = rng.randint(0, V, (C, E)).astype(np.int32)
+    w = rng.random_sample((C, E)).astype(np.float32)
+    kw = dict(tr_w=8, chunk=8, mc=2, wb=2)
+    jst = tuple(js.build_stream(s[c], r[c], V, weights=w[c], **kw) for c in range(C))
+    tst = tuple(ts.build_stream(s[c], r[c], V, weights=w[c], **kw) for c in range(C))
+    for x in (_x(V, F, seed=12), np.stack([_x(V, F, seed=13), _x(V, F, seed=14)])):
+        for weights in (None, w):
+            want = j_mc(jnp.asarray(s), jnp.asarray(r),
+                        None if weights is None else jnp.asarray(weights),
+                        jnp.asarray(x), V, backend="stream", stream=jst)
+            got = t_mc(torch.from_numpy(s), torch.from_numpy(r),
+                       None if weights is None else torch.from_numpy(weights),
+                       torch.from_numpy(x), V, backend="stream", stream=tst,
+                       compute_dtype="bfloat16")
+            # JAX's global payload default is bf16 too
+            _close(got.numpy(), want, "bfloat16")
+    with pytest.raises(ValueError, match="no weights given or baked in"):
+        t_mc(torch.from_numpy(s), torch.from_numpy(r), None, torch.from_numpy(x), V,
+             backend="stream", stream=tuple(ts.build_stream(s[c], r[c], V, **kw)
+                                            for c in range(C)))

@@ -341,7 +341,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     for argv in (["infer"], ["train_cv"], ["visualize"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_main(argv + ["--config", cfg, "--cpu"])
-    for over in ({"make_plot": True}, {"mesh": {"data": 2}}, {"spmm_backend": "stream"},
+    for over in ({"make_plot": True}, {"mesh": {"data": 2}}, {"spmm_backend": "xla"},
                  {"precision": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
             t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
