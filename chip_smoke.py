@@ -7,7 +7,7 @@ Phases, each announced on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. environment — the card (nvidia-smi name and power limit), torch, CUDA;
-2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu),
+2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu, ell.cu),
    from kgcn_tpu_torch/ops/csrc, one nvcc per source, in parallel;
 3. kernel check: gconv — against its plain PyTorch version on the card at
    the serving path's shapes and two more (float32, rtol = atol = 1e-4: the
@@ -63,12 +63,32 @@ non-zero exit and no result line:
    the GPU and on the CPU from one seed (costs within 1e-3 relative); and a
    step breakdown (the graph batch's host build and its stream structures,
    host ms per step, step wall time, device busy time and idle share);
-9. summary — one JSON line of kernel numbers, then the result line.
+9. kernel check: ELL — the pallas backend's ELL gather kernel against its
+   plain version run on CPU copies of the inputs (float32 rtol = atol =
+   1e-4, bf16 x 1e-2: the einsum sums in another order, and bf16 rounds the
+   output once), on the ELL path's batch of 25 ring graphs (V 150, K 5; F 3
+   and 50), 1 024 ring graphs (F 50), uniform degree 8 (V 16 384, F 128),
+   V 100 000 with K 10 (10⁶ slots, F 128), a skewed case (K 16, mean degree
+   5, most slots padding) and K 1 at F 81; the autograd wrapper's value, dx
+   and dw on the card against the CPU; device times as in phase 3, the
+   library call being torch.sparse.mm on a CSR of the same slots;
+10. ell — a ring dataset of 6-node graphs (``make_ring_dataset(num_pairs=
+   1000, num_nodes=6, seed=0)``, which the ELL gate admits) written as a
+   pickle, then ``cli.main train`` for gin (example_config/gin.json's
+   settings, spmm_backend pallas, 2 epochs) and ``cli.main infer``, and gcn
+   for 1 epoch: exact launch counts (2·C ELL launches per GIN forward, 3·C
+   per GCN forward, none in a backward), falling cost, every file; 3 f32
+   GIN steps on the GPU and on the CPU from one seed (1e-3); a step
+   breakdown with the idle share; then gin on example_config/gin.json
+   itself with pallas and with xla, where the gate refuses ELL: 0 ELL
+   launches and, on pallas, the JAX package's fallback message;
+11. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases 5,
-6 and 8) and read just after; the summary's ``launches`` add up the tiled
-GCN, tiled GAT and dense GCN training runs and the serve run, and the KG
-runs (train and infer) for the stream kernels.
+6, 8 and 10) and read just after; the summary's ``launches`` add up the
+tiled GCN, tiled GAT and dense GCN training runs and the serve run, the KG
+runs (train and infer) for the stream kernels, and the ring runs (train and
+infer) for the ELL kernel.
 Exits non-zero without a CUDA device and outside a checkout of the repo.
 ``SCALE`` and ``KG_SHRINK`` cut the scale case and the KG for a rehearsal
 on the CPU, with ``DEVICE = "cpu"`` and the kernels' launch functions
@@ -79,6 +99,7 @@ import io
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -125,6 +146,10 @@ GCONV_SHAPES = [
     ("reaction-scale", (3, 128, 203, 81, 128)),
 ]
 REQUEST_SIZES = (1, 8, 32, 100)
+GIN_CONFIG = os.path.join(ROOT, "example_config", "gin.json")
+GCN_RING_CONFIG = os.path.join(ROOT, "example_config", "synth.json")
+RING6 = dict(num_pairs=1000, num_nodes=6, seed=0)  # 2 000 graphs, ELL K 5
+ELL_TOL = {"float32": TOL, "bfloat16": 1e-2}
 
 
 def say(msg):
@@ -154,22 +179,31 @@ def call_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
+def device_ms(fn, iters, attempts=3):
     """Device time per call of ``fn`` in ms: the summed duration of every
-    CUDA kernel it launches (torch.profiler), over ``iters`` calls."""
+    CUDA kernel it launches (torch.profiler), over ``iters`` calls.  A
+    profiling window that records no device time at all (seen once on the
+    H100 for a 1.5 µs kernel) is taken again, up to ``attempts`` times, and
+    then the time comes from CUDA events around the calls (``call_ms``:
+    launch overhead included, so an upper bound), said so on the log."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(ev, "device_time_total", 0.0) for ev in prof.key_averages())
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(ev, "device_time_total", 0.0)
+                       for ev in prof.key_averages())
+        if total_us > 0:
+            return total_us / iters / 1e3
+        say("  torch.profiler recorded no device time; profiling again")
+    ms = call_ms(fn, iters)
+    say(f"  device time from CUDA events instead (upper bound): {ms:.6f} ms")
+    return ms
 
 
 def library_ms(fn, iters):
@@ -525,13 +559,15 @@ class _Tee(io.TextIOBase):
 
 def _counted():
     """{kernel name: the wrapper function that carries its launch count}."""
+    from kgcn_tpu_torch.ops import ell_spmm as te
     from kgcn_tpu_torch.ops import gconv as gconv_mod
     from kgcn_tpu_torch.ops import stream_spmm as ts
     from kgcn_tpu_torch.ops import tiled_spmm as tt
 
     return {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
             "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
-            "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw}
+            "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw,
+            "ell_spmm": te.spmm_ell_gpu}
 
 
 def _counts():
@@ -573,7 +609,8 @@ def _schedule(cfg, epochs):
 
 def train_run(workdir, name, src, epochs, cpu=False, falling=True, **over):
     """One ``cli.main train`` run; checks its lines and files and returns
-    (per-epoch training costs, launch counts, steps, evaluated batches)."""
+    (per-epoch training costs, launch counts, steps, evaluated batches, the
+    run's stdout)."""
     import numpy as np
 
     from kgcn_tpu_torch.cli import main as cli
@@ -610,7 +647,7 @@ def train_run(workdir, name, src, epochs, cpu=False, falling=True, **over):
     if falling and not costs[-1] < costs[0]:
         raise AssertionError(f"train {name}: training cost did not fall: {costs}")
     say(f"-- train {name}: {wall:.2f} s, training costs {costs}, launches {counts}")
-    return costs, counts, steps, evals
+    return costs, counts, steps, evals, out
 
 
 def _expect(name, counts, want):
@@ -630,23 +667,24 @@ def phase_train(workdir):
         for k, v in counts.items():
             launches[k] += v
 
-    _, counts, steps, evals = train_run(workdir, "gcn_tiled", CONFIG, 2,
-                                        spmm_backend="tiled")
+    _, counts, steps, evals, _ = train_run(workdir, "gcn_tiled", CONFIG, 2,
+                                           spmm_backend="tiled")
     _expect("train gcn_tiled", counts, {"tiled_spmm": 6 * steps + 3 * evals})
     add(counts)
-    _, counts, steps, evals = train_run(workdir, "gat_tiled", GAT_CONFIG, 2,
-                                        spmm_backend="tiled")
+    _, counts, steps, evals, _ = train_run(workdir, "gat_tiled", GAT_CONFIG, 2,
+                                           spmm_backend="tiled")
     _expect("train gat_tiled", counts, {"tiled_spmm": 6 * steps + 3 * evals,
                                         "tiled_sddmm": 3 * steps})
     add(counts)
-    _, counts, steps, evals = train_run(workdir, "gcn_dense", CONFIG, 1, falling=False)
+    _, counts, steps, evals, _ = train_run(workdir, "gcn_dense", CONFIG, 1,
+                                           falling=False)
     _expect("train gcn_dense", counts, {"gconv": 3 * steps + 3 * evals})
     add(counts)
 
     exact = dict(spmm_backend="tiled", tiled_compute_dtype="float32", dropout_rate=0.0)
-    gpu, counts, steps, evals = train_run(workdir, "gcn_f32_gpu", CONFIG, 2, **exact)
+    gpu, counts, steps, evals, _ = train_run(workdir, "gcn_f32_gpu", CONFIG, 2, **exact)
     _expect("train gcn_f32_gpu", counts, {"tiled_spmm": 6 * steps + 3 * evals})
-    cpu, counts, _, _ = train_run(workdir, "gcn_f32_cpu", CONFIG, 2, cpu=True, **exact)
+    cpu, counts, _, _, _ = train_run(workdir, "gcn_f32_cpu", CONFIG, 2, cpu=True, **exact)
     _expect("train gcn_f32_cpu", counts, {})
     rel = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
     say(f"GPU vs CPU per-epoch training cost: GPU {gpu} CPU {cpu} relative "
@@ -657,11 +695,17 @@ def phase_train(workdir):
     return launches
 
 
-def step_breakdown():
-    """One epoch of each configuration's training split, step by step:
-    host batch assembly (and its tiled-structure part), the step's wall time
-    to a synchronise, and, in a second profiled epoch, the device's busy
-    time (every CUDA kernel and copy) against the epoch's wall time."""
+MOLECULE_RUNS = (("gcn_tiled", CONFIG, {"spmm_backend": "tiled"}),
+                 ("gat_tiled", GAT_CONFIG, {"spmm_backend": "tiled"}),
+                 ("gcn_dense", CONFIG, {}))
+
+
+def step_breakdown(runs=MOLECULE_RUNS):
+    """One epoch of each run's training split (name, config, overrides),
+    step by step: host batch assembly (and its tiled-structure or ELL-array
+    part), the step's wall time to a synchronise, and, in a second profiled
+    epoch, the device's busy time (every CUDA kernel and copy) against the
+    epoch's wall time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -672,9 +716,7 @@ def step_breakdown():
     from kgcn_tpu_torch.runtime import backend
     from kgcn_tpu_torch.runtime.train import Trainer
 
-    for name, src, over in (("gcn_tiled", CONFIG, {"spmm_backend": "tiled"}),
-                            ("gat_tiled", GAT_CONFIG, {"spmm_backend": "tiled"}),
-                            ("gcn_dense", CONFIG, {})):
+    for name, src, over in runs:
         cfg = _load_config(src, **over)
         ds, info = load_jbl(cfg["dataset"], cfg)
         be = backend.resolve(cfg, info, log=False)
@@ -689,14 +731,14 @@ def step_breakdown():
         idx = tb.epoch_indices(shuffle=False)
         host, tiled, step = [], [], []
         for start in range(0, len(idx), bs):
-            t0, tiled0 = time.perf_counter(), tb.tiled_seconds
+            t0, tiled0 = time.perf_counter(), tb.tiled_seconds + tb.ell_seconds
             batch = tb.make_batch(idx[start:start + bs])
             t1 = time.perf_counter()
             state, _, _ = trainer.train_step(state, batch)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             host.append(t1 - t0)
-            tiled.append(tb.tiled_seconds - tiled0)
+            tiled.append(tb.tiled_seconds + tb.ell_seconds - tiled0)
             step.append(t2 - t1)
         n = len(step)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -706,9 +748,10 @@ def step_breakdown():
             wall = time.perf_counter() - t0
         busy = sum(getattr(ev, "device_time_total", 0.0) for ev in prof.key_averages()) / 1e6
         payload = f", payload {be.compute_dtype}" if be.name == "tiled" else ""
+        part = "ELL arrays" if be.name in ("xla", "pallas") else "tiled structures"
         say(f"step time {name} ({be.name}{payload}, batch {bs}, "
-            f"{n} steps): host batch ms {np.mean(host) * 1e3:.4f} (of which tiled "
-            f"structures {np.mean(tiled) * 1e3:.4f}), step wall ms to sync "
+            f"{n} steps): host batch ms {np.mean(host) * 1e3:.4f} (of which {part} "
+            f"{np.mean(tiled) * 1e3:.4f}), step wall ms to sync "
             f"{np.mean(step) * 1e3:.4f} (median {np.median(step) * 1e3:.4f}); "
             f"profiled epoch: wall ms/step {wall / n * 1e3:.4f}, device busy "
             f"ms/step {busy / n * 1e3:.4f}, idle share {1 - busy / wall:.4f}")
@@ -1303,15 +1346,291 @@ def phase_kg(workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the ELL kernel
 
 
-def summary_rows(gconv_rows, tiled_rows, stream_rows, launches):
+def ring6_file(workdir):
+    """The ring dataset of 6-node graphs (``RING6``) as a pickle ``.jbl``,
+    written on the first call."""
+    path = os.path.join(workdir, "ring6.jbl")
+    if not os.path.exists(path):
+        from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+
+        with open(path, "wb") as f:
+            pickle.dump(make_ring_dataset(**RING6), f, protocol=4)
+    return path
+
+
+def _ring6_ell(workdir, bs):
+    """Channel 0's ELL arrays (idx, w) of the first ring6 batch of ``bs``
+    graphs on the pallas backend."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.runtime.backend import Backend
+
+    cfg = _load_config(GIN_CONFIG, dataset=ring6_file(workdir))
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    g = Batcher(ds, info, bs, backend=Backend("pallas")).make_batch(np.arange(bs)).graph
+    if g.ell_senders is None:
+        raise AssertionError("the ELL gate refused the ring6 dataset")
+    return g.ell_senders[0], g.ell_weights[0]
+
+
+def ell_cases(workdir):
+    """(label, idx [V, K] int32, w [V, K] f32 on the CPU, widths, on the
+    main path)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+
+    def uniform(V, K):
+        return (torch.from_numpy(rng.randint(0, V, (V, K)).astype(np.int32)),
+                torch.from_numpy((rng.random_sample((V, K)) + 0.1).astype(np.float32)))
+
+    cases = [("ring6 batch (25 graphs)", *_ring6_ell(workdir, 25), (3, 50), True),
+             ("ring6 1024 graphs", *_ring6_ell(workdir, 1024), (50,), False),
+             ("uniform degree 8", *uniform(16384, 8), (128,), False),
+             ("V=100000 K=10", *uniform(100_000, 10), (128,), False)]
+    V, K = 16384, 16
+    idx, w = uniform(V, K)
+    deg = np.minimum(rng.poisson(4.0, V) + 1, K)  # mean degree ~5 of K 16
+    pad = torch.from_numpy(np.arange(K)[None, :] >= deg[:, None])
+    idx[pad], w[pad] = 0, 0.0
+    cases.append(("skewed K=16 mean degree 5", idx, w, (128,), False))
+    cases.append(("K=1", *uniform(1504, 1), (81,), False))
+    return cases
+
+
+def _ell_csr(idx, w, n_cols):
+    """The ELL matrix (row v, column idx[v, k], value w[v, k]; padding
+    slots left out) as CSR."""
+    import torch
+
+    V, K = idx.shape
+    rows = torch.arange(V, device=idx.device).repeat_interleave(K)
+    keep = w.reshape(-1) != 0
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], idx.reshape(-1).long()[keep]]),
+                                  w.reshape(-1)[keep], (V, n_cols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def ell_bound(idx, w, F, elem=4):
+    """(bound_ms, bound_by): idx and w read once (8 B a slot), x read once
+    and the output written once (V·F each), 2·F FLOP per real slot."""
+    V, K = idx.shape
+    nnz = int((w != 0).sum())
+    return bound(V * K * 8 + 2 * V * F * elem, 2 * nnz * F)
+
+
+def phase_ell_check(workdir):
+    import torch
+
+    from kgcn_tpu_torch.ops import ell_spmm as te
+
+    phase(9, "kernel check: ELL gather (kgcn_tpu_torch/ops/csrc/ell.cu)")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = []
+    cases = ell_cases(workdir)
+    for label, idx_c, w_c, widths, on_path in cases:
+        idx, w = idx_c.to(DEVICE), w_c.to(DEVICE)
+        V, K = idx.shape
+        real = int((w_c != 0).sum())
+        say(f"ell {label}: V {V}, K {K}, {real} real slots of {V * K}")
+        mat = _ell_csr(idx, w, V)
+        for F in widths:
+            x = torch.randn((V, F), device=DEVICE, generator=gen)
+            errs = {}
+            for dt in ("float32", "bfloat16"):
+                xd = x.to(getattr(torch, dt))
+                got = te._launch(idx, w, xd)
+                want = te.spmm_ell_reference(idx_c, w_c, xd.cpu()).to(DEVICE)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                tol = ELL_TOL[dt]
+                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                    raise AssertionError(f"ell_spmm {label} F={F} {dt}: max |kernel - "
+                                         f"plain| = {err} (limit {tol})")
+                errs[dt] = err
+            lib_err = float((torch.sparse.mm(mat, x) - te.spmm_ell_reference(idx, w, x))
+                            .abs().max())
+            iters = 10 if V * K > 500_000 else 50
+            xb = x.to(torch.bfloat16)
+            t = dict(
+                kernel=device_ms(lambda: te._launch(idx, w, x), iters),
+                kernel_bf16=device_ms(lambda: te._launch(idx, w, xb), iters),
+                plain=device_ms(lambda: te.spmm_ell_reference(idx, w, x), iters),
+                library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
+            )
+            b, by = ell_bound(idx_c, w_c, F)
+            rows.append(dict(label=label, F=F, on_path=on_path, err=errs["float32"],
+                             err_bf16=errs["bfloat16"], bound=b, bound_by=by, **t))
+            say(f"  F={F}: max |kernel - plain| f32 {errs['float32']:.3g} bf16 "
+                f"{errs['bfloat16']:.3g} (library vs plain f32 {lib_err:.3g}); device ms: "
+                f"kernel f32 {t['kernel']:.6f} (bf16 {t['kernel_bf16']:.6f}) plain "
+                f"{t['plain']:.6f} library {t['library']}; bound {b:.6f} ({by})")
+    _check_ell_gradients(cases)
+    return rows
+
+
+def _check_ell_gradients(cases):
+    """``SpmmEll`` (the autograd Function: dx by the transpose scatter, dw
+    asked for) on the card against the same call on the CPU."""
+    import torch
+
+    from kgcn_tpu_torch.ops import ell_spmm as te
+
+    for label, idx_c, w_c, widths, _ in cases:
+        if not label.startswith(("ring6 batch", "skewed")):
+            continue
+        F = widths[-1]
+        gen = torch.Generator().manual_seed(1)
+        x0 = torch.randn((idx_c.shape[0], F), generator=gen)
+        cot = torch.randn((idx_c.shape[0], F), generator=gen)
+        res = []
+        for dev in (DEVICE, "cpu"):
+            w = w_c.to(dev).clone().requires_grad_(True)
+            x = x0.to(dev).clone().requires_grad_(True)
+            out = te.SpmmEll.apply(idx_c.to(dev), w, x)
+            (out * cot.to(dev)).sum().backward()
+            res.append([t.detach().cpu() for t in (out, x.grad, w.grad)])
+        for name, a, b in zip(("value", "dx", "dw"), *res):
+            err = float((a - b).abs().max())
+            if not torch.allclose(a, b, rtol=TOL, atol=TOL):
+                raise AssertionError(f"SpmmEll {label} {name}: GPU vs CPU {err}")
+            say(f"SpmmEll {label} F={F}: {name} GPU vs CPU max |diff| {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: GIN and GCN on the ELL path through the CLI
+
+
+def ell_gpu_vs_cpu(workdir, steps=3):
+    """The first ``steps`` GIN steps (pallas backend, ring6) on the GPU and
+    on the CPU from one seed: costs within TRAJECTORY_RTOL."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg = _load_config(GIN_CONFIG, dataset=ring6_file(workdir), spmm_backend="pallas")
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    bs = int(cfg["batch_size"])
+    tb = Batcher(ds, info, bs, backend=be)
+    batches = [tb.make_batch(np.arange(i * bs, (i + 1) * bs)) for i in range(steps)]
+    costs = {}
+    for dev in (DEVICE, "cpu"):
+        trainer = Trainer(build_model("gin", info, cfg), cfg, info, device=dev)
+        state = trainer.init_state(seed=0)
+        _zero_counts()
+        c = []
+        for batch in batches:
+            state, cost, _ = trainer.train_step(state, batch)
+            c.append(float(cost))
+        costs[dev] = c
+        C = info.adj_channel_num
+        _expect(f"gin steps on {dev}", _counts(),
+                {"ell_spmm": 2 * C * steps} if dev == DEVICE else {})
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
+    say(f"GPU vs CPU GIN step costs (pallas, ring6): GPU {costs[DEVICE]} CPU "
+        f"{costs['cpu']} relative difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"GPU and CPU GIN step costs differ by {max(rel)}")
+
+
+def ell_infer(workdir, name, n_graphs, per_forward):
+    """``cli.main infer`` on a train run's config: result keys, files,
+    predictions and the ELL launch count (``per_forward`` per batch)."""
+    import numpy as np
+
+    path = os.path.join(workdir, name, "config.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    out, result, counts, wall = _cli(["infer", "--config", path])
+    protocol = result["test_metrics_protocol"]
+    if not (np.isfinite(result["test_cost"]) and protocol["test_count"] == n_graphs
+            and 0.0 <= protocol["test_accuracy"] <= 1.0):
+        raise AssertionError(f"infer {name}: {result}")
+    with open(cfg["prediction_data"], "rb") as f:
+        pred = pickle.load(f)
+    if pred.shape != (n_graphs, 2) or not np.allclose(pred.sum(axis=1), 1.0, atol=1e-5):
+        raise AssertionError(f"infer {name}: predictions {pred.shape}")
+    for f in (cfg["save_info_test"], cfg["save_result_test"]):
+        if not os.path.exists(f):
+            raise AssertionError(f"infer {name}: no {f}")
+    if "[LOAD]" not in out:
+        raise AssertionError(f"infer {name}: no [LOAD] line")
+    say(f"-- infer {name}: {wall:.2f} s, test cost {result['test_cost']:.6g}, accuracy "
+        f"{protocol['test_accuracy']:.4g} over {n_graphs} graphs")
+    bs = int(cfg["batch_size"])
+    _expect(f"infer {name}", counts, {"ell_spmm": per_forward * -(-n_graphs // bs)})
+    return counts
+
+
+def phase_ell(workdir):
+    from kgcn_tpu_torch.ops import spmm as tspmm
+
+    phase(10, "ell: cli.main train and infer for gin and gcn on the pallas backend")
+    tspmm._PALLAS_FALLBACK_WARNED[0] = False  # a fallback here must show
+    data = ring6_file(workdir)
+    n_graphs = 2 * RING6["num_pairs"]
+    C = 1
+    launches = {k: 0 for k in _counted()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    outputs = dict(dataset=data, spmm_backend="pallas", make_plot=False)
+    for name, src, epochs, per_forward in (("gin_pallas", GIN_CONFIG, 2, 2 * C),
+                                           ("gcn_pallas", GCN_RING_CONFIG, 1, 3 * C)):
+        d = os.path.join(workdir, name)
+        _, counts, steps, evals, out = train_run(
+            workdir, name, src, epochs, falling=epochs > 1,
+            save_info_test=os.path.join(d, "info_test.json"),
+            save_result_test=os.path.join(d, "result_test.csv"),
+            prediction_data=os.path.join(d, "prediction.jbl"), **outputs)
+        if "[spmm] backend: pallas" not in out or "pallas backend requested" in out:
+            raise AssertionError(f"train {name}: did not take the ELL route")
+        _expect(f"train {name}", counts, {"ell_spmm": per_forward * (steps + evals)})
+        add(counts)
+        add(ell_infer(workdir, name, n_graphs, per_forward))
+    ell_gpu_vs_cpu(workdir)
+    step_breakdown((("gin_pallas", GIN_CONFIG, dict(dataset=data, spmm_backend="pallas")),))
+
+    # synthetic.jbl: the gate refuses ELL, so the data (not a fault of the
+    # kernel) sends pallas to the edge-list scatter, with the JAX message
+    for backend in ("pallas", "xla"):
+        tspmm._PALLAS_FALLBACK_WARNED[0] = False
+        _, counts, _, _, out = train_run(workdir, f"gin_synthetic_{backend}", GIN_CONFIG,
+                                         1, falling=False, spmm_backend=backend)
+        said = out.count("[spmm] pallas backend requested")
+        if said != (backend == "pallas"):
+            raise AssertionError(f"gin on synthetic.jbl ({backend}): the fallback "
+                                 f"message printed {said} times")
+        _expect(f"train gin_synthetic_{backend}", counts, {})
+        say(f"-- gin on synthetic.jbl ({backend}): the ELL gate refused the dataset; "
+            f"0 ELL launches, fallback message printed {said} time(s)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
     the served batch's three GraphConv calls; tiled: the solubility batch at
     F 81 and 50 and the GAT batch, bf16 payload; stream: the KG's largest
     and smallest relation channels at F 128 — the iota-route scatter with
     the float32 payload of its KG run, the one-hot scatter and the weight
-    gradient with bf16), errors over every shape."""
+    gradient with bf16; ELL: the ring6 batch at F 3 and 50, float32),
+    errors over every shape (float32)."""
     def mean(rows, key):
         vals = [r[key] for r in rows]
         return None if None in vals else sum(vals) / len(vals)
@@ -1355,7 +1674,25 @@ def summary_rows(gconv_rows, tiled_rows, stream_rows, launches):
         "bound_ms": mean(gat, "bound"),
         "bound_by": gat[0]["bound_by"],
         "library_ms": mean(gat, "sddmm_library"),
-    }] + stream_summary_rows(stream_rows, launches, mean)
+    }] + stream_summary_rows(stream_rows, launches, mean) + [
+        ell_summary_row(ell_rows, launches, mean)]
+
+
+def ell_summary_row(rows, launches, mean):
+    on_path = [r for r in rows if r["on_path"]]
+    return {
+        "name": "ell_spmm",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/ell.cu",
+        "replaces": "kgcn_tpu/ops/pallas_spmm.py:30",
+        "launches": launches["ell_spmm"],
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": mean(on_path, "kernel"),
+        "plain_ms": mean(on_path, "plain"),
+        "bound_ms": mean(on_path, "bound"),
+        "bound_by": on_path[0]["bound_by"],
+        "library_ms": mean(on_path, "library"),
+    }
 
 
 def stream_summary_rows(rows, launches, mean):
@@ -1398,10 +1735,15 @@ def main():
         say(f"stream check done at {time.time() - t_start:.1f} s")
         for k, v in phase_kg(workdir).items():
             launches[k] += v
+        say(f"kg done at {time.time() - t_start:.1f} s")
+        ell_rows = phase_ell_check(workdir)
+        say(f"ell check done at {time.time() - t_start:.1f} s")
+        for k, v in phase_ell(workdir).items():
+            launches[k] += v
 
     import torch
 
-    phase(9, "summary")
+    phase(11, "summary")
     for k, v in launches.items():
         if k in NO_MAIN_PATH_LAUNCH:
             if v != 0:
@@ -1410,7 +1752,7 @@ def main():
                 f"({NO_MAIN_PATH_LAUNCH[k]}); checked against its plain version in phase 7")
         elif v <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
-    kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, launches)
+    kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))

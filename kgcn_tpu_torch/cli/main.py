@@ -1,8 +1,8 @@
 """Command-line entry point of the port — the counterpart of
-``kgcn_tpu/cli/main.py`` for the ``train`` subcommand and for ``infer`` on
-knowledge graphs.
+``kgcn_tpu/cli/main.py`` for the ``train`` and ``infer`` subcommands.
 
     python -m kgcn_tpu_torch.cli.main train --config example_config/gat.json [--cpu]
+    python -m kgcn_tpu_torch.cli.main infer --config example_config/gat.json [--cpu]
     python -m kgcn_tpu_torch.cli.main train --config kg.json [--cpu]
     python -m kgcn_tpu_torch.cli.main infer --config kg.json [--cpu]
 
@@ -14,27 +14,35 @@ own format, ``runtime/checkpoint.py``), ``serve_info.json`` beside them, and
 predictor (``cmd_train_kg``: preference pairs, the ``last`` checkpoint,
 ``save_info_train``), and ``infer`` ranks its held-out triples
 (``cmd_infer_kg``: mean rank, MRR, hits@1/10; ``save_edge_result`` or
-``save_result_test``, ``save_info_test``).  Runs on the GPU unless ``--cpu``
-is given.
+``save_result_test``, ``save_info_test``).  On any other dataset ``infer``
+evaluates the whole dataset with the ``best`` checkpoint (``last`` when
+there is no best): ``infer_time``, ``test_cost`` and
+``test_metrics_protocol``, ``save_result_test``, ``save_info_test`` and
+``prediction_data`` (a plain pickle).  Runs on the GPU unless ``--cpu`` is
+given.
 
 The config's ``spmm_backend`` picks the path: ``"auto"`` resolves as in
 ``kgcn_tpu`` (dense up to 256 padded nodes, the CUDA gconv kernel; stream
 for whole-graph work beyond, the CUDA stream kernels), ``"tiled"`` takes the
-tiled SpMM/SDDMM kernels; the tiled and stream payload dtype is
-``tiled_compute_dtype`` (``"bfloat16"`` default, or ``"float32"``).
+tiled SpMM/SDDMM kernels, ``"pallas"`` the CUDA ELL gather kernel where the
+dataset's degree layout admits ELL arrays (else the edge-list scatter, said
+once), ``"xla"`` the same routes without a kernel; the tiled and stream
+payload dtype is ``tiled_compute_dtype`` (``"bfloat16"`` default, or
+``"float32"``).
 
 Not ported yet, each raising "not yet ported" (ROADMAP.md A.2): the
-``train_cv`` and ``visualize`` subcommands, ``infer``/``predict`` on
-datasets other than KGs, ``mesh`` (KG: the sharded and resident training),
-``make_plot``, ``export_model`` and ``"precision": "bfloat16"``.  The offline
-scikit-learn battery (``valid_metrics`` in ``save_info_valid``) is left
-out: the GPU machine has no scikit-learn.
+``train_cv`` and ``visualize`` subcommands, ``mesh`` (data parallel; KG:
+the sharded and resident training), ``make_plot``, ``export_model`` and
+``"precision": "bfloat16"``.  The offline scikit-learn battery
+(``valid_metrics`` in ``save_info_valid``, ``test_metrics`` in
+``infer``'s result) is left out: the GPU machine has no scikit-learn.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import pickle
 import time
 from typing import Any, Dict
 
@@ -200,15 +208,50 @@ def cmd_infer_kg(config, ds, info, backend, device) -> Dict[str, Any]:
 
 
 def cmd_infer(config, device=None) -> Dict[str, Any]:
-    """``infer`` / ``predict``: ranking of a KG's held-out triples; other
-    datasets are not ported yet."""
+    """``infer`` / ``predict`` (``kgcn_tpu``'s ``cmd_infer``): the ranking
+    of a KG's held-out triples, or on a graph dataset the evaluation of all
+    of it with a restored checkpoint (reference: gcn.py:527-621)."""
     device = device_from_arg(device)
-    if not _is_kg(config):
-        _not_ported("infer/predict on datasets other than knowledge graphs")
     ds, info, backend = _prepare(config, test_mode=True)
-    if ds.label_list is None:
-        _not_ported("infer/predict on node-embedding datasets without a label_list")
-    return cmd_infer_kg(config, ds, info, backend, device)
+    if ds.label_list is not None and _is_kg(config):
+        return cmd_infer_kg(config, ds, info, backend, device)
+    model = build_model(config["model.py"], info, config)
+    trainer = Trainer(model, config, info, device=device)
+    batcher = Batcher(ds, info, int(config["batch_size"]), backend=backend)
+    model_dir = config.get("save_model_path", "model")
+    load_path = config.get("load_model") or os.path.join(model_dir, "model.best.ckpt")
+    if not os.path.exists(load_path):
+        alt = os.path.join(model_dir, "model.last.ckpt")
+        if os.path.exists(alt):
+            load_path = alt
+    state = trainer.restore(load_path)
+    print(f"[LOAD] {load_path}")
+
+    t0 = time.time()
+    ev = trainer.evaluate(state, batcher, "test_")
+    infer_time = time.time() - t0
+    print(f"infer time: {infer_time}[sec]")
+    result: Dict[str, Any] = {"infer_time": infer_time, "test_cost": ev["cost"]}
+    result["test_metrics_protocol"] = {
+        k: np.asarray(v).tolist() for k, v in ev["metrics"].items()
+    }
+    if (ds.labels is not None and config.get("task") != "link_prediction"
+            and ds.node_label is None):
+        print("[metrics] test_metrics (the scikit-learn battery) is not yet "
+              "ported; left out")
+    if config.get("save_result_test"):
+        save_prediction(config["save_result_test"], ev["prediction"])
+    if config.get("save_info_test"):
+        _save_json(config["save_info_test"], result)
+    path = config.get("prediction_data") or config.get("save_prediction_data")
+    if path:
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(path, "wb") as f:  # a plain pickle: joblib.load reads it too
+            pickle.dump(ev["prediction"], f, protocol=4)
+        print(f"[SAVE] {path}")
+    return result
 
 
 def _fit_once(config, train_ds, valid_ds, info, backend, device):

@@ -11,11 +11,16 @@ The batcher carries the resolved backend (``runtime/backend.Backend``) and
 stamps it on every batch; with ``tiled`` it attaches the tiled edge
 structures (``_attach_tiled``, as ``kgcn_tpu/data/batcher.py:354-393``),
 with ``stream`` the stream structures (``_attach_stream``, as
-``kgcn_tpu/data/batcher.py:395-418``).  ``host_seconds`` accumulates the
-host time spent assembling batches, and ``tiled_seconds`` /
-``stream_seconds`` the part of it spent building tiled / stream structures.
-The JAX package's native C++ packer and its ELL attachments are not ported
-(ROADMAP.md queue A).
+``kgcn_tpu/data/batcher.py:395-418``), and with ``xla`` or ``pallas`` the
+ELL arrays (``_prepare_ell`` / ``_ell_arrays``, as
+``kgcn_tpu/data/batcher.py:217-257``: per-graph padded neighbour lists
+built once per dataset under the ``ell_layout_ok`` gate, offset per batch).
+The JAX package attaches the ELL arrays on every backend, but its layers
+read them only on these two, so no value differs.  ``host_seconds``
+accumulates the host time spent assembling batches, and ``tiled_seconds``
+/ ``stream_seconds`` / ``ell_seconds`` the part of it spent building tiled
+/ stream structures / ELL arrays.  The JAX package's native C++ packer is
+not ported (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from kgcn_tpu_torch.data.dataset import Dataset, DatasetInfo
 from kgcn_tpu_torch.graph.batch import GraphBatch, batch_graphs, pad_edge_budget
+from kgcn_tpu_torch.ops.ell import coo_to_ell, ell_layout_ok, scan_ell_stats
 from kgcn_tpu_torch.runtime.backend import Backend
 
 
@@ -106,9 +112,14 @@ class Batcher:
         self._tiled_budget = None
         # stream: the macro budget is pinned by the first batch likewise
         self._stream_budget = None
+        # ELL: the per-graph arrays, built at the first batch (None when the
+        # gate refuses the dataset)
+        self._ell = None
+        self._ell_ready = False
         self.host_seconds = 0.0
         self.tiled_seconds = 0.0
         self.stream_seconds = 0.0
+        self.ell_seconds = 0.0
 
     @property
     def valid_per_epoch(self) -> int:
@@ -178,6 +189,12 @@ class Batcher:
             t0 = time.perf_counter()
             graph = self._attach_stream(graph)
             self.stream_seconds += time.perf_counter() - t0
+        elif self.backend.name in ("xla", "pallas"):
+            t0 = time.perf_counter()
+            ei, ew = self._ell_arrays(idx, B)
+            if ei is not None:
+                graph = graph.replace(ell_senders=ei, ell_weights=ew)
+            self.ell_seconds += time.perf_counter() - t0
 
         def pad_rows(x):
             if x is None:
@@ -245,6 +262,48 @@ class Batcher:
                 return graph.with_stream(macro_budget=self._stream_budget)
             except ValueError:
                 self._stream_budget *= 2
+
+    def _prepare_ell(self) -> None:
+        """Per-graph ELL arrays ``[G, C, N, K]``, built once when
+        ``ell_layout_ok`` admits the dataset (max in-degree ≤ 32, padded
+        slots within 2× the real edges); batches assemble them by
+        concatenation and a node offset."""
+        self._ell_ready = True
+        ds = self.ds
+        if ds.adjs is None:
+            return
+        C = len(ds.adjs[0])
+        N = self.max_nodes
+        max_deg, total_edges = scan_ell_stats(ds.adjs)
+        if not ell_layout_ok(max_deg, len(ds.adjs) * C * N, total_edges):
+            return
+        K = max_deg
+        per_graph = np.zeros((len(ds.adjs), C, N, K), np.int32)
+        per_graph_w = np.zeros((len(ds.adjs), C, N, K), np.float32)
+        for g, gs in enumerate(ds.adjs):
+            for c, (r, cc, v) in enumerate(gs):
+                per_graph[g, c], per_graph_w[g, c] = coo_to_ell(cc, r, v, N,
+                                                                max_degree=K)
+        self._ell = {"idx": per_graph, "w": per_graph_w, "K": K}
+
+    def _ell_arrays(self, idx: np.ndarray, B: int):
+        """The batch's ``[C, B*N, K]`` ELL arrays for graph indices ``idx``
+        (None, None when the gate refused the dataset)."""
+        if not self._ell_ready:
+            self._prepare_ell()
+        if self._ell is None:
+            return None, None
+        N, K = self.max_nodes, self._ell["K"]
+        gi = self._ell["idx"][idx]  # [G, C, N, K]
+        gw = self._ell["w"][idx]
+        G, C = gi.shape[:2]
+        offs = (np.arange(G, dtype=np.int32) * N)[:, None, None, None]
+        gi = gi + offs * (gw != 0)  # padding slots stay at global node 0
+        out_i = np.zeros((C, B * N, K), np.int32)
+        out_w = np.zeros((C, B * N, K), np.float32)
+        out_i[:, : G * N] = np.transpose(gi, (1, 0, 2, 3)).reshape(C, G * N, K)
+        out_w[:, : G * N] = np.transpose(gw, (1, 0, 2, 3)).reshape(C, G * N, K)
+        return torch.from_numpy(out_i), torch.from_numpy(out_w)
 
     def _pad_node_axis(self, x):
         """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the

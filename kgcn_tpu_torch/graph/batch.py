@@ -17,14 +17,16 @@ rules —
 * ``stream_adj`` optionally carries the per-channel ``StreamCOO``
   structures of the stream kernels (``ops/stream_spmm.py``), adjacency
   weights baked in, built on the host by ``with_stream``;
+* ``ell_senders`` / ``ell_weights`` optionally carry the per-channel ELL
+  arrays (padded per-row neighbour lists, ``ops/ell.py``) that the ``xla``
+  and ``pallas`` backends aggregate over, built by the ``Batcher``;
 * ``node_ids`` replaces ``nodes`` in node-embedding mode (KG workloads):
   ``[V]`` vocabulary ids into an embedding table.
 
 Where the JAX package reads process globals (the dense-path switch, the
-tiled/stream compute dtype), a batch here carries ``backend`` and
-``compute_dtype``, set by the ``Batcher`` from the resolved backend
-(``runtime/backend.py``).  The JAX container's ``ell_*`` attachments come
-with the slice that uses them (ROADMAP.md queue A).
+spmm backend, the tiled/stream compute dtype), a batch here carries
+``backend`` and ``compute_dtype``, set by the ``Batcher`` from the resolved
+backend (``runtime/backend.py``).
 """
 from __future__ import annotations
 
@@ -61,9 +63,13 @@ class GraphBatch:
     edge_valid: optional explicit ``[C, E]`` edge-validity mask.
     tiled_adj: tuple of per-channel ``TiledCOO``, or None.
     stream_adj: tuple of per-channel ``StreamCOO``, or None.
+    ell_senders: ``[C, V, K]`` int32 sender of each ELL slot (padding slots
+        0), or None.
+    ell_weights: ``[C, V, K]`` float32 weight of each ELL slot (padding
+        slots 0), or None.
     n_graph, max_nodes: Python ints.
-    backend: the resolved spmm backend (``"dense"``, ``"tiled"`` or
-        ``"stream"``).
+    backend: the resolved spmm backend (``"dense"``, ``"xla"``,
+        ``"pallas"``, ``"tiled"`` or ``"stream"``).
     compute_dtype: the tiled and stream kernels' payload dtype.
     """
 
@@ -79,6 +85,8 @@ class GraphBatch:
     edge_valid: Optional[torch.Tensor] = None
     tiled_adj: Optional[tuple] = None
     stream_adj: Optional[tuple] = None
+    ell_senders: Optional[torch.Tensor] = None
+    ell_weights: Optional[torch.Tensor] = None
     n_graph: int = 1
     max_nodes: int = 1
     backend: str = "dense"

@@ -1,9 +1,10 @@
 """Model registry — the counterpart of ``kgcn_tpu/models/registry.py``.
 
 Resolves the ``model.py`` config key (registry name or the reference's
-dotted path) to a constructor.  ``gcn``, ``gat`` and ``kg_distmult`` are
-ported so far; every other name the JAX package knows raises
-``NotImplementedError`` pointing at ROADMAP.md.
+dotted path) to a constructor.  ``gcn``, ``gin``, ``gat``,
+``gcn_rxn_3layer``, ``gcn_multitask`` and ``kg_distmult`` are ported so far;
+every other name the JAX package knows raises ``NotImplementedError``
+pointing at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -27,19 +28,48 @@ _REFERENCE_ALIASES = {
 }
 
 
+def _features(info, name):
+    """The node feature width; featureless (node-embedding) datasets are
+    not ported for the graph-classification models."""
+    if not info.feature_enabled or not info.feature_dim:
+        raise NotImplementedError(
+            f"{name} in node-embedding mode is not ported yet (ROADMAP.md queue A)"
+        )
+    return info.feature_dim
+
+
 def _gcn(info, config):
     from kgcn_tpu_torch.models.standard import GCN
 
-    if not info.feature_enabled or not info.feature_dim:
-        raise NotImplementedError(
-            "gcn in node-embedding mode is not ported yet (ROADMAP.md queue A)"
-        )
     return GCN(
-        in_features=info.feature_dim,
+        in_features=_features(info, "gcn"),
         channels=info.adj_channel_num,
         label_dim=info.label_dim or 2,
         dropout_rate=float(config.get("dropout_rate", 0.2)),
     )
+
+
+def _common(info):
+    return dict(channels=info.adj_channel_num, label_dim=info.label_dim or 2)
+
+
+def _gin(info, config):
+    from kgcn_tpu_torch.models.standard import GIN
+
+    return GIN(in_features=_features(info, "gin"), **_common(info))
+
+
+def _gcn_rxn_3layer(info, config):
+    from kgcn_tpu_torch.models.standard import RxnGCN
+
+    return RxnGCN(_features(info, "gcn_rxn_3layer"), **_common(info))
+
+
+def _gcn_multitask(info, config):
+    from kgcn_tpu_torch.models.standard import GCNMultitask
+
+    return GCNMultitask(_features(info, "gcn_multitask"), pos_weight=info.pos_weight,
+                        **_common(info))
 
 
 def _gat(info, config):
@@ -64,7 +94,9 @@ def _kg_distmult(info, config):
     )
 
 
-_REGISTRY = {"gcn": _gcn, "gat": _gat, "kg_distmult": _kg_distmult}
+_REGISTRY = {"gcn": _gcn, "gin": _gin, "gat": _gat,
+             "gcn_rxn_3layer": _gcn_rxn_3layer, "gcn_multitask": _gcn_multitask,
+             "kg_distmult": _kg_distmult}
 
 
 def available() -> list:

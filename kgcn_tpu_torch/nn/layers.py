@@ -5,13 +5,17 @@ Semantics as there (checked against the reference, SURVEY.md §2.2):
 
 * GraphConv: per-channel weights AND biases, channel outputs summed
   (kgcn/layers.py:52-62,107-115).  Dense batches aggregate through the fused
-  ``gconv`` op; stream and tiled batches project ``X W_c + b_c`` and
-  aggregate through ``spmm_multichannel`` (the stream kernels with the
-  baked adjacency weights, or the tiled SpMM kernel).  All run hand-written
-  CUDA kernels on the GPU.
+  ``gconv`` op; the others project ``X W_c + b_c`` and aggregate it, in
+  the JAX package's order: stream structures (the stream kernels with the
+  baked adjacency weights), tiled structures (the tiled SpMM kernel), ELL
+  arrays (``ell_aggregate``: the ELL gather kernel on ``pallas``, the
+  gather and einsum on ``xla``), else the edge lists (the ``xla`` scatter,
+  which ``pallas`` takes too, saying so once).  The kernels are
+  hand-written CUDA on the GPU.
 * GINAggregate: ``Σ_c (ε_c X + A_c X)`` with a learnable scalar ε per
   channel, zeros init, applied as ``(Σ_c ε_c)·X + Σ_c A_c X`` — the naive
-  path of the reference (kgcn/layers.py:464-471), as ``kgcn_tpu`` keeps it.
+  path of the reference (kgcn/layers.py:464-471), as ``kgcn_tpu`` keeps it;
+  ``A_c X`` takes GraphConv's branches on ``X`` itself.
 * Embed / NodeEmbedding: the node-id embedding table of node-embedding
   mode (kgcn/default_model.py:24-27), flax ``nn.Embed``'s initialisation.
 * DistMult: the multi-relation scorer ``Σ_f h_f w_{r,f} t_f``
@@ -46,8 +50,15 @@ from torch import nn
 from kgcn_tpu_torch.graph.batch import GraphBatch
 from kgcn_tpu_torch.ops import segment
 from kgcn_tpu_torch.ops.gconv import gconv
-from kgcn_tpu_torch.ops.spmm import spmm_dense, spmm_multichannel
+from kgcn_tpu_torch.ops.spmm import ell_aggregate, spmm_dense, spmm_multichannel
 from kgcn_tpu_torch.ops.tiled_spmm import tiled_spmm
+
+
+def _coo_backend(graph: GraphBatch) -> str:
+    """The edge-list route of a batch without kernel structures: ``pallas``
+    (which falls back to the scatter, as the JAX package's jitted step
+    does) or ``xla``."""
+    return "pallas" if graph.backend == "pallas" else "xla"
 
 
 def _flat(x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
@@ -117,11 +128,11 @@ class GraphConv(nn.Module):
                 graph.total_nodes, backend="tiled", tiled=graph.tiled_adj,
                 compute_dtype=graph.compute_dtype,
             )
-        raise NotImplementedError(
-            "GraphConv needs a dense adjacency, stream or tiled structures; "
-            "the ELL and XLA sparse backends are not ported yet "
-            "(ROADMAP.md queue A, sparse backends)"
-        )
+        if graph.ell_senders is not None:
+            return ell_aggregate(graph.ell_senders, graph.ell_weights, hw,
+                                 backend=graph.backend)
+        return spmm_multichannel(graph.senders, graph.receivers, graph.edge_weights,
+                                 hw, graph.total_nodes, backend=_coo_backend(graph))
 
 
 class GINAggregate(nn.Module):
@@ -152,9 +163,13 @@ class GINAggregate(nn.Module):
                 graph.total_nodes, backend="tiled", tiled=graph.tiled_adj,
                 compute_dtype=graph.compute_dtype,
             )
+        elif graph.ell_senders is not None:
+            agg = ell_aggregate(graph.ell_senders, graph.ell_weights, x,
+                                backend=graph.backend)
         else:
             agg = spmm_multichannel(graph.senders, graph.receivers,
-                                    graph.edge_weights, x, graph.total_nodes)
+                                    graph.edge_weights, x, graph.total_nodes,
+                                    backend=_coo_backend(graph))
         return torch.sum(self.epsilon).to(x.dtype) * x + agg
 
 

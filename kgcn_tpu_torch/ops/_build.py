@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("gconv", "tiled", "stream")  # every kernel source of the port, by stem
+SOURCES = ("gconv", "tiled", "stream", "ell")  # every kernel source of the port, by stem
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

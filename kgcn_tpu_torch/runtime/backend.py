@@ -8,11 +8,13 @@ carries it instead: ``resolve`` returns a :class:`Backend` that the
 payload dtype to the layers.  Nothing here is global, so tests may run in any
 order and in one process.
 
-Ported backends: ``dense`` (the CUDA gconv kernel), ``tiled`` (the CUDA
-tiled SpMM/SDDMM kernels) and ``stream`` (the CUDA stream scatter kernels;
-its payload dtype is ``tiled_compute_dtype`` too, as in ``kgcn_tpu``).
-``xla`` and ``pallas`` resolve the same way but raise until they are ported
-(ROADMAP.md A.5).
+Every backend of the JAX package is ported: ``dense`` (the CUDA gconv
+kernel), ``tiled`` (the CUDA tiled SpMM/SDDMM kernels), ``stream`` (the
+CUDA stream scatter kernels; its payload dtype is ``tiled_compute_dtype``
+too, as in ``kgcn_tpu``), ``pallas`` (the CUDA ELL gather kernel on the
+batches' ELL arrays, where the dataset's degree layout admits them, else
+the edge-list scatter) and ``xla`` (no kernel: the ELL gather and einsum,
+or the edge-list scatter).
 """
 from __future__ import annotations
 
@@ -21,7 +23,6 @@ import dataclasses
 DENSE_MAX_NODES = 256
 
 _EXPLICIT = ("dense", "xla", "pallas", "tiled", "stream")
-PORTED = ("dense", "tiled", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,17 +58,11 @@ def choose_backend(config: dict, info) -> str:
 
 def resolve(config: dict, info, *, log: bool = True) -> Backend:
     """Choose once and pin the choice into ``config['_spmm_resolved']``, so
-    later dataset loads (the validation set) keep the same path.  Raises
-    ``NotImplementedError`` for a backend the port does not have yet."""
+    later dataset loads (the validation set) keep the same path."""
     name = config.get("_spmm_resolved")
     if not name:
         name = choose_backend(config, info)
         config["_spmm_resolved"] = name
         if log:
             print(f"[spmm] backend: {name}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"spmm_backend {name!r} is not ported to kgcn_tpu_torch yet "
-            f"(ported: {', '.join(PORTED)}; ROADMAP.md A.5)"
-        )
     return Backend(name, str(config.get("tiled_compute_dtype", "bfloat16")))

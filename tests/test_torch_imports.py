@@ -1,7 +1,8 @@
 """Import hygiene of the port: every module of kgcn_tpu_torch (and
 chip_smoke.py) imports with JAX, flax, optax, joblib and kgcn_tpu made
 unimportable, and the entry points (serving, training, KG training and
-inference) refuse to run without a GPU unless the CPU is asked for."""
+inference, graph inference) refuse to run without a GPU unless the CPU is
+asked for."""
 import os
 import subprocess
 import sys
@@ -68,7 +69,9 @@ def test_entry_points_refuse_to_run_without_a_gpu():
                    lambda: train_main(["train", "--config",
                                        "example_config/kg.json"]),
                    lambda: train_main(["infer", "--config",
-                                       "example_config/kg.json"])):
+                                       "example_config/kg.json"]),
+                   lambda: train_main(["infer", "--config",
+                                       "example_config/gin.json"])):
             try:
                 fn()
             except RuntimeError as e:

@@ -77,9 +77,17 @@ def test_graph_conv_matches_flax():
 
 
 def test_graph_conv_without_dense_adj_raises():
-    _, tb = _batches(C=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.GraphConv(5, 7)(tb.graph.nodes, tb.graph)
+    """GraphConv on a batch without a dense adjacency raised while the port
+    had no edge-list path for it.  With the xla and pallas backends ported
+    it takes the edge lists, as kgcn_tpu's GraphConv does, and matches the
+    flax layer on the same batch."""
+    jb, tb = _batches(C=1)
+    layer = jnn.GraphConv(7, channels=1)
+    params = _random_tree(layer.init(jax.random.PRNGKey(0), jb.graph.nodes, jb.graph), 3)
+    want = layer.apply(params, jb.graph.nodes, jb.graph)
+    port = _load(tnn.GraphConv(5, 7), params["params"])
+    got = port(tb.graph.nodes, tb.graph)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
 def test_graph_dense_and_gather_match_flax():

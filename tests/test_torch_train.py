@@ -338,11 +338,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     from kgcn_tpu_torch.cli.main import main as t_main
 
     cfg = _write_config(tmp_path, "gat.json", epoch=1)
-    for argv in (["infer"], ["train_cv"], ["visualize"]):
+    for argv in (["train_cv"], ["visualize"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_main(argv + ["--config", cfg, "--cpu"])
-    for over in ({"make_plot": True}, {"mesh": {"data": 2}}, {"spmm_backend": "xla"},
-                 {"precision": "bfloat16"}):
+    for over in ({"make_plot": True}, {"mesh": {"data": 2}}, {"precision": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
             t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
                     "--cpu"])
