@@ -47,8 +47,12 @@ non-zero exit and no result line:
    CPU copies of the inputs, with the float32 and the bf16 payload,
    rtol = atol = 1e-4, on the KG path's largest and smallest relation
    channels (F 128), a uniform random graph of 100 000 nodes and 1 000 000
-   edges at F 128 with choose_stream's parameters, a rectangular and a
-   macro-budget-padded case; device times as in phase 3, the library calls
+   edges at F 128 with choose_stream's parameters, a hub graph (the KG's
+   40 960 nodes, 81 920 uniform edges and 50 000 more into one receiver,
+   weighted as the KG's channels are, F 128), a rectangular (F 64 and 200)
+   and a macro-budget-padded case (F 40 and 133: the scatters' scalar path,
+   F not a multiple of 4, and more than one 128-column group); two launches of
+   each scatter bitwise equal; device times as in phase 3, the library calls
    being torch.sparse.mm and torch.sparse.sampled_addmm;
 8. kg — a knowledge graph of WN18RR's published shape (40 943 entities, 11
    relations with its training-set relation shares, 89 969 distinct
@@ -118,6 +122,7 @@ TOL = 1e-4
 TRAJECTORY_RTOL = 1e-3      # GPU vs CPU training cost, tests/test_reference_parity.py:434-441
 DEVICE = "cuda"
 SCALE = (100_000, 1_000_000, 128)  # uniform random graph: nodes, edges, F
+HUB_EDGES = 50_000   # in-edges of the hub case's one hub receiver
 KG_CONFIG = os.path.join(ROOT, "example_config", "kg.json")
 # WN18RR (Dettmers et al. 2018): entities, and the training-set triple count
 # of each of its 11 relations; train 86 835 + test 3 134 distinct triples
@@ -1005,16 +1010,35 @@ def stream_cases(workdir):
     s, r, w = uniform(V, E, seed=5)
     cases.append((f"scale V={V} E={E}", ts.build_stream(
         s, r, V, weights=w, **ts.choose_stream(s, r, V, Fs)), (Fs,), False))
+    V = sts[0].meta.num_receivers
+    s, r, _ = uniform(V, 2 * V + HUB_EDGES, seed=3)
+    r[2 * V:] = V // 3  # one receiver with HUB_EDGES in-edges
+    w = hub_weights(s, r, V)
+    cases.append((f"hub V={V} E={len(s)}", ts.build_stream(
+        s, r, V, weights=w, **ts.choose_stream(s, r, V, F)), (F,), False))
     s, r, w = uniform(3000, 30000, seed=1, vs=5000)
     cases.append(("rectangular 5000->3000", ts.build_stream(
-        s, r, 3000, weights=w, num_sender_nodes=5000), (64,), False))
+        s, r, 3000, weights=w, num_sender_nodes=5000), (64, 200), False))
     s, r, w = uniform(2000, 12000, seed=2)
     w[::5] = 0.0  # padding edges, dropped from the structure
     need = ts.build_stream(s, r, 2000, weights=w)
     budget = 2 * max(need.meta.n_macros, need.transpose.meta.n_macros)
     cases.append((f"budget-padded ({budget} macros)", ts.build_stream(
-        s, r, 2000, weights=w, macro_budget=budget), (40,), False))
+        s, r, 2000, weights=w, macro_budget=budget), (40, 133), False))
     return cases
+
+
+def hub_weights(s, r, V):
+    """Edge weights as the KG's channels carry them (cli.kg's symmetric
+    normalisation): 1 / sqrt(d(r) d(s)), d the in-degree (at least 1).
+    With weights of order 1 instead, the plain version's own f32 rounding
+    over the hub row's 50 000 terms in slot order (~2e-3 from the exact sum
+    of a row of magnitude ~150) exceeds the 1e-4 check on its near-zero
+    entries, whatever order the kernel sums in."""
+    import numpy as np
+
+    deg = np.maximum(np.bincount(r, minlength=V), 1)
+    return (1.0 / np.sqrt(deg[r] * deg[s])).astype(np.float32)
 
 
 def _stream_csr(ss):
@@ -1099,6 +1123,7 @@ def phase_stream_check(workdir):
                 ts._scatter_mat_launch(ss.transpose, g),
                 ts.stream_scatter_mat_reference(ss_cpu.transpose, ss_cpu.transpose.oh,
                                                 gc).to(DEVICE))
+            _check_repeatable(label, F, ss, x, g)
             lib_err = float((torch.sparse.mm(mat, x) - ts.stream_scatter_reference(
                 ss, ss.w_slots, x, "float32")).abs().max())
             iters = 10 if n_edges > 500_000 else 50
@@ -1139,6 +1164,27 @@ def phase_stream_check(workdir):
                 "bounds " + ", ".join(f"{k} {b:.6f} ({by})" for k, (b, by) in bounds.items()))
     _check_stream_gradients(cases)
     return rows
+
+
+def _check_repeatable(label, F, ss, x, g):
+    """Two launches of each scatter on the same inputs give the same bits
+    (each sum runs in the plan's fixed order; no atomics on values)."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    runs = {
+        "scatter f32": lambda: ts._scatter_launch(ss, ss.w_slots, x, False),
+        "scatter bf16": lambda: ts._scatter_launch(ss, ss.w_slots, x, True),
+        "scatter^T f32": lambda: ts._scatter_launch(ss.transpose, ss.transpose.w_slots,
+                                                    g, False),
+        "scatter_mat": lambda: ts._scatter_mat_launch(ss, x),
+        "scatter_mat^T": lambda: ts._scatter_mat_launch(ss.transpose, g),
+    }
+    for name, run in runs.items():
+        if not torch.equal(run(), run()):
+            raise AssertionError(f"{name} {label} F={F}: two launches differ")
+    say(f"  F={F}: two launches bitwise equal: {', '.join(runs)}")
 
 
 def _check_stream_gradients(cases):
@@ -1322,6 +1368,12 @@ def kg_step_breakdown(workdir, steps=20):
         t = getattr(ev, "device_time_total", 0.0) / 1e3 / steps
         say(f"  kg step device ms {t:.4f} ({t / (busy * 1e3 / steps):.3f} of busy) "
             f"in {ev.count / steps:.1f} launches a step: {ev.key[:90]}")
+    scatter = [ev for ev in events if "stream_scatter" in ev.key]
+    t = sum(getattr(ev, "device_time_total", 0.0) for ev in scatter) / 1e3 / steps
+    share = t / (busy * 1e3 / steps) if busy else float("nan")
+    say(f"  kg step: the stream scatter kernel {t:.4f} device ms a step "
+        f"({share:.3f} of busy) in "
+        f"{sum(ev.count for ev in scatter) / steps:.1f} launches a step")
     say(f"step time kg ({be.name}, payload {be.compute_dtype}, {info.adj_channel_num} "
         f"channels, label batch {cfg['label_batch_size']}, {steps} steps): graph "
         f"batch host build ms {build * 1e3:.2f} (of which stream structures "

@@ -1,237 +1,324 @@
 // Streaming scatter SpMM of the stream backend for Hopper (sm_90a), on the
 // StreamCOO edge structure of kgcn_tpu_torch/ops/stream_spmm.py.
 //
-//   scatter:     out[r, :] = sum over slots with receiver r of
-//                cdt(w[slot]) * cdt(x[slot_sender[slot], :])
-//   scatter_mat: out[window rows, :] = sum over the window's slots of
-//                oh[slot, :]^T * bf16(x[slot_sender[slot], :])
-//   dw:          dw[slot] = <cdt(dy[r_slot, :]), cdt(x[slot_sender[slot], :])>
+//   scatter: out[r, :] = sum over the real slots with receiver r of
+//            cdt(w) * cdt(x[sender, :]), w the slot's weight (w_slots[slot])
+//            or its one-hot entry (oh[slot, r_loc[slot]], bf16)
+//   dw:      dw[slot] = <cdt(dy[r_slot, :]), cdt(x[slot_sender[slot], :])>
 //
 // Replace the Pallas TPU kernels `_scatter_kernel`, `_scatter_kernel_mat` and
 // `_dw_kernel` (kgcn_tpu/ops/stream_spmm.py:335, :374 and :448).  The TPU
-// kernels scatter through one-hot matmuls because Mosaic cannot scatter rows,
-// and take the gathered rows g = x[slot_sender] from an XLA gather; here the
-// gather is fused (x is read at slot_sender; the sentinel num_senders is the
-// zero row) and rows are addressed directly.  What is kept is the structure's
-// contract: slots sorted by receiver, cut into tr_w-row receiver windows whose
-// sub-chunks of `chunk` slots are consecutive; win_subs[w] = (first
-// sub-chunk, sub-chunk count) of window w; r_loc the receiver row within the
-// window; padding slots carry sender num_senders and weight 0 (all-zero
-// one-hot rows).
+// kernels scatter through one-hot matmuls over receiver windows because
+// Mosaic cannot scatter rows, and take the gathered rows g = x[slot_sender]
+// from an XLA gather; here the gather is fused and rows are addressed
+// directly.  The one-hot kernel relies on the one-hots' contract (at most
+// one non-zero per row, at r_loc: _materialize_oh) and reads that one bf16
+// entry per slot, not the tr_w-wide row.
 //
-// Payload (bf16 = 1, the default): the gathered row and the weight are
-// rounded to bf16, their product is exact in f32 and the sum runs in f32 --
-// the TPU kernels' roundings (their one-hot holds bf16(w), their gather
-// bf16(x); products summed in f32).  bf16 = 0 rounds nothing.  scatter_mat
-// is bf16 only (the one-hots are bf16).  dw rounds dy and x alike.
+// Payload: with bf16 the gathered row and the weight are rounded to bf16,
+// their product is exact in f32 and the sum runs in f32 -- the TPU kernels'
+// roundings (their one-hot holds bf16(w), their gather bf16(x)).  f32 rounds
+// nothing.  The one-hot route is bf16 (the one-hots are bf16).  dw rounds dy
+// and x alike.
 //
-// What bounds them: an edge moves one F-wide f32 row (4F bytes, from L2
-// when x fits there) for 2F FLOP, so the work is memory- and latency-bound.
-// The design is simple, deterministic and has no atomics:
+// What bounds them: an edge gathers one F-wide f32 row of x (4F bytes, from
+// L2 once x has been read: the KG's 40 960 x 128 f32 rows are 21 MB of the
+// 50 MB L2) for 2F FLOP, and the output is written once, so the scatter is
+// bound by bytes and by the latency of dependent gathers.
 //
-// scatter / scatter_mat: one block of 8 warps per (receiver window, 32-column
-//   slice).  The block alone owns the window's rows for its columns, so the
-//   sum over slots runs in slot order in one thread per output element (lane
-//   = column, warp w owns rows = w mod 8), accumulating in shared memory, and
-//   every window -- edge-free ones included -- is written once.  Macro
-//   zeroing, block padding and budget fillers need no counterpart: only the
-//   window's own sub-chunks are walked.  scatter stages 256 slots at a time
-//   (sender, row, weight), and each warp finds its slots with __ballot_sync,
-//   32 at a time, keeping up to 16 x-row loads in flight (a hub row's slots
-//   all fall to one warp).  scatter_mat stages 128 one-hot rows at a time in
-//   shared memory (row stride tr_w + 2, so the 32 lanes scanning 32 rows hit
-//   32 banks); for 32 slots at a time each lane makes the bitmask of the
-//   warp's rows where its slot's one-hot is non-zero, a ballot finds the
-//   slots with any, and the warp adds each marked entry times the slot's
-//   gathered row -- every non-zero entry, one per slot for build_stream's
-//   one-hots.
+// scatter: the host plan (StreamPlan) lists the real slots in slot order --
+//   which is receiver order -- as (slot, row, sender), cut into pieces of
+//   `piece` slots (32-512, so that a structure has some 2 000 pieces).  A
+//   warp walks one piece: every slot's metadata is read once (a lane per
+//   slot, the next 32 prefetched), a lane holds 4 of a 128-column group
+//   (one 16-byte load or store when F % 4 == 0), 16 gathered rows are in
+//   flight, and the running row is summed in registers.  A row that lies in
+//   this piece alone is written straight to out when the receiver changes.
+//   A hub row's slots thus spread over many warps and SMs: the piece's first
+//   and last rows, where other pieces share them, go to partial rows, and
+//   the plan names these split rows with their partials (consecutive, in
+//   piece order).  Each block of 8 pieces, after its partials, bumps a
+//   counter per split row it wrote to; the block that completes a row sums
+//   its partials -- one warp in order where there are at most 64 (the
+//   warps take such rows in turn), else its 8 warps each a consecutive
+//   eighth in order, then the eight in order -- writes the row and resets
+//   the counter.  So the order of every sum is fixed by the plan: two
+//   launches give the same bits, with no atomics on values.  Rows without a
+//   real slot (the plan's empty_rows) are written as zeros by all warps in
+//   turn; every row of out is written once, and padding slots and budget
+//   fillers are never visited.
 // dw: one warp per slot (grid-stride), lanes over F, a shuffle reduction.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TF = 32;          // output columns per block: one per lane
-constexpr int PIECE = THREADS;  // scatter: slots staged per step
-constexpr int MAT_PIECE = 128;  // scatter_mat: one-hot rows staged per step
-constexpr int OH_PAD = 2;       // scatter_mat: bf16 pad per staged row
-constexpr int BATCH = 16;       // x-row loads a warp keeps in flight
-constexpr int MAX_TR_W = 256;   // window rows (the accumulator is tr_w x 32)
-constexpr int SMS = 132;        // H100 SXM
-constexpr int DW_WARPS = 8;     // dw blocks: 8 warps, one slot each
-constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+constexpr int WARPS = 8;          // pieces per block (stream_spmm.PIECES_PER_BLOCK)
+constexpr int THREADS = WARPS * 32;
+constexpr int GROUP = 128;        // columns a warp sums at a time: 4 per lane
+constexpr int BATCH = 16;         // gathered x rows a warp keeps in flight
+constexpr int SPLIT_WARP = 64;    // split rows of at most this many partials: one warp
+constexpr int ZERO_ROWS = 64;     // empty rows per warp, sizing the grid
+constexpr int SMS = 132;          // H100 SXM
+constexpr int DW_WARPS = 8;       // dw blocks: 8 warps, one slot each
 constexpr unsigned FULL = 0xffffffffu;
+
+enum Weight { W_F32 = 0, W_BF16 = 1, W_ONEHOT = 2 };
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(THREADS)
-stream_scatter_kernel(const int* __restrict__ slot_sender,
-                      const int* __restrict__ r_loc,
-                      const int* __restrict__ win_subs,
-                      const float* __restrict__ w_slots,
-                      const float* __restrict__ x, float* __restrict__ out,
-                      int chunk, int tr_w, int num_senders, int num_receivers,
-                      int F, int bf16) {
-  extern __shared__ float acc[];  // tr_w x TF
-  __shared__ int st_send[PIECE];  // sender row, -1 = padding
-  __shared__ int st_row[PIECE];   // receiver row in the window
-  __shared__ float st_w[PIECE];
+// A lane's 4 columns of the 128-column group at c0 of one F-wide row: with
+// VEC 4 consecutive columns (one 16-byte access; F % 4 == 0), else columns
+// lane + 32 i.  Columns >= F read as 0 and are not written.  L2: read
+// through L2 only (__ldcg), for rows other blocks wrote in this launch;
+// else through the read-only path (__ldg).
+template <bool L2, class T>
+__device__ __forceinline__ T ld(const T* p) {
+  return L2 ? __ldcg(p) : __ldg(p);
+}
 
-  const int win = blockIdx.x;
-  const int row0 = win * tr_w;
-  const int rows = min(tr_w, num_receivers - row0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int f = blockIdx.y * TF + lane;
-  const bool col_ok = f < F;
-
-  // Thread (warp, lane) owns rows = warp (mod WARPS) of column f: it alone
-  // zeroes, accumulates and writes them, so no barrier guards them.
-  for (int r = warp; r < rows; r += WARPS) acc[r * TF + lane] = 0.f;
-
-  const long long s0 = (long long)win_subs[2 * win] * chunk;
-  const long long s_end = s0 + (long long)win_subs[2 * win + 1] * chunk;
-  for (long long p0 = s0; p0 < s_end; p0 += PIECE) {
-    __syncthreads();  // every warp is done with the previous piece
-    const long long i = p0 + tid;
-    int send = -1, row = 0;
-    float wv = 0.f;
-    if (i < s_end) {
-      const int s = slot_sender[i];
-      const int rl = r_loc[i];
-      if (s >= 0 && s < num_senders && rl >= 0 && rl < rows) {
-        send = s;
-        row = rl;
-        wv = w_slots[i];
-      }
+template <bool VEC, bool L2 = false>
+__device__ __forceinline__ void load4(const float* row, int c0, int F, int lane,
+                                      float (&v)[4]) {
+  if (VEC) {
+    const int c = c0 + 4 * lane;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < F) t = ld<L2>(reinterpret_cast<const float4*>(row + c));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + lane + 32 * i;
+      v[i] = c < F ? ld<L2>(row + c) : 0.f;
     }
-    st_send[tid] = send;
-    st_row[tid] = row;
-    st_w[tid] = wv;
-    __syncthreads();
-    const int n = (int)min((long long)PIECE, s_end - p0);
-    for (int k = 0; k < n; k += 32) {
-      const int j = k + lane;
-      const bool mine = j < n && st_send[j] >= 0 && (st_row[j] % WARPS) == warp;
-      unsigned mask = __ballot_sync(FULL, mine);  // this warp's slots, in order
-      while (mask) {
-        int js[BATCH];
-        float xv[BATCH];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          js[u] = mask ? k + __ffs(mask) - 1 : -1;
-          mask &= mask - 1;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          xv[u] = (js[u] >= 0 && col_ok) ? x[(size_t)st_send[js[u]] * F + f] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (js[u] < 0) continue;
-          const float w = st_w[js[u]];
-          const float m = bf16 ? __fmul_rn(round_bf16(w), round_bf16(xv[u]))
-                               : __fmul_rn(w, xv[u]);
-          acc[st_row[js[u]] * TF + lane] += m;
-        }
-      }
-    }
-  }
-  if (col_ok) {
-    float* o = out + (size_t)row0 * F + f;
-    for (int r = warp; r < rows; r += WARPS) o[(size_t)r * F] = acc[r * TF + lane];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-stream_scatter_mat_kernel(const int* __restrict__ slot_sender,
-                          const int* __restrict__ win_subs,
-                          const __nv_bfloat16* __restrict__ oh,
-                          const float* __restrict__ x, float* __restrict__ out,
-                          int chunk, int tr_w, int num_senders,
-                          int num_receivers, int F) {
-  extern __shared__ float smem[];
-  float* acc = smem;  // tr_w x TF
-  // MAT_PIECE rows of tr_w one-hot entries, row stride tr_w + OH_PAD
-  __nv_bfloat16* oh_s = reinterpret_cast<__nv_bfloat16*>(smem + tr_w * TF);
-  __shared__ int st_send[MAT_PIECE];  // sender row, -1 = padding
-  const int stride = tr_w + OH_PAD;
-
-  const int win = blockIdx.x;
-  const int row0 = win * tr_w;
-  const int rows = min(tr_w, num_receivers - row0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int f = blockIdx.y * TF + lane;
-  const bool col_ok = f < F;
-
-  for (int r = warp; r < rows; r += WARPS) acc[r * TF + lane] = 0.f;
-
-  const long long s0 = (long long)win_subs[2 * win] * chunk;
-  const long long s_end = s0 + (long long)win_subs[2 * win + 1] * chunk;
-  for (long long p0 = s0; p0 < s_end; p0 += MAT_PIECE) {
-    __syncthreads();
-    const int n = (int)min((long long)MAT_PIECE, s_end - p0);
-    // the piece's one-hot rows are contiguous: copy them as 32-bit words
-    // (tr_w is a multiple of 8, so every row starts 16-byte aligned)
-    const unsigned* src = reinterpret_cast<const unsigned*>(oh + p0 * tr_w);
-    unsigned* dst = reinterpret_cast<unsigned*>(oh_s);
-    const int row_words = tr_w / 2;
-    const int words = n * row_words;
-    for (int k = tid; k < words; k += THREADS) {
-      dst[(k / row_words) * (stride / 2) + k % row_words] = src[k];
+template <bool VEC>
+__device__ __forceinline__ void store4(float* row, int c0, int F, int lane,
+                                       const float (&v)[4]) {
+  if (VEC) {
+    const int c = c0 + 4 * lane;
+    if (c < F) *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + lane + 32 * i;
+      if (c < F) row[c] = v[i];
     }
-    if (tid < n) {
-      const int s = slot_sender[p0 + tid];
-      st_send[tid] = (s >= 0 && s < num_senders) ? s : -1;
+  }
+}
+
+// the column of the group that a lane's i-th value belongs to
+template <bool VEC>
+__device__ __forceinline__ int col4(int lane, int i) {
+  return VEC ? 4 * lane + i : lane + 32 * i;
+}
+
+// sum = partials [lo, hi) of a lane's columns, added in order from 0 (read
+// through L2: other blocks wrote them in this launch)
+template <bool VEC>
+__device__ __forceinline__ void sum_partials(const float* part, int lo, int hi, int c0,
+                                             int F, int lane, float (&sum)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = 0.f;
+  for (int q0 = lo; q0 < hi; q0 += BATCH) {
+    float v[BATCH][4];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (q0 + u < hi) load4<VEC, true>(part + (size_t)(q0 + u) * F, c0, F, lane, v[u]);
     }
-    __syncthreads();
-    for (int k = 0; k < n; k += 32) {
-      // bit q: this warp's row warp + q * WARPS of slot k + lane is non-zero
-      unsigned bits = 0;
-      if (k + lane < n) {
-        const __nv_bfloat16* row = oh_s + (k + lane) * stride;
-        for (int q = 0, r = warp; r < rows; ++q, r += WARPS) {
-          if (__bfloat162float(row[r]) != 0.f) bits |= 1u << q;
-        }
-      }
-      unsigned mask = __ballot_sync(FULL, bits != 0);  // in slot order
-      while (mask) {
-        int js[BATCH];
-        unsigned rbits[BATCH];
-        float xv[BATCH];
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          js[u] = mask ? __ffs(mask) - 1 : -1;
-          mask &= mask - 1;
-        }
+    for (int u = 0; u < BATCH; ++u) {
+      if (q0 + u < hi) {
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          rbits[u] = __shfl_sync(FULL, bits, js[u] >= 0 ? js[u] : 0);
-          const int s = js[u] >= 0 ? st_send[k + js[u]] : -1;
-          xv[u] = (s >= 0 && col_ok) ? round_bf16(x[(size_t)s * F + f]) : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (js[u] < 0) continue;
-          const __nv_bfloat16* row = oh_s + (k + js[u]) * stride;
-          for (unsigned b = rbits[u]; b; b &= b - 1) {
-            const int r = warp + (__ffs(b) - 1) * WARPS;
-            acc[r * TF + lane] += __fmul_rn(__bfloat162float(row[r]), xv[u]);
-          }
-        }
+        for (int i = 0; i < 4; ++i) sum[i] += v[u][i];
       }
     }
   }
-  if (col_ok) {
-    float* o = out + (size_t)row0 * F + f;
-    for (int r = warp; r < rows; r += WARPS) o[(size_t)r * F] = acc[r * TF + lane];
+}
+
+struct Slot {
+  int row, send;
+  float w;  // rounded as the payload asks
+};
+
+template <int WK>
+__device__ __forceinline__ Slot slot_meta(const int* __restrict__ ent, int n_real,
+                                          int e, int e_end, const void* __restrict__ w,
+                                          int tr_w) {
+  Slot m{-1, 0, 0.f};
+  if (e < e_end) {
+    const int slot = __ldg(ent + e);
+    m.row = __ldg(ent + n_real + e);
+    m.send = __ldg(ent + 2 * n_real + e);
+    if (WK == W_ONEHOT) {
+      const __nv_bfloat16* oh = static_cast<const __nv_bfloat16*>(w);
+      m.w = __bfloat162float(oh[(size_t)slot * tr_w + m.row % tr_w]);
+    } else {
+      const float v = __ldg(static_cast<const float*>(w) + slot);
+      m.w = WK == W_BF16 ? round_bf16(v) : v;
+    }
+  }
+  return m;
+}
+
+template <int WK, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+stream_scatter_kernel(const int* __restrict__ ent, const int4* __restrict__ pieces,
+                      const int4* __restrict__ splits,
+                      const int* __restrict__ empty_rows, int* __restrict__ arrivals,
+                      const void* __restrict__ w, const float* __restrict__ x,
+                      float* __restrict__ out, float* __restrict__ part, int n_real,
+                      int n_pieces, int n_empty, int piece, int tr_w, int F) {
+  __shared__ float red[WARPS][GROUP];  // the warps' sums of a split row
+  __shared__ int done[2 * WARPS];      // split rows this block completes
+  __shared__ int n_done;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x * WARPS + warp;
+
+  if (p < n_pieces) {
+    // (split row, partial) of the piece's first and of its last row
+    const int4 info = pieces[p];
+    const int e0 = p * piece;
+    const int e1 = min(e0 + piece, n_real);
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int cur = -1;        // the row being summed
+      bool first = true;   // cur is the piece's first row
+      Slot nxt = slot_meta<WK>(ent, n_real, e0 + lane, e1, w, tr_w);
+      for (int b = e0; b < e1; b += 32) {
+        const Slot me = nxt;
+        nxt = slot_meta<WK>(ent, n_real, b + 32 + lane, e1, w, tr_w);
+        const int n = min(32, e1 - b);
+        for (int j0 = 0; j0 < n; j0 += BATCH) {
+          float xv[BATCH][4];
+          int rw[BATCH];
+          float wv[BATCH];
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            const int j = j0 + u;  // the same in every lane
+            const int s = __shfl_sync(FULL, me.send, j & 31);
+            rw[u] = __shfl_sync(FULL, me.row, j & 31);
+            wv[u] = __shfl_sync(FULL, me.w, j & 31);
+            if (j < n) {
+              load4<VEC>(x + (size_t)s * F, c0, F, lane, xv[u]);
+            } else {
+              rw[u] = -1;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            if (rw[u] < 0) break;
+            if (rw[u] != cur) {
+              if (cur >= 0) {
+                // a finished row other than the last: the first one goes
+                // where the plan says, the others are whole
+                const int c = first ? info.y : -1;
+                store4<VEC>(c >= 0 ? part + (size_t)c * F : out + (size_t)cur * F,
+                            c0, F, lane, acc);
+                first = false;
+              }
+              cur = rw[u];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+            }
+            if (WK == W_ONEHOT && wv[u] == 0.f) continue;  // as oh^T g: non-zeros only
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float xi = WK == W_F32 ? xv[u][i] : round_bf16(xv[u][i]);
+              acc[i] += __fmul_rn(wv[u], xi);
+            }
+          }
+        }
+      }
+      // the last row (which may be the first)
+      const int c = first ? info.y : info.w;
+      store4<VEC>(c >= 0 ? part + (size_t)c * F : out + (size_t)cur * F, c0, F, lane,
+                  acc);
+    }
+  }
+
+  // rows without a real slot: zeros, by every warp of the grid in turn
+  const int nw = gridDim.x * WARPS;
+  for (int i = blockIdx.x * WARPS + warp; i < n_empty; i += nw) {
+    float* o = out + (size_t)__ldg(empty_rows + i) * F;
+    const float z[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < F; c0 += GROUP) store4<VEC>(o, c0, F, lane, z);
+  }
+
+  // this block's partials are written: count it in for each split row it
+  // wrote to, once, and note the rows it is the last to reach
+  __threadfence();
+  __syncthreads();
+  if (warp == 0) {
+    int k = -1;
+    if (lane < 2 * WARPS) {
+      const int q = blockIdx.x * WARPS + lane / 2;
+      if (q < n_pieces) k = (lane & 1) ? pieces[q].z : pieces[q].x;
+    }
+    bool seen = false;  // an earlier lane holds the same row
+#pragma unroll
+    for (int j = 0; j < 2 * WARPS; ++j) {
+      const int kj = __shfl_sync(FULL, k, j);
+      seen |= j < lane && kj == k;
+    }
+    bool last = false;
+    if (k >= 0 && !seen) {
+      last = atomicAdd(arrivals + k, 1) == splits[k].w - 1;
+      if (last) {
+        arrivals[k] = 0;  // every block has arrived: ready for the next launch
+        __threadfence();
+      }
+    }
+    const unsigned mask = __ballot_sync(FULL, last);
+    if (last) done[__popc(mask & ((1u << lane) - 1))] = k;
+    if (lane == 0) n_done = __popc(mask);
+  }
+  __syncthreads();
+
+  // sum each completed split row's partials in a fixed order: a row of at
+  // most SPLIT_WARP partials by one warp, in piece order, the warps taking
+  // such rows in turn; a longer one by all 8 warps, each a consecutive
+  // eighth in order, then the eight in order
+  for (int t = warp; t < n_done; t += WARPS) {
+    const int4 sp = splits[done[t]];  // row, first partial, partials, blocks
+    if (sp.z > SPLIT_WARP) continue;
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float sum[4];
+      sum_partials<VEC>(part, sp.y, sp.y + sp.z, c0, F, lane, sum);
+      store4<VEC>(out + (size_t)sp.x * F, c0, F, lane, sum);
+    }
+  }
+  for (int t = 0; t < n_done; ++t) {
+    const int4 sp = splits[done[t]];
+    if (sp.z <= SPLIT_WARP) continue;
+    const int per = (sp.z + WARPS - 1) / WARPS;
+    const int lo = sp.y + min(warp * per, sp.z);
+    const int hi = sp.y + min((warp + 1) * per, sp.z);
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float sum[4];
+      sum_partials<VEC>(part, lo, hi, c0, F, lane, sum);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp][col4<VEC>(lane, i)] = sum[i];
+      __syncthreads();
+      if (warp == 0) {
+        float tot[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[i] = red[0][col4<VEC>(lane, i)];
+          for (int k = 1; k < WARPS; ++k) tot[i] += red[k][col4<VEC>(lane, i)];
+        }
+        store4<VEC>(out + (size_t)sp.x * F, c0, F, lane, tot);
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -268,54 +355,72 @@ stream_dw_kernel(const int* __restrict__ slot_sender,
   }
 }
 
-int check_window(int tr_w) {
-  return (tr_w <= 0 || tr_w > MAX_TR_W || tr_w % 8) ? (int)cudaErrorInvalidValue : 0;
+template <int WK, bool VEC>
+cudaError_t launch_scatter(const int* ent, const int* pieces, const int* splits,
+                           const int* empty_rows, int* arrivals, const void* w,
+                           const float* x, float* out, float* part, int n_real,
+                           int n_pieces, int n_empty, int piece, int tr_w, int F,
+                           cudaStream_t stream) {
+  const int blocks = std::max({(n_pieces + WARPS - 1) / WARPS,
+                               (n_empty + WARPS * ZERO_ROWS - 1) / (WARPS * ZERO_ROWS), 1});
+  stream_scatter_kernel<WK, VEC><<<blocks, THREADS, 0, stream>>>(
+      ent, reinterpret_cast<const int4*>(pieces), reinterpret_cast<const int4*>(splits),
+      empty_rows, arrivals, w, x, out, part, n_real, n_pieces, n_empty, piece, tr_w, F);
+  return cudaGetLastError();
+}
+
+template <int WK>
+cudaError_t launch_scatter_vec(const int* ent, const int* pieces, const int* splits,
+                               const int* empty_rows, int* arrivals, const void* w,
+                               const float* x, float* out, float* part, int n_real,
+                               int n_pieces, int n_empty, int piece, int tr_w, int F,
+                               cudaStream_t stream) {
+  // 16-byte rows when F % 4 == 0 and the rows start 16-byte aligned
+  const bool vec = F % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)out | (uintptr_t)part) % 16 == 0;
+  return vec ? launch_scatter<WK, true>(ent, pieces, splits, empty_rows, arrivals, w, x,
+                                        out, part, n_real, n_pieces, n_empty, piece,
+                                        tr_w, F, stream)
+             : launch_scatter<WK, false>(ent, pieces, splits, empty_rows, arrivals, w, x,
+                                         out, part, n_real, n_pieces, n_empty, piece,
+                                         tr_w, F, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out [num_receivers, F] = the structure's sparse matrix (weights w_slots,
-// slot order) times x [num_senders, F].  n_windows = ceil(num_receivers /
-// tr_w) rows of win_subs.  Launches on `stream` (a cudaStream_t); returns the
-// cudaError_t of the launch (0 on success).  Does not synchronise and
-// allocates nothing.
-int kgcn_stream_scatter(const int* slot_sender, const int* r_loc,
-                        const int* win_subs, const float* w_slots,
-                        const float* x, float* out, int n_windows, int chunk,
-                        int tr_w, int num_senders, int num_receivers, int F,
-                        int bf16, void* stream) {
-  if (int e = check_window(tr_w)) return e;
-  dim3 grid(n_windows, (F + TF - 1) / TF);
-  const size_t smem = (size_t)tr_w * TF * sizeof(float);
-  stream_scatter_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      slot_sender, r_loc, win_subs, w_slots, x, out, chunk, tr_w, num_senders,
-      num_receivers, F, bf16);
-  return (int)cudaGetLastError();
-}
-
-// out [num_receivers, F] = per receiver window, oh[window slots]^T times
-// bf16(x[slot_sender]); oh [slots, tr_w] bfloat16.  Same conventions.
-int kgcn_stream_scatter_mat(const int* slot_sender, const int* win_subs,
-                            const void* oh, const float* x, float* out,
-                            int n_windows, int chunk, int tr_w,
-                            int num_senders, int num_receivers, int F,
-                            void* stream) {
-  if (int e = check_window(tr_w)) return e;
-  dim3 grid(n_windows, (F + TF - 1) / TF);
-  const size_t smem = (size_t)tr_w * TF * sizeof(float) +
-                      (size_t)MAT_PIECE * (tr_w + OH_PAD) * sizeof(__nv_bfloat16);
-  if (smem + MAT_PIECE * sizeof(int) > STATIC_SMEM_LIMIT) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stream_scatter_mat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// out [num_receivers, F] = the structure's sparse matrix times x
+// [num_senders, F], over the StreamPlan's arrays (entries [3, n_real],
+// pieces [n_pieces, 4], splits [n_split, 4], empty_rows [n_empty], arrivals
+// [n_split], zero between launches).  weights: 0 = w_slots [slots] f32, 1 =
+// the same with the bf16 payload, 2 = one-hots oh [slots, tr_w] bf16.  part:
+// scratch of the plan's n_parts rows of F.  Launches on `stream` (a
+// cudaStream_t); returns the cudaError_t of the launch (0 on success).
+// Does not synchronise and allocates nothing.
+int kgcn_stream_scatter(const int* entries, const int* pieces, const int* splits,
+                        const int* empty_rows, int* arrivals, const void* w,
+                        const float* x, float* out, float* part, int n_real,
+                        int n_pieces, int n_empty, int piece, int tr_w, int F,
+                        int weights, void* stream) {
+  if (piece <= 0 || tr_w <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (weights) {
+    case W_F32:
+      return (int)launch_scatter_vec<W_F32>(entries, pieces, splits, empty_rows, arrivals,
+                                            w, x, out, part, n_real, n_pieces, n_empty,
+                                            piece, tr_w, F, s);
+    case W_BF16:
+      return (int)launch_scatter_vec<W_BF16>(entries, pieces, splits, empty_rows,
+                                             arrivals, w, x, out, part, n_real, n_pieces,
+                                             n_empty, piece, tr_w, F, s);
+    case W_ONEHOT:
+      return (int)launch_scatter_vec<W_ONEHOT>(entries, pieces, splits, empty_rows,
+                                               arrivals, w, x, out, part, n_real,
+                                               n_pieces, n_empty, piece, tr_w, F, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  stream_scatter_mat_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      slot_sender, win_subs, static_cast<const __nv_bfloat16*>(oh), x, out,
-      chunk, tr_w, num_senders, num_receivers, F);
-  return (int)cudaGetLastError();
 }
 
 // out [slots]: per slot <dy[receiver], x[sender]> (0 in padding slots),

@@ -20,9 +20,10 @@ receivers into ``tr_w``-row windows, pads every window to whole sub-chunks
 of ``chunk`` slots, groups ``wb`` windows into an output block and the
 block's sub-chunks into macros of ``mc``; padding slots carry sender
 ``num_senders`` (the appended zero row) and weight 0.  The arrays equal the
-JAX package's array for array.  The port adds ``win_subs``: each receiver
-window's first sub-chunk and sub-chunk count, which lets a CUDA block walk
-one window's slots.
+JAX package's array for array.  The port adds a ``StreamPlan`` per direction
+(``_build_plan``): the real slots cut into pieces of equal size for the CUDA
+scatter kernels, with the receiver rows that pieces share, so a kernel's
+time follows the real edges and not the largest in-degree.
 
 Device side: on CUDA tensors the dispatchers ``stream_scatter``,
 ``stream_scatter_mat`` and ``stream_dw`` launch the hand-written Hopper
@@ -35,8 +36,9 @@ Payload dtype (``compute_dtype``, config ``tiled_compute_dtype``): with
 ``"bfloat16"`` the gathered rows and the weights are rounded to bf16 (the
 one-hots hold bf16 weights), each product is exact in f32 and the sums run
 in f32; the dx pass rounds ``dy``, the weight gradient rounds ``dy`` and x.
-``"float32"`` rounds nothing.  Kernel and plain version sum each output row
-in slot order.
+``"float32"`` rounds nothing.  The plain versions sum each output row in
+slot order; the scatter kernels in the plan's fixed order (pieces, then a
+split row's partials), so two launches give the same bits.
 """
 from __future__ import annotations
 
@@ -94,12 +96,13 @@ class StreamCOO:
     sub_wid: ``[n_sub, 1]`` int32 window of each sub-chunk within its block.
     macro_rb / macro_first: ``[n_macros]`` int32 output block of each macro /
         1 on a block's first macro.
-    win_subs: ``[n_windows, 2]`` int32 first sub-chunk and sub-chunk count of
-        each receiver window, ``n_windows = cdiv(num_receivers, tr_w)``.
+    plan: the scatter kernels' ``StreamPlan`` of this direction's real slots.
     t_from_f: transpose only — ``[slots_T]`` forward slot of each transpose
         slot (``slots_F`` for padding).
     w_slots: ``[slots]`` float32 baked weights, or None.
-    oh: ``[slots, tr_w]`` bfloat16 weighted one-hots, or None.
+    oh: ``[slots, tr_w]`` bfloat16 weighted one-hots, or None.  Each row
+        holds at most one non-zero, at ``r_loc`` (``_materialize_oh``): the
+        one-hot kernel reads only ``oh[slot, r_loc[slot]]``.
     transpose: the same edges sender-sorted (dx), or None.
     """
 
@@ -109,7 +112,7 @@ class StreamCOO:
     sub_wid: torch.Tensor
     macro_rb: torch.Tensor
     macro_first: torch.Tensor
-    win_subs: torch.Tensor
+    plan: "StreamPlan"
     meta: StreamMeta
     t_from_f: Optional[torch.Tensor] = None
     w_slots: Optional[torch.Tensor] = None
@@ -123,9 +126,104 @@ class StreamCOO:
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (torch.Tensor, StreamCOO)):
+            if isinstance(v, (torch.Tensor, StreamCOO, StreamPlan)):
                 moved[f.name] = v.to(device)
         return self.replace(**moved)
+
+
+# pieces per CUDA block of the scatter kernels, one per warp (csrc/stream.cu's
+# WARPS)
+PIECES_PER_BLOCK = 8
+# the piece size aims at about this many pieces a structure: 16 warps on each
+# of the H100's 132 SMs, enough x-row gathers in flight to cover their latency
+_TARGET_PIECES = 2048
+
+
+def _piece_size(n_real: int) -> int:
+    """Real slots per piece: a multiple of 32 (a warp's batch), 32-512."""
+    return int(min(512, 32 * max(1, _cdiv(n_real, 32 * _TARGET_PIECES))))
+
+
+@dataclasses.dataclass
+class StreamPlan:
+    """The scatter kernels' cut of one direction's real slots (host-built by
+    ``_build_plan``).  Piece ``p`` is entries ``[p·piece, (p+1)·piece)``; a
+    warp sums it in order, writing each receiver row that lies in this piece
+    alone straight to the output, and the first and last rows, where other
+    pieces share them, to partial rows.  A row whose slots span pieces
+    ("split") is then the sum of its partials, taken in a fixed order by the
+    last CUDA block of ``PIECES_PER_BLOCK`` pieces to write one of them.
+
+    piece: real slots per piece.
+    entries: ``[3, n_real]`` int32 slot, receiver row and sender of each real
+        slot, in slot order (which sorts them by receiver row).
+    pieces: ``[n_pieces, 4]`` int32 (split row, partial) of the piece's first
+        row and of its last row; ``-1, -1`` where that row is whole in this
+        piece, and for the last row where it is also the first.
+    splits: ``[n_split, 4]`` int32 receiver row, first partial, partial count
+        and number of blocks holding its partials, of each split row; its
+        partials are consecutive, in piece order.
+    empty_rows: ``[n_empty]`` int32 receiver rows without a real slot (the
+        kernels write them as zeros).
+    arrivals: ``[n_split]`` int32 count of the blocks that have written a
+        split row's partials in the running launch; 0 between launches (the
+        last block resets it), so launches on one structure must run in
+        stream order.
+    n_parts: number of partial rows (the launch's scratch).
+    """
+
+    piece: int
+    entries: torch.Tensor
+    pieces: torch.Tensor
+    splits: torch.Tensor
+    empty_rows: torch.Tensor
+    arrivals: torch.Tensor
+    n_parts: int
+
+    def to(self, device) -> "StreamPlan":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def _build_plan(slot, rows, senders, num_receivers) -> StreamPlan:
+    """The plan of real slots ``slot`` (ascending) with receiver rows
+    ``rows`` (non-decreasing) and ``senders``."""
+    n = len(slot)
+    P = _piece_size(n)
+    n_pieces = _cdiv(n, P)
+    starts = np.arange(n_pieces) * P
+    first = rows[starts]
+    last = rows[np.minimum(starts + P, n) - 1]
+    # a row is split where a piece ends in it and the next one starts in it
+    split_rows = np.unique(first[1:][first[1:] == last[:-1]])
+    has = np.stack([np.isin(first, split_rows),
+                    np.isin(last, split_rows) & (last != first)], axis=1)
+    # partials in (piece, first/last) order, i.e. by (row, piece)
+    part = np.where(has, np.cumsum(has.ravel()).reshape(has.shape) - 1, -1)
+    k = np.where(has, np.searchsorted(split_rows, np.stack([first, last], 1)), -1)
+    k_of_part = k[has]
+    part_piece = np.repeat(np.arange(n_pieces), 2)[has.ravel()]
+    n_parts = len(k_of_part)
+    off = np.searchsorted(k_of_part, np.arange(len(split_rows)))
+    count = np.bincount(k_of_part, minlength=len(split_rows))
+    blocks = (part_piece[off + count - 1] // PIECES_PER_BLOCK
+              - part_piece[off] // PIECES_PER_BLOCK + 1)
+    filled = np.zeros(num_receivers, bool)
+    filled[rows] = True
+
+    def i32(a, shape):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32).reshape(shape))
+
+    return StreamPlan(
+        piece=P,
+        entries=i32(np.stack([slot, rows, senders]), (3, n)),
+        pieces=i32(np.stack([k[:, 0], part[:, 0], k[:, 1], part[:, 1]], 1), (n_pieces, 4)),
+        splits=i32(np.stack([split_rows, off, count, blocks], 1), (len(split_rows), 4)),
+        empty_rows=i32(np.nonzero(~filled)[0], (-1,)),
+        arrivals=torch.zeros(len(split_rows), dtype=torch.int32),
+        n_parts=n_parts,
+    )
 
 
 def _build_one(s, r, eid, num_senders, num_receivers, num_edges,
@@ -177,10 +275,6 @@ def _build_one(s, r, eid, num_senders, num_receivers, num_edges,
         macro_first[0] = 1
         macro_first[1:][macro_rb[1:] != macro_rb[:-1]] = 1
 
-    # a window's sub-chunks are consecutive within its block
-    n_win = _cdiv(num_receivers, tr_w)
-    win_subs = np.stack([sub_pos[sub_base[:n_win]], sub_per_w[:n_win]], axis=1)
-
     meta = StreamMeta(
         tr_w=tr_w, chunk=chunk, mc=mc, wb=wb, n_macros=n_macros, n_rb=n_rb,
         num_senders=num_senders, num_receivers=num_receivers,
@@ -193,7 +287,7 @@ def _build_one(s, r, eid, num_senders, num_receivers, num_edges,
         sub_wid=torch.from_numpy(sub_wid.reshape(-1, 1)),
         macro_rb=torch.from_numpy(macro_rb),
         macro_first=torch.from_numpy(macro_first),
-        win_subs=torch.from_numpy(win_subs.astype(np.int32).reshape(n_win, 2)),
+        plan=_build_plan(slot, r_sorted, s_sorted, num_receivers),
         meta=meta,
     ), slot_src
 
@@ -407,29 +501,24 @@ def stream_dw_reference(ss: StreamCOO, x, dy, compute_dtype="bfloat16"):
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/stream.cu)
 
-# the kernels keep a window's tr_w × 32 accumulator in shared memory
-MAX_TR_W = 256
-
 
 def _lib():
     lib = _build.load("stream")
     if lib.kgcn_stream_scatter.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kgcn_stream_scatter.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        lib.kgcn_stream_scatter.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
         lib.kgcn_stream_scatter.restype = ctypes.c_int
-        lib.kgcn_stream_scatter_mat.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        lib.kgcn_stream_scatter_mat.restype = ctypes.c_int
         lib.kgcn_stream_dw.argtypes = [ptr] * 7 + [i64] + [i32] * 8 + [ptr]
         lib.kgcn_stream_dw.restype = ctypes.c_int
     return lib
 
 
-def _check_ints(ss: StreamCOO, names, device):
+def _check_ints(obj, names, device):
     for name in names:
-        t = getattr(ss, name)
+        t = getattr(obj, name)
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
-            raise ValueError(f"StreamCOO.{name} must be contiguous int32 on "
-                             f"{device} (got {t.dtype} on {t.device})")
+            raise ValueError(f"{type(obj).__name__}.{name} must be contiguous int32 "
+                             f"on {device} (got {t.dtype} on {t.device})")
 
 
 def _check_operand(name, t, shape, dtype, device):
@@ -440,31 +529,40 @@ def _check_operand(name, t, shape, dtype, device):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _check_window(m: StreamMeta):
-    if m.tr_w > MAX_TR_W:
-        raise ValueError(f"the stream kernels take tr_w <= {MAX_TR_W}, got {m.tr_w}")
+# the scatter kernel's weight source (csrc/stream.cu's kgcn_stream_scatter)
+_W_F32, _W_BF16, _W_ONEHOT = 0, 1, 2
 
 
-def _scatter_launch(ss: StreamCOO, w_slots, x, bf16: bool):
-    """One launch of the iota-route kernel → ``[num_receivers, F]`` f32."""
-    m = ss.meta
+def _scatter_plan_launch(ss: StreamCOO, weights, x, mode: int):
+    """One launch of the scatter kernel over ``ss.plan`` → ``[num_receivers,
+    F]`` f32; ``weights`` are the slot weights (modes f32, bf16) or the
+    one-hots (mode one-hot)."""
+    m, plan = ss.meta, ss.plan
     dev = x.device
-    _check_window(m)
-    _check_ints(ss, ("slot_sender", "r_loc", "win_subs"), dev)
+    _check_ints(plan, ("entries", "pieces", "splits", "empty_rows", "arrivals"), dev)
     _check_operand("x", x, (m.num_senders, x.shape[1]), torch.float32, dev)
-    _check_operand("w_slots", w_slots, (m.slots,), torch.float32, dev)
     F = x.shape[1]
     out = torch.empty((m.num_receivers, F), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    part = torch.empty((plan.n_parts, F), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.kgcn_stream_scatter(
-            ss.slot_sender.data_ptr(), ss.r_loc.data_ptr(), ss.win_subs.data_ptr(),
-            w_slots.data_ptr(), x.data_ptr(), out.data_ptr(), ss.win_subs.shape[0],
-            m.chunk, m.tr_w, m.num_senders, m.num_receivers, F, int(bf16), stream)
+            plan.entries.data_ptr(), plan.pieces.data_ptr(), plan.splits.data_ptr(),
+            plan.empty_rows.data_ptr(), plan.arrivals.data_ptr(), weights.data_ptr(),
+            x.data_ptr(), out.data_ptr(), part.data_ptr(), plan.entries.shape[1],
+            plan.pieces.shape[0], plan.empty_rows.shape[0], plan.piece, m.tr_w, F,
+            mode, stream)
     _build.check(lib, code, "stream_scatter launch")
+    return out
+
+
+def _scatter_launch(ss: StreamCOO, w_slots, x, bf16: bool):
+    """One launch of the iota-route kernel → ``[num_receivers, F]`` f32."""
+    _check_operand("w_slots", w_slots, (ss.meta.slots,), torch.float32, x.device)
+    out = _scatter_plan_launch(ss, w_slots, x, _W_BF16 if bf16 else _W_F32)
     stream_scatter.launches += 1
     return out
 
@@ -472,23 +570,8 @@ def _scatter_launch(ss: StreamCOO, w_slots, x, bf16: bool):
 def _scatter_mat_launch(ss: StreamCOO, x):
     """One launch of the static-route kernel on ``ss.oh`` → f32."""
     m = ss.meta
-    dev = x.device
-    _check_window(m)
-    _check_ints(ss, ("slot_sender", "win_subs"), dev)
-    _check_operand("x", x, (m.num_senders, x.shape[1]), torch.float32, dev)
-    _check_operand("oh", ss.oh, (m.slots, m.tr_w), torch.bfloat16, dev)
-    F = x.shape[1]
-    out = torch.empty((m.num_receivers, F), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.kgcn_stream_scatter_mat(
-            ss.slot_sender.data_ptr(), ss.win_subs.data_ptr(), ss.oh.data_ptr(),
-            x.data_ptr(), out.data_ptr(), ss.win_subs.shape[0], m.chunk, m.tr_w,
-            m.num_senders, m.num_receivers, F, stream)
-    _build.check(lib, code, "stream_scatter_mat launch")
+    _check_operand("oh", ss.oh, (m.slots, m.tr_w), torch.bfloat16, x.device)
+    out = _scatter_plan_launch(ss, ss.oh, x, _W_ONEHOT)
     stream_scatter_mat.launches += 1
     return out
 

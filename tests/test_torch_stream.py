@@ -92,25 +92,197 @@ def test_build_stream_matches_jax(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_window_ranges_cover_every_real_slot_once(name):
-    """win_subs (the port's addition) names each receiver window's own
-    sub-chunks: their block and window match macro_rb / sub_wid, and the
-    ranges together hold every real slot exactly once."""
-    *_, te = _both(name)
-    for ss in (te, te.transpose):
+    """Each receiver window's sub-chunks, found through macro_rb / sub_wid
+    (block·wb + window), start with a run of consecutive ones that holds
+    exactly the slots of the edges into that window, padded to whole
+    sub-chunks (at least one); together the runs hold every real slot once,
+    and every other sub-chunk holds padding alone."""
+    V, Vs, F, s, r, w, kw = _case(name)
+    te = ts.build_stream(s, r, V, weights=w, **kw)
+    valid = np.nonzero(w != 0)[0]
+    for ss, recv in ((te, r), (te.transpose, s)):
         m = ss.meta
+        subs = np.arange(ss.sub_wid.shape[0])
+        win = ss.macro_rb.numpy()[subs // m.mc] * m.wb + ss.sub_wid.numpy()[:, 0]
+        src = ss.slot_src.numpy().reshape(-1, m.chunk)
+        real = src < m.num_edges
         n_win = -(-m.num_receivers // m.tr_w)
-        assert tuple(ss.win_subs.shape) == (n_win, 2)
-        seen = np.zeros(m.slots, bool)
-        for w, (first, count) in enumerate(ss.win_subs.numpy()):
-            assert count >= 1
-            subs = np.arange(first, first + count)
-            np.testing.assert_array_equal(ss.macro_rb.numpy()[subs // m.mc], w // m.wb)
-            np.testing.assert_array_equal(ss.sub_wid.numpy()[subs, 0], w % m.wb)
-            slots = (subs[:, None] * m.chunk + np.arange(m.chunk)).ravel()
-            assert not seen[slots].any()
-            seen[slots] = True
-        real = ss.slot_sender.numpy() < m.num_senders
-        assert seen[real].all()
+        edges_in = np.bincount(recv[valid] // m.tr_w, minlength=n_win)
+        seen = np.zeros(real.shape, bool)
+        for wi in range(n_win):
+            first = np.nonzero(win == wi)[0][0]
+            run = np.arange(first, first + max(-(-edges_in[wi] // m.chunk), 1))
+            np.testing.assert_array_equal(win[run], wi)
+            np.testing.assert_array_equal(
+                np.sort(src[run][real[run]]),
+                np.sort(valid[recv[valid] // m.tr_w == wi]))
+            assert not seen[run].any()
+            seen[run] = True
+        assert not (real & ~seen).any()
+
+
+def _port_structure(name):
+    """The port's structure of a case, or of the hub case: 2 000 receivers,
+    4 000 uniform edges and 3 000 more into receiver 7."""
+    if name != "hub":
+        return _both(name)[-1]
+    rng = np.random.RandomState(7)
+    V, E, H = 2000, 4000, 3000
+    s = rng.randint(0, V, E + H)
+    r = np.concatenate([rng.randint(0, V, E), np.full(H, 7)])
+    w = rng.standard_normal(E + H).astype(np.float32)
+    return ts.build_stream(s, r, V, weights=w, tr_w=16, chunk=8, mc=4, wb=2)
+
+
+PLAN_NAMES = NAMES + ["hub"]
+# csrc/stream.cu: a split row of at most this many partials is summed by one
+# warp in piece order
+SPLIT_WARP = 64
+
+
+def _piece_rows(plan):
+    """(piece of each entry, first and last row of each piece)."""
+    slot, row, _ = plan.entries.numpy().astype(np.int64)
+    n, P = len(row), plan.piece
+    piece = np.arange(n) // P
+    starts = np.arange(plan.pieces.shape[0]) * P
+    return piece, row[starts], row[np.minimum(starts + P, n) - 1]
+
+
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_plan_covers_every_real_slot_once(name):
+    """The scatter kernels' plan (the port's addition): every real slot once,
+    in slot order, no padding or filler slot, pieces of at most ``piece``
+    slots, and split rows with consecutive partials in piece order."""
+    te = _port_structure(name)
+    for ss in (te, te.transpose):
+        m, plan = ss.meta, ss.plan
+        valid, send, recv = ts._slot_rows(ss)
+        slot, row, sender = plan.entries.numpy().astype(np.int64)
+        np.testing.assert_array_equal(slot, np.nonzero(valid.numpy())[0])
+        np.testing.assert_array_equal(row, recv.numpy()[slot])
+        np.testing.assert_array_equal(sender, send.numpy()[slot])
+        assert (sender < m.num_senders).all() and (np.diff(row) >= 0).all()
+        n, P = len(slot), plan.piece
+        assert P == ts._piece_size(n) and P % 32 == 0
+        assert plan.pieces.shape == (-(-n // P), 4)
+        piece, first, last = _piece_rows(plan)
+        info = plan.pieces.numpy()
+        # split rows: exactly those whose slots lie in more than one piece
+        rows_u, n_pieces = np.unique(np.unique(np.stack([row, piece]), axis=1)[0],
+                                     return_counts=True)
+        splits = plan.splits.numpy()
+        np.testing.assert_array_equal(splits[:, 0], rows_u[n_pieces > 1])
+        used = []
+        for k, (r, off, count, blocks) in enumerate(splits):
+            ps = np.unique(piece[row == r])
+            assert count == len(ps) and blocks == len(np.unique(ps // ts.PIECES_PER_BLOCK))
+            which = np.where(first[ps] == r, 0, 2)
+            np.testing.assert_array_equal(info[ps, which], k)
+            np.testing.assert_array_equal(info[ps, which + 1], np.arange(off, off + count))
+            used.extend(info[ps, which + 1])
+        assert sorted(used) == list(range(plan.n_parts))
+        # whole rows name no partial; a one-row piece uses its first slot only
+        assert (info[~np.isin(first, splits[:, 0]), :2] == -1).all()
+        assert (info[~np.isin(last, splits[:, 0]) | (last == first), 2:] == -1).all()
+        filled = np.zeros(m.num_receivers, bool)
+        filled[row] = True
+        np.testing.assert_array_equal(plan.empty_rows.numpy(), np.nonzero(~filled)[0])
+        assert plan.arrivals.shape == (len(splits),) and not plan.arrivals.any()
+
+
+def test_piece_size():
+    assert [ts._piece_size(n) for n in (0, 41_103, 110_359, 10**6, 10**8)] == [
+        32, 32, 64, 512, 512]
+
+
+def _in_order(rows):
+    """Σ rows, added one after another from 0 (f32)."""
+    total = torch.zeros_like(rows[0]) if len(rows) else 0.0
+    for row in rows:
+        total = total + row
+    return total
+
+
+def _emulate_plan(ss, w_slots, x, mode):
+    """The scatter kernel's arithmetic in its order, in PyTorch: each piece
+    sums its rows from 0 in slot order, whole rows go to the output and the
+    pieces' first and last rows to partials, a split row is the sum of its
+    partials (in order where there are at most ``SPLIT_WARP``, else 8
+    consecutive runs in order, then the 8 in order), and rows without a
+    slot are zeros.  Checks that every row is written once."""
+    m, plan = ss.meta, ss.plan
+    slot, row, send = plan.entries.long()
+    x = x.to(torch.float32)
+    if mode == "onehot":
+        w, xs = ss.oh[slot, row % m.tr_w].to(torch.float32), ts._rb(x[send])
+    else:
+        w, xs = w_slots[slot], x[send]
+        if mode == "bfloat16":
+            w, xs = ts._rb(w), ts._rb(xs)
+    msg = w[:, None] * xs
+    piece, first, last = (torch.from_numpy(a) for a in _piece_rows(plan))
+    info = plan.pieces.long()
+    c = torch.where(row == first[piece], info[piece, 1],
+                    torch.where(row == last[piece], info[piece, 3], -1))
+    direct = c < 0
+    out = torch.zeros((m.num_receivers, x.shape[1]))
+    out.index_add_(0, row[direct], msg[direct])
+    part = torch.zeros((plan.n_parts, x.shape[1]))
+    part.index_add_(0, c[~direct], msg[~direct])
+    written = torch.zeros(m.num_receivers, dtype=torch.long)
+    # a whole row lies in one piece
+    pairs = torch.unique(torch.stack([row[direct], piece[direct]]), dim=1)
+    written.index_add_(0, pairs[0], torch.ones_like(pairs[0]))
+    W = ts.PIECES_PER_BLOCK
+    for r, off, count, _ in plan.splits.long().tolist():
+        per = count if count <= SPLIT_WARP else -(-count // W)
+        runs = [_in_order(part[off + min(i * per, count): off + min((i + 1) * per, count)])
+                for i in range(W)]
+        out[r] = _in_order(runs)
+        written[r] += 1
+    written[plan.empty_rows.long()] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_plan_emulation_matches_reference(name, dtype):
+    """The plan's order of sums gives the plain versions' values, both
+    directions (only the order of the f32 sums differs)."""
+    te = _port_structure(name)
+    for i, ss in enumerate((te, te.transpose)):
+        m = ss.meta
+        x = torch.from_numpy(_x(m.num_senders, 24, seed=20 + i))
+        w = torch.from_numpy(np.random.RandomState(30 + i).standard_normal(
+            m.slots).astype(np.float32))
+        np.testing.assert_allclose(
+            _emulate_plan(ss, w, x, dtype).numpy(),
+            ts.stream_scatter_reference(ss, w, x, dtype).numpy(), **F32)
+        if dtype == "bfloat16" and ss.oh is not None:
+            np.testing.assert_allclose(
+                _emulate_plan(ss, None, x, "onehot").numpy(),
+                ts.stream_scatter_mat_reference(ss, ss.oh, x).numpy(), **F32)
+
+
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_onehot_rows_hold_one_entry_at_r_loc(name):
+    """The one-hot kernel reads ``oh[slot, r_loc[slot]]`` alone:
+    ``_materialize_oh`` puts a row's only non-zero there (padding rows are
+    all zero)."""
+    te = _port_structure(name)
+    for ss in (te, te.transpose):
+        if ss.oh is None:
+            continue
+        oh = ss.oh.to(torch.float32)
+        r_loc = ss.r_loc.reshape(-1).long()
+        at = oh[torch.arange(oh.shape[0]), r_loc]
+        oh[torch.arange(oh.shape[0]), r_loc] = 0
+        assert not oh.any()
+        real = ss.slot_sender < ss.meta.num_senders
+        np.testing.assert_array_equal(at[real].numpy(), ts._rb(ss.w_slots[real]).numpy())
+        assert not at[~real].any()
 
 
 def test_build_stream_valid_mask_keeps_zero_weight_edges():
