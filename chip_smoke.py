@@ -7,13 +7,19 @@ Phases, each announced on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. environment — the card (nvidia-smi name and power limit), torch, CUDA;
-2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu, ell.cu),
-   from kgcn_tpu_torch/ops/csrc, one nvcc per source, in parallel;
+2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu, ell.cu)
+   and the tiled backend's host library (tiled_host.cc), from
+   kgcn_tpu_torch/ops/csrc, one compiler process per source, in parallel;
 3. kernel check: gconv — against its plain PyTorch version on the card at
-   the serving path's shapes and two more (float32, rtol = atol = 1e-4: the
-   sums run over ≤ 256 terms in another order), with its device time
-   (torch.profiler), the plain version's, one library call's, and the least
-   time the card could take (bytes at 3.35 TB/s vs FLOP at 67 TFLOP/s FP32);
+   the serving path's shapes, a misaligned toy, a reaction-scale batch,
+   dense graphs of 600 and 1024 nodes and 70 000 graphs of 8 nodes (more
+   than a grid dimension's 65 535) (float32, rtol = atol = 1e-4: the sums
+   run over ≤ 2 048 terms in another order; the distance of both from an
+   f64 sum is printed), two launches bitwise equal, the kernels a call
+   launches as the wrapper counts them equal to those torch.profiler
+   records, with its device time (torch.profiler), the plain version's, one
+   library call's, and the least time the card could take (bytes at
+   3.35 TB/s vs FLOP at 67 TFLOP/s FP32);
 4. kernel check: tiled SpMM (forward and on the transpose structure, the
    backward's dx) and SDDMM — against their plain versions on the card, with
    the float32 and the bf16 payload, rtol = atol = 1e-4 (both versions apply
@@ -22,18 +28,31 @@ non-zero exit and no result line:
    (F 50), a rectangular case, one with edge-free receiver tiles, a
    budget-padded, a locality-relabelled and a wide-tile case (sums in the
    output), and a uniform random graph of 100 000 nodes and 1 000 000
-   edges at F 128 tiled by choose_tiling; device times as in phase 3, the
-   library calls being torch.sparse.mm and torch.sparse.sampled_addmm;
+   edges at F 128 tiled by choose_tiling; each case's SpMM plans (built by
+   the host library csrc/tiled_host.cc, as the move to the card builds
+   them), with their shape and host ms; two launches of the SpMM bitwise
+   equal; device times as in phase 3, the library calls being
+   torch.sparse.mm and torch.sparse.sampled_addmm;
 5. train — ``python -m kgcn_tpu_torch.cli.main train`` in this process:
    the tiled solubility GCN and the tiled GAT for 2 epochs (finite, falling
    training cost, the [SAVE] and [restore] lines, every file written, and
    kernel launches = 6 SpMM per GCN step, 6 SpMM + 3 SDDMM per GAT step,
    3 SpMM per evaluated batch), the dense solubility GCN for 1 epoch (3 gconv
-   per step and per evaluated batch), and the solubility GCN with dropout 0
-   and the f32 payload on the GPU and on the CPU from one seed (per-epoch
-   training costs within 1e-3 relative); then one epoch of each timed step
-   by step (host batch assembly and tiled-structure building, step wall
-   time, device busy time and idle share);
+   kernels per step and per evaluated batch), the dense GCN of synth.json
+   for 1 epoch on 32 ring graphs of 700 nodes (``make_ring_dataset(
+   num_pairs=16, num_nodes=700)``, 768 padded; per step and evaluated batch
+   the gconv kernels of one forward at that shape, at least one a
+   GraphConv), and
+   the solubility GCN with dropout 0 and the f32 payload on the GPU and on
+   the CPU from one seed (per-epoch training costs within 1e-3 relative);
+   3 dense GCN steps on the 700-node graphs, GPU vs CPU (1e-3); two GPU
+   runs of 3 steps from one seed bitwise equal, for GAT on the tiled backend
+   and GIN with xla; ``segment_sum``'s and ``segment_softmax``'s values and
+   gradients on the card with no host sync (with a GAT batch's segments,
+   sorted on the host, and with ids on the card alone); then one epoch of each timed step by step (host batch
+   assembly and tiled-structure building, step wall time and the SpMM plans
+   that the move to the card builds within it, device busy time and idle
+   share);
 6. serve — the port's HTTP server (cli/serve.build_server) answers /predict
    requests of 1, 8, 32 and 100 real molecules of
    examples/solubility/solubility_cls.jbl with a seeded GCN at the config's
@@ -49,11 +68,16 @@ non-zero exit and no result line:
    channels (F 128), a uniform random graph of 100 000 nodes and 1 000 000
    edges at F 128 with choose_stream's parameters, a hub graph (the KG's
    40 960 nodes, 81 920 uniform edges and 50 000 more into one receiver,
-   weighted as the KG's channels are, F 128), a rectangular (F 64 and 200)
-   and a macro-budget-padded case (F 40 and 133: the scatters' scalar path,
-   F not a multiple of 4, and more than one 128-column group); two launches of
-   each scatter bitwise equal; device times as in phase 3, the library calls
-   being torch.sparse.mm and torch.sparse.sampled_addmm;
+   weighted as the KG's channels are, F 128), the same hub graph with
+   weights of order 1, a rectangular (F 64 and 200) and a
+   macro-budget-padded case (F 40 and 133: the scatters' scalar path, F not
+   a multiple of 4, and more than one 128-column group); on the hub cases
+   the scatters are also held against an f64 sum, each row within 1e-4 +
+   sqrt(n)·2^-24·Σ|message| (n its messages), and with order-1 weights
+   against that alone (the plain version's own f32 error on the hub row
+   passes 1e-4); two launches of each scatter bitwise equal; device times
+   as in phase 3, the library calls being torch.sparse.mm and
+   torch.sparse.sampled_addmm;
 8. kg — a knowledge graph of WN18RR's published shape (40 943 entities, 11
    relations with its training-set relation shares, 89 969 distinct
    triples, power-law entity frequency) generated from a seed as a triple
@@ -142,14 +166,21 @@ NO_MAIN_PATH_LAUNCH = {
 ZIPF_EXPONENT = 0.75  # entity frequency ∝ (rank + 1)^-0.75
 
 # (C, B, N, Fin, Fout): the serving path's three GraphConv calls per batch,
-# a misaligned toy (tests/test_kernels.py:89), a reaction-scale batch
+# a misaligned toy (tests/test_kernels.py:89), a reaction-scale batch, dense
+# graphs of 600 and 1024 nodes (the two-launch design at mid sizes), and more
+# small graphs than a grid dimension's 65 535 (the one-launch design)
 GCONV_SHAPES = [
     ("path layer 1", (1, 32, 47, 81, 50)),
     ("path layer 2", (1, 32, 47, 50, 50)),
     ("path layer 3", (1, 32, 47, 50, 50)),
     ("misaligned", (2, 2, 10, 7, 5)),
     ("reaction-scale", (3, 128, 203, 81, 128)),
+    ("N 600", (1, 8, 600, 64, 64)),
+    ("N 1024", (2, 4, 1024, 81, 50)),
+    ("B 70 000", (1, 70_000, 8, 16, 16)),
 ]
+# the dense train on large graphs: ring graphs of 700 nodes (768 padded)
+RING700 = dict(num_pairs=16, num_nodes=700, seed=0)
 REQUEST_SIZES = (1, 8, 32, 100)
 GIN_CONFIG = os.path.join(ROOT, "example_config", "gin.json")
 GCN_RING_CONFIG = os.path.join(ROOT, "example_config", "synth.json")
@@ -209,6 +240,28 @@ def device_ms(fn, iters, attempts=3):
     ms = call_ms(fn, iters)
     say(f"  device time from CUDA events instead (upper bound): {ms:.6f} ms")
     return ms
+
+
+def kernels_in(fn, counted, attempts=3):
+    """(CUDA kernels that torch.profiler records in one call of ``fn``, the
+    launches that ``counted.launches`` added in that call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        before = counted.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(ev.count for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == DeviceType.CUDA)
+        if n:
+            return n, counted.launches - before
+        say("  torch.profiler recorded no kernel; profiling again")
+    raise AssertionError("torch.profiler recorded no kernel in three windows")
 
 
 def library_ms(fn, iters):
@@ -288,6 +341,16 @@ def phase_gconv_check():
         if not torch.allclose(got, want, rtol=TOL, atol=TOL):
             raise AssertionError(f"gconv {label} {(C, B, N, Fin, Fout)}: "
                                  f"max |kernel - plain| = {err}")
+        if not torch.equal(got, gconv(adj, x, w, b)):
+            raise AssertionError(f"gconv {label}: two launches differ")
+        kernels, counted = kernels_in(lambda: gconv(adj, x, w, b), gconv)
+        if counted != kernels:
+            raise AssertionError(f"gconv {label}: the wrapper counted {counted} "
+                                 f"kernels, torch.profiler recorded {kernels}")
+        exact = gconv_reference(*(t.double() for t in (adj, x, w, b)))
+        err64 = float((got.double() - exact).abs().max())
+        plain64 = float((want.double() - exact).abs().max())
+        del exact
 
         def library():
             return (torch.einsum("cbnm,bmi,cif->bnf", adj, x, w)
@@ -305,7 +368,9 @@ def phase_gconv_check():
                          library_ms=library_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
         say(f"gconv {label:15s} C,B,N,Fin,Fout={(C, B, N, Fin, Fout)}: "
-            f"max_abs_err={err:.3g} (library {lib_err:.3g}); device time: "
+            f"max_abs_err={err:.3g} (library {lib_err:.3g}; against f64: kernel "
+            f"{err64:.3g}, plain {plain64:.3g}); two launches bitwise equal; {kernels} "
+            "kernel(s) a call, as counted; device time: "
             f"kernel_ms={kernel_ms:.6f} plain_ms={plain_ms:.6f} "
             f"library_ms={library_ms:.6f} bound_us={bound_ms * 1e3:.3f} "
             f"({bound_by}); host-loop ms per gconv call={host_ms:.5f}")
@@ -448,6 +513,8 @@ def phase_tiled_check():
     t0 = time.time()
     cases = tiled_cases()
     say(f"structures built on the host in {time.time() - t0:.2f} s")
+    # the SpMM plans, as the move to the card builds them
+    cases = [(label, tt.with_plan(te), *rest) for label, te, *rest in cases]
     rows = []
     for label, te_cpu, w_cpu, widths, on_path in cases:
         te, w = te_cpu.to(DEVICE), w_cpu.to(DEVICE, torch.float32)
@@ -456,15 +523,24 @@ def phase_tiled_check():
         say(f"tiled {label}: {m.num_senders} -> {m.num_receivers} nodes, "
             f"{n_edges} edges of {m.num_edges}, (ts, tr, chunk) = "
             f"{(m.ts, m.tr, m.chunk)}, chunks {m.n_chunks} (transpose "
-            f"{mt.n_chunks}), locality {te.node_perm is not None}")
+            f"{mt.n_chunks}), locality {te.node_perm is not None}; plans: "
+            + "; ".join(f"{d} piece {p.piece}, {p.pieces.shape[0]} pieces, "
+                        f"{p.splits.shape[0]} split rows (longest "
+                        f"{int(p.splits[:, 2].max()) if p.splits.shape[0] else 0} "
+                        "partials)"
+                        for d, p in (("forward", te_cpu.plan),
+                                     ("transpose", te_cpu.transpose.plan)))
+            + "; host ms (both directions) "
+            f"{1e3 * (te_cpu.plan.seconds + te_cpu.transpose.plan.seconds):.4f}")
         mat, pat = _csr(te, w)
         for F in widths:
             x = torch.randn((m.num_senders, F), device=DEVICE, generator=gen)
             g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
             # The plain versions run on CPU copies of the same inputs: there
-            # index_add_ sums each row in slot order, as the kernel does.  On
-            # the card its atomics reorder the f32 sums, which moves hub rows
-            # of thousands of edges (the locality case) by up to ~2e-4.
+            # index_add_ sums each row in slot order (the kernel sums a row in
+            # slot order too, a split row piece by piece).  On the card its
+            # atomics reorder the f32 sums, which moves hub rows of thousands
+            # of edges (the locality case) by up to ~2e-4.
             xc, gc = x.cpu(), g.cpu()
             errs = {}
             for dt in ("float32", "bfloat16"):
@@ -479,6 +555,13 @@ def phase_tiled_check():
                 errs[f"sddmm {dt}"] = _check(
                     f"tiled_sddmm {label} F={F} {dt}", tt._sddmm_launch(te, x, g, bf16),
                     tt.tiled_sddmm_reference(te_cpu, xc, gc, dt).to(DEVICE))
+            for dt in ("float32", "bfloat16"):
+                bf16 = dt == "bfloat16"
+                for name, st, op in (("spmm", te, x), ("spmm^T", te.transpose, g)):
+                    if not torch.equal(tt._spmm_launch(st, w, op, bf16),
+                                       tt._spmm_launch(st, w, op, bf16)):
+                        raise AssertionError(f"tiled {name} {label} F={F} {dt}: "
+                                             "two launches differ")
             lib_err = float((torch.sparse.mm(mat, x)
                              - tt.tiled_spmm_reference(te, w, x, "float32")).abs().max())
             iters = 10 if n_edges > 500_000 else 50
@@ -486,6 +569,7 @@ def phase_tiled_check():
             t = dict(
                 spmm=device_ms(lambda: tt._spmm_launch(te, w, x, True), iters),
                 spmm_f32=device_ms(lambda: tt._spmm_launch(te, w, x, False), iters),
+                spmm_T=device_ms(lambda: tt._spmm_launch(te.transpose, w, g, True), iters),
                 spmm_plain=device_ms(
                     lambda: tt.tiled_spmm_reference(te, w, x, "bfloat16"), iters),
                 spmm_library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
@@ -503,9 +587,11 @@ def phase_tiled_check():
                              bound=b, bound_by=by, **t))
             say(f"  F={F}: max |kernel - plain| "
                 + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
-                + f" (library spmm vs plain f32 {lib_err:.3g})")
+                + f" (library spmm vs plain f32 {lib_err:.3g}); two launches of "
+                "spmm and spmm^T bitwise equal, f32 and bf16")
             say(f"  F={F} device ms (bf16 payload unless marked): spmm kernel "
-                f"{t['spmm']:.6f} (f32 {t['spmm_f32']:.6f}) plain {t['spmm_plain']:.6f} "
+                f"{t['spmm']:.6f} (f32 {t['spmm_f32']:.6f}; transpose {t['spmm_T']:.6f}) "
+                f"plain {t['spmm_plain']:.6f} "
                 f"library {t['spmm_library']}; sddmm kernel "
                 f"{t['sddmm']:.6f} (f32 {t['sddmm_f32']:.6f}) plain "
                 f"{t['sddmm_plain']:.6f} library {t['sddmm_library']}; bound of "
@@ -685,6 +771,13 @@ def phase_train(workdir):
                                            falling=False)
     _expect("train gcn_dense", counts, {"gconv": 3 * steps + 3 * evals})
     add(counts)
+    ring = dict(dataset=ring700_file(workdir), spmm_backend="dense")
+    per_forward = gconv_kernels_a_forward(_load_config(GCN_RING_CONFIG, **ring))
+    _, counts, steps, evals, _ = train_run(
+        workdir, "gcn_dense_ring700", GCN_RING_CONFIG, 1, falling=False,
+        make_plot=False, **ring)
+    _expect("train gcn_dense_ring700", counts, {"gconv": per_forward * (steps + evals)})
+    add(counts)
 
     exact = dict(spmm_backend="tiled", tiled_compute_dtype="float32", dropout_rate=0.0)
     gpu, counts, steps, evals, _ = train_run(workdir, "gcn_f32_gpu", CONFIG, 2, **exact)
@@ -696,8 +789,202 @@ def phase_train(workdir):
         f"difference {rel} (limit {TRAJECTORY_RTOL})")
     if max(rel) > TRAJECTORY_RTOL:
         raise AssertionError(f"GPU and CPU training costs differ by {max(rel)}")
+    # dense graphs of 768 padded nodes (the gconv's two-launch design), dropout 0
+    cfg = _load_config(GCN_RING_CONFIG, dropout_rate=0.0, **ring)
+    per_forward = gconv_kernels_a_forward(cfg, bs=10)
+    steps_gpu_vs_cpu("dense GCN (700-node rings, batch 10)", cfg, 3,
+                     lambda info: {"gconv": 3 * per_forward}, bs=10)
+    steps_repeat_bitwise()
+    segments_without_sync()
     step_breakdown()
     return launches
+
+
+def ring700_file(workdir):
+    """The ring dataset of 700-node graphs (``RING700``: 32 graphs, padded to
+    768 nodes a graph) as a pickle ``.jbl``, written on the first call."""
+    path = os.path.join(workdir, "ring700.jbl")
+    if not os.path.exists(path):
+        from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+
+        with open(path, "wb") as f:
+            pickle.dump(make_ring_dataset(**RING700), f, protocol=4)
+    return path
+
+
+def gconv_kernels_a_forward(cfg, bs=None):
+    """The gconv kernels that one forward of ``cfg``'s model launches on a
+    batch of ``bs`` graphs, as the wrapper counts them (phase 3 holds the
+    count to torch.profiler's); at least one for each of its 3 GraphConv
+    calls.  Launched before a run's counts are set to 0."""
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.ops.gconv import gconv
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    info, (batch,) = _trainer_batches(cfg, 1, bs)
+    trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info, device=DEVICE)
+    state = trainer.init_state(seed=0)
+    before = gconv.launches
+    trainer.eval_step(state.params, state.batch_stats, batch)
+    n = gconv.launches - before
+    if n < 3:
+        raise AssertionError(f"a forward of 3 GraphConv layers launched {n} gconv kernels")
+    say(f"-- {os.path.basename(cfg['dataset'])}, batch {bs or cfg['batch_size']}: "
+        f"{n} gconv kernels a forward")
+    return n
+
+
+def _trainer_batches(cfg, steps, bs=None):
+    """(model info, the first ``steps`` batches of ``bs`` graphs) of a
+    config on its resolved backend."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.runtime import backend
+
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    bs = bs or int(cfg["batch_size"])
+    tb = Batcher(ds, info, bs, backend=be)
+    return info, [tb.make_batch(np.arange(i * bs, (i + 1) * bs)) for i in range(steps)]
+
+
+def steps_gpu_vs_cpu(label, cfg, steps, launches, bs=None):
+    """The first ``steps`` training steps of ``cfg`` on the GPU and on the
+    CPU from one seed: costs within TRAJECTORY_RTOL, and the GPU run's
+    kernel launches equal to ``launches(info)``."""
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    info, batches = _trainer_batches(cfg, steps, bs)
+    costs = {}
+    for dev in (DEVICE, "cpu"):
+        trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info, device=dev)
+        state = trainer.init_state(seed=0)
+        _zero_counts()
+        c = []
+        for batch in batches:
+            state, cost, _ = trainer.train_step(state, batch)
+            c.append(float(cost))
+        costs[dev] = c
+        _expect(f"{label} steps on {dev}", _counts(),
+                launches(info) if dev == DEVICE else {})
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
+    say(f"GPU vs CPU {label} step costs: GPU {costs[DEVICE]} CPU {costs['cpu']} "
+        f"relative difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"GPU and CPU {label} step costs differ by {max(rel)}")
+
+
+def steps_repeat_bitwise(steps=3):
+    """Two GPU runs of the first ``steps`` training steps from one seed give
+    the same bits, costs and every parameter: GAT on the tiled backend (the
+    edge softmax's segment sums, the tiled SpMM and SDDMM) and GIN on
+    example_config/gin.json with xla (the edge-list scatter's segment sum)."""
+    import torch
+
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    for name, src, over in (("gat tiled", GAT_CONFIG, {"spmm_backend": "tiled"}),
+                            ("gin xla", GIN_CONFIG, {"spmm_backend": "xla"})):
+        cfg = _load_config(src, **over)
+        info, batches = _trainer_batches(cfg, steps)
+        runs = []
+        for _ in range(2):
+            trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info,
+                              device=DEVICE)
+            state = trainer.init_state(seed=0)
+            costs = []
+            for batch in batches:
+                state, cost, _ = trainer.train_step(state, batch)
+                costs.append(cost.detach().clone())
+            runs.append((costs, {k: v.detach().clone() for k, v in state.params.items()}))
+        (c1, p1), (c2, p2) = runs
+        differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+        if differ or not all(torch.equal(a, b) for a, b in zip(c1, c2)):
+            raise AssertionError(f"{name}: two runs of {steps} steps differ: costs "
+                                 f"{[float(c) for c in c1]} vs {[float(c) for c in c2]}, "
+                                 f"parameters {differ}")
+        say(f"{name}: two runs of {steps} GPU steps from seed 0 bitwise equal (costs "
+            f"{[float(c) for c in c1]}, {len(p1)} parameters)")
+
+
+def segments_without_sync(iters=200):
+    """``ops/segment``'s ``segment_sum`` (the xla scatter) and
+    ``segment_softmax`` (GAT's edge softmax, masked), their values and
+    gradients at a GAT (tiled) batch's shape, with the batch's segments
+    (``GraphBatch.receiver_segments``: sorted on the host, sent with one
+    copy) and with ids on the card alone, all without a host sync: under
+    ``torch.cuda.set_sync_debug_mode("error")`` a synchronising call
+    raises.  Values against ``index_add_`` and a plain
+    softmax (1e-5); at the GAT batch's shape it also times a value and
+    gradient on the host clock against ``index_add_`` (whose atomics do not
+    repeat bitwise): the step is host-bound, so this is its cost."""
+    import torch
+
+    from kgcn_tpu_torch.ops.segment import segment_softmax, segment_sum
+
+    _, (host_batch,) = _trainer_batches(_load_config(GAT_CONFIG, spmm_backend="tiled"), 1)
+    moved = host_batch.graph.to(DEVICE)
+    V = moved.total_nodes
+    segments = moved.receiver_segments(0)
+    ids = moved.receivers[0].long()
+    E = ids.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    data = torch.randn((E,), device=DEVICE, generator=gen).requires_grad_()
+    mask = moved.edge_mask()[0]
+
+    def index_add(d, i, n):
+        return torch.zeros((n,), device=d.device, dtype=d.dtype).index_add_(0, i, d)
+
+    def batch_sum(d, i, n):
+        return segment_sum(d, i, n, segments)
+
+    def softmax(d, i, n):
+        return segment_softmax(d, i, n, mask=mask, sorted_segments=segments)
+
+    def value_and_grad(fn):
+        out = fn(data, ids, V)
+        return out, torch.autograd.grad(out, data, torch.ones_like(out))[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, grad = value_and_grad(batch_sum)
+        out_card, grad_card = value_and_grad(segment_sum)  # sorted on the card
+        alpha, _ = value_and_grad(softmax)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = index_add(data.detach(), ids, V)
+    for o, g in ((out, grad), (out_card, grad_card)):
+        if not torch.allclose(o, want, rtol=1e-5, atol=1e-5) or not torch.equal(
+                g, torch.ones_like(data)):
+            raise AssertionError("segment_sum on the card: wrong value or gradient")
+    if not torch.equal(out, out_card):
+        raise AssertionError("segment_sum: the batch's segments and a sort on the "
+                             "card sum in different orders")
+    e = torch.exp(data.detach() - data.detach().max()) * mask
+    want = e / index_add(e, ids, V)[ids].clamp(min=1e-30)
+    if not torch.allclose(alpha, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"segment_softmax on the card: off by "
+                             f"{float((alpha - want).abs().max())}")
+    value_and_grad(index_add)  # warm-up
+    host = {}
+    for name, fn in (("segment_sum", batch_sum), ("index_add_", index_add)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            value_and_grad(fn)
+        torch.cuda.synchronize()
+        host.setdefault(name, []).append((time.perf_counter() - t0) / iters * 1e3)
+    say(f"segment_sum "
+        "(the batch's segments and a sort on the card, equal) and segment_softmax: "
+        "values and gradients on the card with no host sync (sync debug mode "
+        f"error); host ms per segment_sum value and gradient at {E} edges, "
+        f"{V} nodes (two rounds): "
+        + ", ".join(f"{k} {v}" for k, v in host.items()))
 
 
 MOLECULE_RUNS = (("gcn_tiled", CONFIG, {"spmm_backend": "tiled"}),
@@ -734,16 +1021,21 @@ def step_breakdown(runs=MOLECULE_RUNS):
         state, _, _, _ = trainer.run_epoch(state, tb, epoch=0)  # warm-up
         torch.cuda.synchronize()
         idx = tb.epoch_indices(shuffle=False)
-        host, tiled, step = [], [], []
+        host, tiled, move, plans, step = [], [], [], [], []
         for start in range(0, len(idx), bs):
             t0, tiled0 = time.perf_counter(), tb.tiled_seconds + tb.ell_seconds
             batch = tb.make_batch(idx[start:start + bs])
             t1 = time.perf_counter()
+            # the step's own move to the card, which builds the tiled SpMM plans
+            batch = batch.to(DEVICE)
+            move.append(time.perf_counter() - t1)
             state, _, _ = trainer.train_step(state, batch)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             host.append(t1 - t0)
             tiled.append(tb.tiled_seconds + tb.ell_seconds - tiled0)
+            plans.append(sum(d.plan.seconds for t in batch.graph.tiled_adj or ()
+                             for d in (t, t.transpose) if d.plan is not None))
             step.append(t2 - t1)
         n = len(step)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -754,10 +1046,13 @@ def step_breakdown(runs=MOLECULE_RUNS):
         busy = sum(getattr(ev, "device_time_total", 0.0) for ev in prof.key_averages()) / 1e6
         payload = f", payload {be.compute_dtype}" if be.name == "tiled" else ""
         part = "ELL arrays" if be.name in ("xla", "pallas") else "tiled structures"
+        plan = (f", its tiled SpMM plans {np.mean(plans) * 1e3:.4f}" if be.name == "tiled"
+                else "")
         say(f"step time {name} ({be.name}{payload}, batch {bs}, "
             f"{n} steps): host batch ms {np.mean(host) * 1e3:.4f} (of which {part} "
             f"{np.mean(tiled) * 1e3:.4f}), step wall ms to sync "
-            f"{np.mean(step) * 1e3:.4f} (median {np.median(step) * 1e3:.4f}); "
+            f"{np.mean(step) * 1e3:.4f} (median {np.median(step) * 1e3:.4f}; of which the "
+            f"move to the card {np.mean(move) * 1e3:.4f}{plan}); "
             f"profiled epoch: wall ms/step {wall / n * 1e3:.4f}, device busy "
             f"ms/step {busy / n * 1e3:.4f}, idle share {1 - busy / wall:.4f}")
 
@@ -1016,6 +1311,9 @@ def stream_cases(workdir):
     w = hub_weights(s, r, V)
     cases.append((f"hub V={V} E={len(s)}", ts.build_stream(
         s, r, V, weights=w, **ts.choose_stream(s, r, V, F)), (F,), False))
+    w = (np.random.RandomState(4).random_sample(len(s)) + 0.1).astype(np.float32)
+    cases.append((f"hub V={V} E={len(s)}, order-1 weights", ts.build_stream(
+        s, r, V, weights=w, **ts.choose_stream(s, r, V, F)), (F,), False))
     s, r, w = uniform(3000, 30000, seed=1, vs=5000)
     cases.append(("rectangular 5000->3000", ts.build_stream(
         s, r, 3000, weights=w, num_sender_nodes=5000), (64, 200), False))
@@ -1031,10 +1329,11 @@ def stream_cases(workdir):
 def hub_weights(s, r, V):
     """Edge weights as the KG's channels carry them (cli.kg's symmetric
     normalisation): 1 / sqrt(d(r) d(s)), d the in-degree (at least 1).
-    With weights of order 1 instead, the plain version's own f32 rounding
-    over the hub row's 50 000 terms in slot order (~2e-3 from the exact sum
-    of a row of magnitude ~150) exceeds the 1e-4 check on its near-zero
-    entries, whatever order the kernel sums in."""
+    With weights of order 1 instead (the second hub case), the plain
+    version's own f32 rounding over the hub row's 50 000 terms in slot order
+    (~2e-3 from the exact sum of a row of magnitude ~150) exceeds the 1e-4
+    check, whatever order the kernel sums in: there the scatters are held
+    against an f64 sum (``_exact_rows``)."""
     import numpy as np
 
     deg = np.maximum(np.bincount(r, minlength=V), 1)
@@ -1100,29 +1399,51 @@ def phase_stream_check(workdir):
             g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
             # plain versions on CPU copies: index_add_ sums in slot order there
             xc, gc = x.cpu(), g.cpu()
+            hub = label.startswith("hub")
+
+            def held(what, got, ss_c, w_c, x_c, mode, plain):
+                """The kernel against its plain version (1e-4) and, on the hub
+                cases, against an f64 sum; the order-1 hub against the f64 sum
+                alone, the plain version's own error there being larger."""
+                plain = plain()
+                if not hub:
+                    return _check(what, got, plain.to(DEVICE))
+                exact, tol = _exact_rows(ss_c, w_c, x_c, mode)
+                err = _check_exact(what, got, exact, tol)
+                say(f"  {what}: against an f64 sum kernel {err:.3g}, plain "
+                    f"{float((plain.double() - exact).abs().max()):.3g} (tolerance "
+                    f"up to {float(tol.max()):.3g})")
+                if "order-1" not in label:
+                    _check(what, got, plain.to(DEVICE))
+                return err
+
             errs = {}
             for dt in ("float32", "bfloat16"):
                 bf16 = dt == "bfloat16"
-                errs[f"scatter {dt}"] = _check(
+                errs[f"scatter {dt}"] = held(
                     f"stream_scatter {label} F={F} {dt}",
-                    ts._scatter_launch(ss, ss.w_slots, x, bf16),
-                    ts.stream_scatter_reference(ss_cpu, ss_cpu.w_slots, xc, dt).to(DEVICE))
-                errs[f"scatter^T {dt}"] = _check(
+                    ts._scatter_launch(ss, ss.w_slots, x, bf16), ss_cpu, ss_cpu.w_slots,
+                    xc, dt, lambda: ts.stream_scatter_reference(ss_cpu, ss_cpu.w_slots,
+                                                                xc, dt))
+                errs[f"scatter^T {dt}"] = held(
                     f"stream_scatter (transpose) {label} F={F} {dt}",
                     ts._scatter_launch(ss.transpose, ss.transpose.w_slots, g, bf16),
-                    ts.stream_scatter_reference(ss_cpu.transpose, ss_cpu.transpose.w_slots,
-                                                gc, dt).to(DEVICE))
+                    ss_cpu.transpose, ss_cpu.transpose.w_slots, gc, dt,
+                    lambda: ts.stream_scatter_reference(
+                        ss_cpu.transpose, ss_cpu.transpose.w_slots, gc, dt))
                 errs[f"dw {dt}"] = _check(
                     f"stream_dw {label} F={F} {dt}", ts._dw_launch(ss, x, g, bf16),
                     ts.stream_dw_reference(ss_cpu, xc, gc, dt).to(DEVICE))
-            errs["scatter_mat"] = _check(
+            errs["scatter_mat"] = held(
                 f"stream_scatter_mat {label} F={F}", ts._scatter_mat_launch(ss, x),
-                ts.stream_scatter_mat_reference(ss_cpu, ss_cpu.oh, xc).to(DEVICE))
-            errs["scatter_mat^T"] = _check(
+                ss_cpu, ss_cpu.oh, xc, "onehot",
+                lambda: ts.stream_scatter_mat_reference(ss_cpu, ss_cpu.oh, xc))
+            errs["scatter_mat^T"] = held(
                 f"stream_scatter_mat (transpose) {label} F={F}",
-                ts._scatter_mat_launch(ss.transpose, g),
-                ts.stream_scatter_mat_reference(ss_cpu.transpose, ss_cpu.transpose.oh,
-                                                gc).to(DEVICE))
+                ts._scatter_mat_launch(ss.transpose, g), ss_cpu.transpose,
+                ss_cpu.transpose.oh, gc, "onehot",
+                lambda: ts.stream_scatter_mat_reference(ss_cpu.transpose,
+                                                        ss_cpu.transpose.oh, gc))
             _check_repeatable(label, F, ss, x, g)
             lib_err = float((torch.sparse.mm(mat, x) - ts.stream_scatter_reference(
                 ss, ss.w_slots, x, "float32")).abs().max())
@@ -1164,6 +1485,46 @@ def phase_stream_check(workdir):
                 "bounds " + ", ".join(f"{k} {b:.6f} ({by})" for k, (b, by) in bounds.items()))
     _check_stream_gradients(cases)
     return rows
+
+
+def _exact_rows(ss, w, x, mode):
+    """(f64 sums, tolerance) of a stream scatter's output rows on the CPU:
+    the messages of the kernel's payload (``mode`` float32, bfloat16 or
+    onehot, ``w`` the slot weights or the one-hots) summed in float64, and
+    per row 1e-4 + sqrt(n)·2^-24·Σ|message|, n the row's messages — the
+    probabilistic bound of an f32 sum of n terms in any order (Higham and
+    Mary, SIAM J. Sci. Comput. 41(5), 2019), so a row's tolerance grows with
+    its length as its rounding error does."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    m = ss.meta
+    valid, send, recv = ts._slot_rows(ss)
+    slot = valid.nonzero().squeeze(1)
+    x = x.to(torch.float32)
+    if mode == "onehot":
+        wv, xs = w[slot, ss.r_loc.reshape(-1)[slot].long()].float(), ts._rb(x[send[slot]])
+    else:
+        wv, xs = w[slot], x[send[slot]]
+        if mode == "bfloat16":
+            wv, xs = ts._rb(wv), ts._rb(xs)
+    msg = wv.double()[:, None] * xs.double()
+    rows = recv[slot]
+    exact = torch.zeros((m.num_receivers, x.shape[1]), dtype=torch.float64)
+    exact.index_add_(0, rows, msg)
+    mag = torch.zeros_like(exact).index_add_(0, rows, msg.abs())
+    n = torch.bincount(rows, minlength=m.num_receivers).double()
+    return exact, TOL + n.sqrt()[:, None] * 2.0 ** -24 * mag
+
+
+def _check_exact(what, got, exact, tol):
+    """max |got - exact|; raises where a row's entry passes its tolerance."""
+    diff = (got.cpu().double() - exact).abs()
+    if (diff > tol).any():
+        raise AssertionError(f"{what}: kernel off the f64 sum by {float(diff.max())} "
+                             f"(tolerance {float(tol.max())})")
+    return float(diff.max())
 
 
 def _check_repeatable(label, F, ss, x, g):
@@ -1559,43 +1920,6 @@ def _check_ell_gradients(cases):
 # phase 10: GIN and GCN on the ELL path through the CLI
 
 
-def ell_gpu_vs_cpu(workdir, steps=3):
-    """The first ``steps`` GIN steps (pallas backend, ring6) on the GPU and
-    on the CPU from one seed: costs within TRAJECTORY_RTOL."""
-    import numpy as np
-
-    from kgcn_tpu_torch.data.batcher import Batcher
-    from kgcn_tpu_torch.data.dataset import load_jbl
-    from kgcn_tpu_torch.models.registry import build_model
-    from kgcn_tpu_torch.runtime import backend
-    from kgcn_tpu_torch.runtime.train import Trainer
-
-    cfg = _load_config(GIN_CONFIG, dataset=ring6_file(workdir), spmm_backend="pallas")
-    ds, info = load_jbl(cfg["dataset"], cfg)
-    be = backend.resolve(dict(cfg), info, log=False)
-    bs = int(cfg["batch_size"])
-    tb = Batcher(ds, info, bs, backend=be)
-    batches = [tb.make_batch(np.arange(i * bs, (i + 1) * bs)) for i in range(steps)]
-    costs = {}
-    for dev in (DEVICE, "cpu"):
-        trainer = Trainer(build_model("gin", info, cfg), cfg, info, device=dev)
-        state = trainer.init_state(seed=0)
-        _zero_counts()
-        c = []
-        for batch in batches:
-            state, cost, _ = trainer.train_step(state, batch)
-            c.append(float(cost))
-        costs[dev] = c
-        C = info.adj_channel_num
-        _expect(f"gin steps on {dev}", _counts(),
-                {"ell_spmm": 2 * C * steps} if dev == DEVICE else {})
-    rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
-    say(f"GPU vs CPU GIN step costs (pallas, ring6): GPU {costs[DEVICE]} CPU "
-        f"{costs['cpu']} relative difference {rel} (limit {TRAJECTORY_RTOL})")
-    if max(rel) > TRAJECTORY_RTOL:
-        raise AssertionError(f"GPU and CPU GIN step costs differ by {max(rel)}")
-
-
 def ell_infer(workdir, name, n_graphs, per_forward):
     """``cli.main infer`` on a train run's config: result keys, files,
     predictions and the ELL launch count (``per_forward`` per batch)."""
@@ -1653,7 +1977,9 @@ def phase_ell(workdir):
         _expect(f"train {name}", counts, {"ell_spmm": per_forward * (steps + evals)})
         add(counts)
         add(ell_infer(workdir, name, n_graphs, per_forward))
-    ell_gpu_vs_cpu(workdir)
+    steps_gpu_vs_cpu("GIN (pallas, ring6)", _load_config(
+        GIN_CONFIG, dataset=ring6_file(workdir), spmm_backend="pallas"), 3,
+        lambda info: {"ell_spmm": 2 * info.adj_channel_num * 3})
     step_breakdown((("gin_pallas", GIN_CONFIG, dict(dataset=data, spmm_backend="pallas")),))
 
     # synthetic.jbl: the gate refuses ELL, so the data (not a fault of the

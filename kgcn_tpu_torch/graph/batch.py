@@ -21,7 +21,10 @@ rules —
   arrays (padded per-row neighbour lists, ``ops/ell.py``) that the ``xla``
   and ``pallas`` backends aggregate over, built by the ``Batcher``;
 * ``node_ids`` replaces ``nodes`` in node-embedding mode (KG workloads):
-  ``[V]`` vocabulary ids into an embedding table.
+  ``[V]`` vocabulary ids into an embedding table;
+* ``host_receivers`` keeps the receivers' host array on a batch moved to
+  the card, so that the segment sums' sort (``receiver_segments``) runs on
+  the host without reading the card.
 
 Where the JAX package reads process globals (the dense-path switch, the
 spmm backend, the tiled/stream compute dtype), a batch here carries
@@ -36,6 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from kgcn_tpu_torch.ops import segment as segment_ops
 from kgcn_tpu_torch.ops import stream_spmm as stream_ops
 from kgcn_tpu_torch.ops import tiled_spmm as tiled_ops
 
@@ -71,6 +75,8 @@ class GraphBatch:
     backend: the resolved spmm backend (``"dense"``, ``"xla"``,
         ``"pallas"``, ``"tiled"`` or ``"stream"``).
     compute_dtype: the tiled and stream kernels' payload dtype.
+    host_receivers: ``[C, E]`` NumPy receivers of a batch that moved from
+        the host (``to``), or None.
     """
 
     senders: torch.Tensor
@@ -91,13 +97,52 @@ class GraphBatch:
     max_nodes: int = 1
     backend: str = "dense"
     compute_dtype: str = "bfloat16"
+    host_receivers: Optional[np.ndarray] = None
 
     @property
     def total_nodes(self) -> int:
         return self.n_graph * self.max_nodes
 
     def replace(self, **changes) -> "GraphBatch":
+        if "receivers" in changes and "host_receivers" not in changes:
+            changes["host_receivers"] = None  # no longer these receivers
         return dataclasses.replace(self, **changes)
+
+    def receiver_segments(self, c: Optional[int] = None):
+        """``(ids, order, offsets)`` of channel ``c``'s receivers, or with
+        ``c`` None of all channels' receivers as one list (the ``xla``
+        scatter's), for the segment sums (``ops/segment``): the ids as
+        int64, their stable sorting permutation and each node's first
+        position in it.  Sorted on the host in NumPy from the receivers'
+        host array, all channels at once, and sent to the batch's device in
+        one copy (as the batch's own arrays are), once per batch object:
+        GAT's layers and channels share it, and nothing is sorted or read
+        back on the card."""
+        cache = self.__dict__.setdefault("_receiver_segments", {})
+        if c not in cache:
+            r = self.host_receivers
+            if r is None:
+                if self.receivers.is_cuda:
+                    raise ValueError("receiver_segments: a batch on the card needs "
+                                     "its host receivers (GraphBatch.to keeps them)")
+                r = self.receivers.numpy()
+            V = self.total_nodes
+            lists = [r.reshape(-1)] if c is None else list(r)
+            k, n = len(lists), lists[0].size
+            flat = np.empty(k * (2 * n + V + 1), np.int64)  # ids, orders, offsets
+            parts = (flat[:k * n].reshape(k, n), flat[k * n:2 * k * n].reshape(k, n),
+                     flat[2 * k * n:].reshape(k, V + 1))
+            for j, ids in enumerate(lists):
+                for part, a in zip(parts, segment_ops.host_segments(ids, V)):
+                    part[j] = a
+            moved = [v.view(p.shape) for v, p in zip(
+                torch.from_numpy(flat).to(self.receivers.device).split(
+                    [k * n, k * n, k * (V + 1)]), parts)]
+            if c is None:
+                cache[None] = tuple(a[0] for a in moved)
+            else:
+                cache.update({j: tuple(a[j] for a in moved) for j in range(k)})
+        return cache[c]
 
     def mask_batched(self) -> torch.Tensor:
         """``[B, N]`` view of the node mask."""
@@ -206,6 +251,13 @@ class GraphBatch:
         return self.replace(stream_adj=sss)
 
     def to(self, device) -> "GraphBatch":
+        """A copy on ``device`` (this batch where it is there already, with
+        its sorted segments); a move from the host keeps the receivers'
+        host array (``host_receivers``)."""
+        device = torch.device(device)
+        here = self.receivers.device
+        if here.type == device.type and device.index in (None, here.index):
+            return self
         moved = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
@@ -215,6 +267,8 @@ class GraphBatch:
             structs = getattr(self, name)
             if structs is not None:
                 moved[name] = tuple(t.to(device) for t in structs)
+        moved["host_receivers"] = (self.receivers.numpy() if here.type == "cpu"
+                                   else self.host_receivers)
         return self.replace(**moved)
 
 

@@ -132,7 +132,8 @@ class GraphConv(nn.Module):
             return ell_aggregate(graph.ell_senders, graph.ell_weights, hw,
                                  backend=graph.backend)
         return spmm_multichannel(graph.senders, graph.receivers, graph.edge_weights,
-                                 hw, graph.total_nodes, backend=_coo_backend(graph))
+                                 hw, graph.total_nodes, backend=_coo_backend(graph),
+                                 segments=graph.receiver_segments())
 
 
 class GINAggregate(nn.Module):
@@ -169,7 +170,8 @@ class GINAggregate(nn.Module):
         else:
             agg = spmm_multichannel(graph.senders, graph.receivers,
                                     graph.edge_weights, x, graph.total_nodes,
-                                    backend=_coo_backend(graph))
+                                    backend=_coo_backend(graph),
+                                    segments=graph.receiver_segments())
         return torch.sum(self.epsilon).to(x.dtype) * x + agg
 
 
@@ -200,22 +202,25 @@ class GAT(nn.Module):
         edge_mask = graph.edge_mask()
         out = None
         for c in range(a.shape[0]):
-            s, r = graph.senders[c].long(), graph.receivers[c].long()
+            segments = graph.receiver_segments(c)
+            s, r = graph.senders[c].long(), segments[0]
             # the bilinear logit factorises into per-node scores gathered per
             # edge; the softmax runs in float32 whatever the payload
             ls = (x @ a[c, :Fx, 0]).to(torch.float32)
             lr = (x @ a[c, Fx:, 0]).to(torch.float32)
             logit = F.leaky_relu(ls[s] + lr[r], negative_slope=0.2)
             if self.normalize == "receiver":
-                alpha = segment.segment_softmax(logit, r, V, mask=edge_mask[c])
+                alpha = segment.segment_softmax(logit, r, V, mask=edge_mask[c],
+                                                sorted_segments=segments)
             else:  # the reference's receiver sums gathered at the sender
                 e = torch.exp(logit) * edge_mask[c]
-                alpha = e / (segment.segment_sum(e, r, V)[s] + 1e-10)
+                alpha = e / (segment.segment_sum(e, r, V, segments)[s] + 1e-10)
             if graph.tiled_adj is not None:
                 agg = tiled_spmm(graph.tiled_adj[c], alpha, x,
                                  compute_dtype=graph.compute_dtype).to(x.dtype)
             else:
-                agg = segment.segment_sum(alpha.to(x.dtype)[:, None] * x[s], r, V)
+                agg = segment.segment_sum(alpha.to(x.dtype)[:, None] * x[s], r, V,
+                                          segments)
             out = torch.sigmoid(agg) if out is None else out + torch.sigmoid(agg)
         return out
 

@@ -8,6 +8,10 @@ includes PyTorch's headers, which keeps a build to seconds.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/libgconv-<hash>.so csrc/gconv.cu
+
+A ``csrc/<name>.cc`` is host code (the tiled backend's structure and plan
+builders): the host C++ compiler builds it the same way, on a machine with
+or without a card.
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 SOURCES = ("gconv", "tiled", "stream", "ell")  # every kernel source of the port, by stem
+HOST_SOURCES = ("tiled_host",)  # host code the kernels' wrappers call, by stem
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -48,19 +54,36 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++``, ``g++`` or ``clang++``
+    from PATH."""
+    for cand in (os.environ.get("CXX"), "c++", "g++", "clang++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (CXX, c++, g++, clang++) to build "
+                       "kgcn_tpu_torch/ops/csrc/*.cc")
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cc" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    h = hashlib.sha256(_source(name).read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _nvcc_command(name: str, out: Path):
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+def _command(name: str, out: Path):
+    if name in HOST_SOURCES:
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(_source(name))]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(_source(name))]
 
 
-def build(names: Iterable[str] = SOURCES, log=None) -> Dict[str, Path]:
+def build(names: Iterable[str] = SOURCES + HOST_SOURCES, log=None) -> Dict[str, Path]:
     """Compile every named source that has no up-to-date library, one
-    ``nvcc`` process per source, all started together.  Returns the paths.
+    compiler process per source, all started together.  Returns the paths.
     ``log``, if given, receives each successful build's compiler output
     (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
     names = list(names)
@@ -75,18 +98,18 @@ def build(names: Iterable[str] = SOURCES, log=None) -> Dict[str, Path]:
         # never sees a half-written library
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            _nvcc_command(n, tmp), stdout=subprocess.PIPE,
+            _command(n, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
         ))
     failures = []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{out}")
+            failures.append(f"--- {_source(n).name} (exit {proc.returncode})\n{out}")
             continue
         os.replace(tmp, paths[n])
         if log is not None:
-            log(f"--- {n}.cu\n{out}")
+            log(f"--- {_source(n).name}\n{out}")
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
@@ -98,8 +121,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
-            lib.kgcn_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.kgcn_cuda_error_string.restype = ctypes.c_char_p
+            if name not in HOST_SOURCES:
+                lib.kgcn_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.kgcn_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
 

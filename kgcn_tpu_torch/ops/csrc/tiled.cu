@@ -9,12 +9,7 @@
 // Replaces the Pallas TPU kernels `_spmm_kernel` and `_sddmm_kernel`
 // (kgcn_tpu/ops/tiled_spmm.py:320 and :353).  The TPU kernels gather and
 // scatter through one-hot matmuls on the MXU because Mosaic cannot gather
-// rows; here rows are gathered directly, and only the input contract of the
-// structure is kept: slots sorted by (receiver tile, sender tile), s_loc /
-// r_loc local to the chunk's tiles, slot_src the edge id (num_edges marks a
-// padding slot), chunk_rt non-decreasing, and within a receiver tile the
-// chunks without edges after those with edges (as build_tiled and its
-// chunk budget lay them out).
+// rows; here rows are gathered directly.
 //
 // Payload (bf16 = 1, the default of the port's configs): x and w are
 // rounded to bf16, their product is exact in f32, the message is rounded to
@@ -25,144 +20,350 @@
 // What bounds it: an edge costs 2F FLOP against ~4F bytes of gathered x
 // row (f32 in memory), so the work is memory- and latency-bound; at the
 // training path's shapes (1504 nodes, ~750 edges, F <= 81) one call is a
-// few microseconds of load latency.  The design is simple and exact:
+// few microseconds of launch and load latency, at 10^6 edges and F 128 the
+// gathers of 0.5 GB of rows (from L2 for the most part).
 //
-// SpMM: one block of 16 warps per (receiver tile rt, slice of at most 256 of
-//   its rows, 32-column slice).  The block alone owns its rows of `out` for
-//   its columns, so it needs no atomics and the summation order is fixed
-//   (slot order); its accumulator (rows x 32 f32, at most 32 KB) always fits
-//   in shared memory.  The host picks the row slice: 256 rows (or the tile),
-//   halved down to 32 while the grid has fewer blocks than the card has SMs,
-//   so a batch of one or two tiles still spreads over the card.  The tile's
-//   chunks are contiguous (chunk_rt is non-decreasing), and those that hold
-//   no edge -- the one chunk of an edge-free tile, the budget fillers -- come
-//   after those that do; a chunk holds an edge iff its first slot does.  One
-//   parallel scan of chunk_rt and the chunk heads finds the tile's first
-//   chunk and its chunks that hold edges, whose slots form one contiguous
-//   range.  Every block of the tile walks that range, 512 slots at a time
-//   staged in shared memory (sender row, receiver row in the slice, weight;
-//   padding slots and other slices' rows marked), and warp w finds the slots
-//   whose row is = w mod 16 with __ballot_sync, 32 slots at a time, keeps 4
-//   x-row loads in flight, and adds the messages in slot order (lane =
-//   column) to its rows of the accumulator.  No block touches another's
-//   rows, so receiver tiles without edges and budget fillers need no care.
+// SpMM: work follows the real slots.  The host plan (TiledPlan, built when
+//   a structure moves to the card) lists a direction's real slots in
+//   receiver order, stable in slot order, as (edge id, receiver row,
+//   sender); the edge id indexes the weights, which arrive with each launch
+//   (GAT's attention changes every step).  The entries are cut into pieces
+//   at row starts: below 16 384 entries a piece per row (a molecule batch's
+//   ~250 pieces: short chains of loads on many warps), a row of more than
+//   `piece` entries (32-512, so that a structure has some 2 000 pieces) cut
+//   at the multiples of `piece` in it; beyond, a cut at each multiple of
+//   `piece`, moved back to its row's start unless that lies more than a
+//   quarter piece back.  A warp walks one piece: every entry's metadata and
+//   weight are read once (a lane per entry, the next 32 prefetched), a lane
+//   holds 4 of a 128-column group (one 16-byte load or store when
+//   F % 4 == 0), 16 gathered rows are in flight, and the running row is
+//   summed in registers from 0 in entry order, so each row keeps the plain
+//   version's order of sums.  A row that lies in this piece alone is written
+//   straight to out when the receiver changes.  The piece's first and last
+//   rows, where other pieces share them (a hub's), go to partial rows, and
+//   the plan names these split rows with their partials (consecutive, in
+//   piece order).  Each block of 8 pieces, after its partials, bumps a
+//   counter per split row it wrote to; the block that completes a row sums
+//   its partials -- one warp in order where there are at most 64 (the warps
+//   take such rows in turn), else its 8 warps each a consecutive eighth in
+//   order, then the eight in order -- writes the row and resets the
+//   counter.  So the order of every sum is fixed by the plan: two launches
+//   give the same bits, with no atomics on values.  Rows without a real
+//   slot (the plan's empty_rows) are written as zeros, spread evenly over
+//   the grid's warps; every row of out is written once, and padding slots,
+//   budget fillers and edge-free tiles are never visited.
 // SDDMM: one warp per slot (grid-stride), lanes over F, a shuffle reduction.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int TF = 32;          // output columns per block: one per lane
-constexpr int PIECE = THREADS;  // slots staged per step, one per thread
-constexpr int BATCH = 4;        // x-row loads a warp keeps in flight
-constexpr int MAX_ROWS = 256;   // receiver rows per block
-constexpr int MIN_ROWS = 32;
-constexpr int SMS = 132;        // H100 SXM
-constexpr int SDDMM_WARPS = 8;  // SDDMM blocks: 8 warps, one slot each
+constexpr int WARPS = 8;          // pieces per block (tiled_spmm.PIECES_PER_BLOCK)
+constexpr int THREADS = WARPS * 32;
+constexpr int GROUP = 128;        // columns a warp sums at a time: 4 per lane
+constexpr int BATCH = 16;         // gathered x rows a warp keeps in flight
+constexpr int SPLIT_WARP = 64;    // split rows of at most this many partials: one warp
+constexpr int ZERO_ROWS = 16;     // empty rows per warp, sizing the grid
+constexpr int SMS = 132;          // H100 SXM
+constexpr int SDDMM_WARPS = 8;    // SDDMM blocks: 8 warps, one slot each
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// A lane's 4 columns of the 128-column group at c0 of one F-wide row: with
+// VEC 4 consecutive columns (one 16-byte access; F % 4 == 0), else columns
+// lane + 32 i.  Columns >= F read as 0 and are not written.  L2: read
+// through L2 only (__ldcg), for rows other blocks wrote in this launch;
+// else through the read-only path (__ldg).
+template <bool L2, class T>
+__device__ __forceinline__ T ld(const T* p) {
+  return L2 ? __ldcg(p) : __ldg(p);
+}
+
+template <bool VEC, bool L2 = false>
+__device__ __forceinline__ void load4(const float* row, int c0, int F, int lane,
+                                      float (&v)[4]) {
+  if (VEC) {
+    const int c = c0 + 4 * lane;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < F) t = ld<L2>(reinterpret_cast<const float4*>(row + c));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + lane + 32 * i;
+      v[i] = c < F ? ld<L2>(row + c) : 0.f;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* row, int c0, int F, int lane,
+                                       const float (&v)[4]) {
+  if (VEC) {
+    const int c = c0 + 4 * lane;
+    if (c < F) *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + lane + 32 * i;
+      if (c < F) row[c] = v[i];
+    }
+  }
+}
+
+// the column of the group that a lane's i-th value belongs to
+template <bool VEC>
+__device__ __forceinline__ int col4(int lane, int i) {
+  return VEC ? 4 * lane + i : lane + 32 * i;
+}
+
+// sum = partials [lo, hi) of a lane's columns, added in order from 0 (read
+// through L2: other blocks wrote them in this launch)
+template <bool VEC>
+__device__ __forceinline__ void sum_partials(const float* part, int lo, int hi, int c0,
+                                             int F, int lane, float (&sum)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = 0.f;
+  for (int q0 = lo; q0 < hi; q0 += BATCH) {
+    float v[BATCH][4];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (q0 + u < hi) load4<VEC, true>(part + (size_t)(q0 + u) * F, c0, F, lane, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      if (q0 + u < hi) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i] += v[u][i];
+      }
+    }
+  }
+}
+
+struct Slot {
+  int row, send;
+  float w;  // rounded to bf16 with the bf16 payload
+};
+
+template <bool BF16>
+__device__ __forceinline__ Slot slot_meta(const int* __restrict__ ent, int n_real,
+                                          int e, int e_end, const float* __restrict__ w) {
+  Slot m{-1, 0, 0.f};
+  if (e < e_end) {
+    const int edge = __ldg(ent + e);
+    m.row = __ldg(ent + n_real + e);
+    m.send = __ldg(ent + 2 * n_real + e);
+    const float v = __ldg(w + edge);
+    m.w = BF16 ? round_bf16(v) : v;
+  }
+  return m;
+}
+
+template <bool BF16, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-tiled_spmm_kernel(const int* __restrict__ s_loc, const int* __restrict__ r_loc,
-                  const int* __restrict__ slot_src,
-                  const int* __restrict__ chunk_rt,
-                  const int* __restrict__ chunk_st,
-                  const float* __restrict__ weights,
-                  const float* __restrict__ x, float* __restrict__ out,
-                  int n_chunks, int chunk, int ts, int tr, int slice_rows,
-                  int num_receivers, int num_edges, int F, int bf16) {
-  __shared__ int st_send[PIECE];  // sender row, -1 = not this block's
-  __shared__ int st_row[PIECE];   // receiver row in the slice
-  __shared__ float st_w[PIECE];
-  __shared__ float acc[MAX_ROWS * TF];
+tiled_spmm_kernel(const int* __restrict__ ent, const int* __restrict__ starts,
+                  const int4* __restrict__ pieces, const int4* __restrict__ splits,
+                  const int* __restrict__ empty_rows, int* __restrict__ arrivals,
+                  const float* __restrict__ w, const float* __restrict__ x,
+                  float* __restrict__ out, float* __restrict__ part, int n_real,
+                  int n_pieces, int n_split, int n_empty, int F) {
+  __shared__ float red[WARPS][GROUP];  // the warps' sums of a split row
+  __shared__ int done[2 * WARPS];      // split rows this block completes
+  __shared__ int n_done;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x * WARPS + warp;
 
-  const int slices = (tr + slice_rows - 1) / slice_rows;
-  const int rt = blockIdx.x / slices;
-  const int row0 = (blockIdx.x % slices) * slice_rows;  // first row in the tile
-  const int rows = min(min(slice_rows, tr - row0), num_receivers - rt * tr - row0);
-  if (rows <= 0) return;  // a slice past the last receiver
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int f = blockIdx.y * TF + lane;
-  const bool col_ok = f < F;
-
-  // Thread (warp, lane) owns rows = warp (mod WARPS) of column f: it alone
-  // zeroes, accumulates and writes them, so no barrier guards them.
-  for (int r = warp; r < rows; r += WARPS) acc[r * TF + lane] = 0.f;
-
-  // the tile's first chunk (chunks of earlier tiles) and its chunks that
-  // hold edges; stop at the first stripe that reaches a later tile
-  int lo = 0, used = 0;
-  for (int base = 0; base < n_chunks; base += THREADS) {
-    const int c = base + tid;
-    const int crt = c < n_chunks ? chunk_rt[c] : 0x7fffffff;
-    const bool head = crt == rt && slot_src[(size_t)c * chunk] < num_edges;
-    lo += __syncthreads_count(crt < rt);
-    used += __syncthreads_count(head);
-    if (__syncthreads_or(crt > rt)) break;
-  }
-
-  const long long s_end = (long long)(lo + used) * chunk;
-  for (long long p0 = (long long)lo * chunk; p0 < s_end; p0 += PIECE) {
-    __syncthreads();  // every warp is done with the previous piece
-    const long long i = p0 + tid;
-    int send = -1, row = 0;
-    float wv = 0.f;
-    if (i < s_end) {
-      const int src = slot_src[i];
-      const int rl = r_loc[i] - row0;
-      if (src >= 0 && src < num_edges && rl >= 0 && rl < rows) {
-        send = chunk_st[i / chunk] * ts + s_loc[i];
-        row = rl;
-        wv = weights[src];
-      }
-    }
-    st_send[tid] = send;
-    st_row[tid] = row;
-    st_w[tid] = wv;
-    __syncthreads();
-    const int n = (int)min((long long)PIECE, s_end - p0);
-    for (int k = 0; k < n; k += 32) {
-      const int j = k + lane;
-      const bool mine = j < n && st_send[j] >= 0 && (st_row[j] % WARPS) == warp;
-      unsigned mask = __ballot_sync(FULL, mine);  // this warp's slots, in order
-      while (mask) {
-        int js[BATCH];
-        float xv[BATCH];
+  bool wrote_part = false;  // this warp wrote a partial row
+  if (p < n_pieces) {
+    // (split row, partial) of the piece's first and of its last row
+    const int4 info = pieces[p];
+    wrote_part = info.y >= 0 || info.w >= 0;
+    const int e0 = __ldg(starts + p);
+    const int e1 = __ldg(starts + p + 1);
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int cur = -1;        // the row being summed
+      bool first = true;   // cur is the piece's first row
+      Slot nxt = slot_meta<BF16>(ent, n_real, e0 + lane, e1, w);
+      for (int b = e0; b < e1; b += 32) {
+        const Slot me = nxt;
+        nxt = slot_meta<BF16>(ent, n_real, b + 32 + lane, e1, w);
+        const int n = min(32, e1 - b);
+        for (int j0 = 0; j0 < n; j0 += BATCH) {
+          float xv[BATCH][4];
+          int rw[BATCH];
+          float wv[BATCH];
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          js[u] = mask ? k + __ffs(mask) - 1 : -1;
-          mask &= mask - 1;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          xv[u] = (js[u] >= 0 && col_ok) ? x[(size_t)st_send[js[u]] * F + f] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          if (js[u] < 0 || !col_ok) continue;
-          const float w = st_w[js[u]];
-          float m;
-          if (bf16) {
-            m = round_bf16(__fmul_rn(round_bf16(w), round_bf16(xv[u])));
-          } else {
-            m = __fmul_rn(w, xv[u]);
+          for (int u = 0; u < BATCH; ++u) {
+            const int j = j0 + u;  // the same in every lane
+            const int s = __shfl_sync(FULL, me.send, j & 31);
+            rw[u] = __shfl_sync(FULL, me.row, j & 31);
+            if (j < n) {
+              load4<VEC>(x + (size_t)s * F, c0, F, lane, xv[u]);
+            } else {
+              rw[u] = -1;
+            }
           }
-          acc[st_row[js[u]] * TF + lane] += m;
+          // the weights after the gathers are under way: their loads overlap
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) wv[u] = __shfl_sync(FULL, me.w, (j0 + u) & 31);
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            if (rw[u] < 0) break;
+            if (rw[u] != cur) {
+              if (cur >= 0) {
+                // a finished row other than the last: the first one goes
+                // where the plan says, the others are whole
+                const int c = first ? info.y : -1;
+                store4<VEC>(c >= 0 ? part + (size_t)c * F : out + (size_t)cur * F,
+                            c0, F, lane, acc);
+                first = false;
+              }
+              cur = rw[u];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[i] = 0.f;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (!VEC && c0 + 32 * i >= F) break;  // past F in every lane
+              const float xi = BF16 ? round_bf16(xv[u][i]) : xv[u][i];
+              const float msg = __fmul_rn(wv[u], xi);
+              acc[i] += BF16 ? round_bf16(msg) : msg;
+            }
+          }
         }
       }
+      // the last row (which may be the first)
+      const int c = first ? info.y : info.w;
+      store4<VEC>(c >= 0 ? part + (size_t)c * F : out + (size_t)cur * F, c0, F, lane,
+                  acc);
     }
   }
-  if (col_ok) {
-    float* o = out + (size_t)(rt * tr + row0) * F + f;
-    for (int r = warp; r < rows; r += WARPS) o[(size_t)r * F] = acc[r * TF + lane];
+
+  // rows without a real slot: zeros; every warp of the grid takes `per` of
+  // the list at a time, one id a lane (not a chain of dependent loads)
+  const int nw = gridDim.x * WARPS;
+  const int per = min(32, (n_empty + nw - 1) / nw);
+  const float z[4] = {0.f, 0.f, 0.f, 0.f};
+  for (long long i0 = (long long)p * per; i0 < n_empty; i0 += (long long)nw * per) {
+    const int n = (int)min((long long)per, n_empty - i0);
+    const int mine = lane < n ? __ldg(empty_rows + i0 + lane) : 0;
+    for (int j = 0; j < n; ++j) {
+      float* o = out + (size_t)__shfl_sync(FULL, mine, j) * F;
+      for (int c0 = 0; c0 < F; c0 += GROUP) store4<VEC>(o, c0, F, lane, z);
+    }
   }
+
+  if (n_split == 0) return;  // no row is cut: no partial to sum
+
+  // this block's partials are written: the warps that wrote one make them
+  // visible, then the block counts itself in for each split row it wrote
+  // to, once, and notes the rows it is the last to reach
+  if (wrote_part) __threadfence();
+  __syncthreads();
+  if (warp == 0) {
+    int k = -1;
+    if (lane < 2 * WARPS) {
+      const int q = blockIdx.x * WARPS + lane / 2;
+      if (q < n_pieces) k = (lane & 1) ? pieces[q].z : pieces[q].x;
+    }
+    bool seen = false;  // an earlier lane holds the same row
+#pragma unroll
+    for (int j = 0; j < 2 * WARPS; ++j) {
+      const int kj = __shfl_sync(FULL, k, j);
+      seen |= j < lane && kj == k;
+    }
+    bool last = false;
+    if (k >= 0 && !seen) {
+      last = atomicAdd(arrivals + k, 1) == splits[k].w - 1;
+      if (last) {
+        arrivals[k] = 0;  // every block has arrived: ready for the next launch
+        __threadfence();
+      }
+    }
+    const unsigned mask = __ballot_sync(FULL, last);
+    if (last) done[__popc(mask & ((1u << lane) - 1))] = k;
+    if (lane == 0) n_done = __popc(mask);
+  }
+  __syncthreads();
+
+  // sum each completed split row's partials in a fixed order: a row of at
+  // most SPLIT_WARP partials by one warp, in piece order, the warps taking
+  // such rows in turn; a longer one by all 8 warps, each a consecutive
+  // eighth in order, then the eight in order
+  for (int t = warp; t < n_done; t += WARPS) {
+    const int4 sp = splits[done[t]];  // row, first partial, partials, blocks
+    if (sp.z > SPLIT_WARP) continue;
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float sum[4];
+      sum_partials<VEC>(part, sp.y, sp.y + sp.z, c0, F, lane, sum);
+      store4<VEC>(out + (size_t)sp.x * F, c0, F, lane, sum);
+    }
+  }
+  for (int t = 0; t < n_done; ++t) {
+    const int4 sp = splits[done[t]];
+    if (sp.z <= SPLIT_WARP) continue;
+    const int per = (sp.z + WARPS - 1) / WARPS;
+    const int lo = sp.y + min(warp * per, sp.z);
+    const int hi = sp.y + min((warp + 1) * per, sp.z);
+    for (int c0 = 0; c0 < F; c0 += GROUP) {
+      float sum[4];
+      sum_partials<VEC>(part, lo, hi, c0, F, lane, sum);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp][col4<VEC>(lane, i)] = sum[i];
+      __syncthreads();
+      if (warp == 0) {
+        float tot[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[i] = red[0][col4<VEC>(lane, i)];
+          for (int k = 1; k < WARPS; ++k) tot[i] += red[k][col4<VEC>(lane, i)];
+        }
+        store4<VEC>(out + (size_t)sp.x * F, c0, F, lane, tot);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <bool BF16, bool VEC>
+cudaError_t launch_spmm(const int* ent, const int* starts, const int* pieces,
+                        const int* splits, const int* empty_rows, int* arrivals,
+                        const float* w, const float* x, float* out, float* part,
+                        int n_real, int n_pieces, int n_split, int n_empty, int F,
+                        cudaStream_t stream) {
+  const int blocks = std::max({(n_pieces + WARPS - 1) / WARPS,
+                               (n_empty + WARPS * ZERO_ROWS - 1) / (WARPS * ZERO_ROWS), 1});
+  tiled_spmm_kernel<BF16, VEC><<<blocks, THREADS, 0, stream>>>(
+      ent, starts, reinterpret_cast<const int4*>(pieces),
+      reinterpret_cast<const int4*>(splits), empty_rows, arrivals, w, x, out, part, n_real,
+      n_pieces, n_split, n_empty, F);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_spmm_vec(const int* ent, const int* starts, const int* pieces,
+                            const int* splits, const int* empty_rows, int* arrivals,
+                            const float* w, const float* x, float* out, float* part,
+                            int n_real, int n_pieces, int n_split, int n_empty, int F,
+                            cudaStream_t stream) {
+  // 16-byte rows when F % 4 == 0 and the rows start 16-byte aligned
+  const bool vec = F % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)out | (uintptr_t)part) % 16 == 0;
+  return vec ? launch_spmm<BF16, true>(ent, starts, pieces, splits, empty_rows, arrivals,
+                                       w, x, out, part, n_real, n_pieces, n_split,
+                                       n_empty, F, stream)
+             : launch_spmm<BF16, false>(ent, starts, pieces, splits, empty_rows, arrivals,
+                                        w, x, out, part, n_real, n_pieces, n_split,
+                                        n_empty, F, stream);
 }
 
 __global__ void __launch_bounds__(SDDMM_WARPS * 32)
@@ -202,25 +403,25 @@ tiled_sddmm_kernel(const int* __restrict__ s_loc, const int* __restrict__ r_loc,
 extern "C" {
 
 // out [num_receivers, F] = the structure's sparse matrix (weights w[E]) times
-// x [num_senders, F].  Launches on `stream` (a cudaStream_t); returns the
-// cudaError_t of the launch (0 on success).  Does not synchronise and
-// allocates nothing.
-int kgcn_tiled_spmm(const int* s_loc, const int* r_loc, const int* slot_src,
-                    const int* chunk_rt, const int* chunk_st,
-                    const float* weights, const float* x, float* out,
-                    int n_chunks, int chunk, int ts, int tr, int n_rt,
-                    int num_receivers, int num_edges, int F, int bf16,
+// x [num_senders, F], over the TiledPlan's arrays (entries [3, n_real]:
+// edge id, receiver row, sender; starts [n_pieces + 1]; pieces [n_pieces,
+// 4], splits [n_split, 4], empty_rows [n_empty], arrivals [n_split], zero
+// between launches).  part: scratch of the plan's n_parts rows of F.
+// Launches on `stream` (a cudaStream_t); returns the cudaError_t of the
+// launch (0 on success).  Does not synchronise and allocates nothing.
+int kgcn_tiled_spmm(const int* entries, const int* starts, const int* pieces,
+                    const int* splits, const int* empty_rows, int* arrivals,
+                    const float* weights, const float* x, float* out, float* part,
+                    int n_real, int n_pieces, int n_split, int n_empty, int F, int bf16,
                     void* stream) {
-  const int cols = (F + TF - 1) / TF;
-  int rows = tr < MAX_ROWS ? tr : MAX_ROWS;
-  while (rows >= 2 * MIN_ROWS && (long long)n_rt * ((tr + rows - 1) / rows) * cols < SMS) {
-    rows /= 2;
-  }
-  dim3 grid(n_rt * ((tr + rows - 1) / rows), cols);
-  tiled_spmm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      s_loc, r_loc, slot_src, chunk_rt, chunk_st, weights, x, out, n_chunks,
-      chunk, ts, tr, rows, num_receivers, num_edges, F, bf16);
-  return (int)cudaGetLastError();
+  if (F <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? (int)launch_spmm_vec<true>(entries, starts, pieces, splits, empty_rows,
+                                           arrivals, weights, x, out, part, n_real,
+                                           n_pieces, n_split, n_empty, F, s)
+              : (int)launch_spmm_vec<false>(entries, starts, pieces, splits, empty_rows,
+                                            arrivals, weights, x, out, part, n_real,
+                                            n_pieces, n_split, n_empty, F, s);
 }
 
 // out [n_chunks, chunk]: per slot <g[receiver], x[sender]> (0 in padding

@@ -7,12 +7,17 @@ adj ``[C, B, N, N]``, x ``[B, N, Fin]``, w ``[C, Fin, Fout]``, b ``[C, Fout]``
 → ``[B, N, Fout]``.
 
 * ``gconv`` is the op the layers call.  On CUDA tensors it launches the
-  hand-written Hopper kernel ``csrc/gconv.cu`` (float32); on CPU tensors it
-  computes ``gconv_reference``.  It never falls back from one to the other.
+  hand-written Hopper kernel ``csrc/gconv.cu`` (float32, any N and B: one
+  launch per call for molecule-sized graphs, else the projection
+  ``X W_c + b_c`` into a scratch the wrapper allocates, then the
+  aggregation over it); on CPU tensors it computes ``gconv_reference``.  It
+  never falls back from one to the other.
 * The backward is the torch translation of ``_bwd``
   (``pallas_gconv.py:139-152``): einsums for dA, dX, dW and db, as the JAX
   package computes it with XLA einsums.
-* ``gconv.launches`` counts kernel launches (and nothing else), so a run
+* ``gconv.launches`` counts the CUDA kernels a call launched, as the C
+  entry reports them (one, or the two or three of the projection, the
+  aggregation and the sum of its split runs), and nothing else, so a run
   can show that its path went through the kernel.
 """
 from __future__ import annotations
@@ -22,11 +27,6 @@ import ctypes
 import torch
 
 from kgcn_tpu_torch.ops import _build
-
-# Shared memory a block may use on Hopper; the kernel's grows with N
-# (kgcn_gconv_f32_smem_bytes), which bounds the node count it takes (594).
-_MAX_SMEM = 227 * 1024
-
 
 def gconv_reference(adj, x, w, b):
     """Plain PyTorch version: per-channel ``X W_c + b_c``, then aggregate —
@@ -56,7 +56,7 @@ def _check(adj, x, w, b):
 
 
 def _launch(adj, x, w, b):
-    """One launch of the CUDA kernel; float32, contiguous, one device."""
+    """One call of the CUDA kernel; float32, contiguous, one device."""
     for name, t in (("adj", adj), ("x", x), ("w", w), ("b", b)):
         if t.dtype != torch.float32:
             raise TypeError(
@@ -67,28 +67,30 @@ def _launch(adj, x, w, b):
             raise ValueError(f"gconv CUDA kernel needs contiguous {name}")
     C, B, N, _ = adj.shape
     Fin, Fout = w.shape[1], w.shape[2]
-    lib = _build.load("gconv")
-    fn = lib.kgcn_gconv_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.kgcn_gconv_f32_smem_bytes.argtypes = [ctypes.c_int]
-        lib.kgcn_gconv_f32_smem_bytes.restype = ctypes.c_longlong
-    if lib.kgcn_gconv_f32_smem_bytes(N) > _MAX_SMEM or B > 65535:
-        raise NotImplementedError(
-            f"gconv CUDA kernel takes N ≤ 594 nodes and B ≤ 65535 graphs "
-            f"(got N={N}, B={B}); larger graphs take the sparse backends, "
-            "still to be ported (ROADMAP.md queue A)"
-        )
     out = torch.empty((B, N, Fout), device=x.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    lib = _build.load("gconv")
+    fn = lib.kgcn_gconv_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        lib.kgcn_gconv_f32_scratch_floats.argtypes = [ctypes.c_int] * 5
+        lib.kgcn_gconv_f32_scratch_floats.restype = ctypes.c_longlong
+    # the projection's (and the split runs') scratch where the kernel takes
+    # its two-launch design (none for molecule-sized graphs)
+    floats = lib.kgcn_gconv_f32_scratch_floats(C, B, N, Fin, Fout)
+    scratch = (torch.empty(floats, device=x.device, dtype=torch.float32)
+               if floats else None)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(adj.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), C, B, N, Fin, Fout, stream)
+                  0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                  C, B, N, Fin, Fout, stream, ctypes.byref(launched))
     _build.check(lib, code, "gconv launch")
-    gconv.launches += 1
+    gconv.launches += launched.value
     return out
 
 

@@ -17,7 +17,8 @@
   step does (its edge lists are traced there and have no host-visible
   degrees).
 * ``xla``: the JAX package's non-kernel path — a gather of sender rows
-  scaled by the edge weights and an ``index_add_`` into the receivers, or
+  scaled by the edge weights and a segment sum into the receivers (in a
+  fixed order, ``ops/segment.segment_sum``), or
   on ELL arrays the gather and einsum of ``ops/ell.py``; the oracle of the
   tests.
 
@@ -33,6 +34,7 @@ import torch
 
 from kgcn_tpu_torch.ops.ell import spmm_ell_multichannel
 from kgcn_tpu_torch.ops.ell_spmm import SpmmEll, spmm_pallas
+from kgcn_tpu_torch.ops.segment import segment_sum
 from kgcn_tpu_torch.ops.stream_spmm import stream_spmm, stream_spmm_edges
 from kgcn_tpu_torch.ops.tiled_spmm import tiled_spmm
 
@@ -51,11 +53,12 @@ def _warn_pallas_fallback() -> None:
         )
 
 
-def _scatter(senders, receivers, weights, x, num_nodes):
-    """``xla``: gather the sender rows, scale, ``index_add_`` by receiver."""
+def _scatter(senders, receivers, weights, x, num_nodes, segments=None):
+    """``xla``: gather the sender rows, scale, sum by receiver
+    (``segments``: the receivers' ``sort_segments``, when the caller has
+    them)."""
     gathered = x[senders.long()] * weights.reshape(-1, 1).to(x.dtype)
-    return x.new_zeros((num_nodes, x.shape[-1])).index_add(0, receivers.long(),
-                                                           gathered)
+    return segment_sum(gathered, receivers, num_nodes, segments)
 
 
 def spmm(senders, receivers, weights, x, num_nodes: int, *, backend: str = "xla",
@@ -81,13 +84,15 @@ def spmm(senders, receivers, weights, x, num_nodes: int, *, backend: str = "xla"
 
 def spmm_multichannel(senders, receivers, weights, x, num_nodes: int, *,
                       backend: str = "xla", tiled=None, stream=None,
-                      compute_dtype="bfloat16"):
+                      compute_dtype="bfloat16", segments=None):
     """``out[r] = Σ_c Σ_e w[c,e] · x_c[s[c,e]]``.
 
     senders/receivers/weights ``[C, E]`` (weights may be None on the stream
     backend: the baked ones); x ``[C, V, F]`` (per-channel features) or
     ``[V, F]`` (shared).  ``tiled`` / ``stream``: the per-channel
-    ``TiledCOO`` / ``StreamCOO`` structures of the batch.
+    ``TiledCOO`` / ``StreamCOO`` structures of the batch.  ``segments``:
+    the scatter's sorted receivers, all channels as one list
+    (``GraphBatch.receiver_segments()``), else sorted here.
     Returns ``[num_nodes, F]`` in x's dtype."""
     C = senders.shape[0]
     # unbind, not x[c]: its backward stacks the channels' gradients once,
@@ -119,11 +124,11 @@ def spmm_multichannel(senders, receivers, weights, x, num_nodes: int, *,
         raise ValueError(f"unknown spmm backend {backend!r}")
     if x.dim() == 2:
         x = x.expand(C, *x.shape)
-    # one flat edge list over the channels: a single index_add_ sums them
+    # one flat edge list over the channels: a single segment sum adds them
     V = x.shape[1]
     offs = (torch.arange(C, device=senders.device) * V)[:, None]
     return _scatter((senders.long() + offs).reshape(-1), receivers.reshape(-1),
-                    weights, x.reshape(C * V, x.shape[2]), num_nodes)
+                    weights, x.reshape(C * V, x.shape[2]), num_nodes, segments)
 
 
 def ell_aggregate(ell_senders, ell_weights, x, backend: str = "xla"):

@@ -9,14 +9,21 @@ structure (``TiledCOO``) and the same two device operations,
   (``tiled_spmm.py:477-508``) computes them;
 * ``tiled_sddmm(te, a, b)`` — ``out[e] = ⟨a[r_e], b[s_e]⟩``.
 
-Host side (NumPy, per batch): ``build_tiled`` sorts the edges by
-(receiver tile, sender tile) and packs them into fixed-size chunks that never
-cross a tile pair; ``choose_tiling`` picks ``(ts, tr, chunk)`` with the JAX
+Host side (per batch): ``build_tiled`` groups the edges by (receiver tile,
+sender tile) and packs them into fixed-size chunks that never cross a tile
+pair (in C++, ``csrc/tiled_host.cc``); ``choose_tiling`` picks ``(ts, tr, chunk)`` with the JAX
 package's TPU cost model, kept unchanged so both packages build the same
-arrays (a tiling chosen for the GPU is later work, ROADMAP.md B.2).
+arrays (a tiling chosen for the GPU is later work, ROADMAP.md B.3).  The
+port adds a ``TiledPlan`` per direction: the real slots in receiver order,
+stable in slot order, with their edge ids, cut into balanced pieces for the
+SpMM kernel.  It is built when a structure moves to a CUDA device
+(``TiledCOO.to``), by the host library ``csrc/tiled_host.cc`` (plain C++),
+so the CPU path, which never reads it, does not pay for it.  The same
+library packs the structures themselves (``_build_arrays``).
 
 Device side: on CUDA tensors the wrappers launch the hand-written Hopper
-kernels of ``csrc/tiled.cu``; on CPU tensors they compute the plain versions
+kernels of ``csrc/tiled.cu`` (the SpMM walks the structure's plan); on CPU
+tensors they compute the plain versions
 ``tiled_spmm_reference`` / ``tiled_sddmm_reference``.  Neither falls back to
 the other.  ``tiled_spmm.launches`` and ``tiled_sddmm.launches`` count kernel
 launches and nothing else.
@@ -31,6 +38,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -81,6 +90,9 @@ class TiledCOO:
     node_perm/node_inv: locality relabelling, ``perm[new] = old``.
     edge_slot: ``[E]`` flat slot of each edge (dropped edges: the slot
         count, the index of an appended zero).
+    plan: the SpMM kernel's ``TiledPlan`` of this direction's real slots;
+        built on the host by ``to`` a CUDA device (``with_plan``), since
+        only the kernel reads it.
     """
 
     s_loc: torch.Tensor
@@ -93,70 +105,105 @@ class TiledCOO:
     node_perm: Optional[torch.Tensor] = None
     edge_slot: Optional[torch.Tensor] = None
     node_inv: Optional[torch.Tensor] = None
+    plan: Optional["TiledPlan"] = None
 
     def replace(self, **changes) -> "TiledCOO":
         return dataclasses.replace(self, **changes)
 
     def to(self, device) -> "TiledCOO":
+        """A copy on ``device``.  A move of a host structure to a CUDA
+        device first builds the SpMM kernel's plans (``with_plan``), then
+        copies every array of both directions and their plans at once
+        (``_to_card``)."""
+        if torch.device(device).type == "cuda" and not self.slot_src.is_cuda:
+            return _to_card(with_plan(self), device)
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (torch.Tensor, TiledCOO)):
+            if isinstance(v, (torch.Tensor, TiledCOO, TiledPlan)):
                 moved[f.name] = v.to(device)
         return self.replace(**moved)
 
 
-def _build_arrays(s, r, eid, num_senders, num_receivers, num_edges,
-                  ts, tr, chunk) -> TiledCOO:
-    """Vectorised host-side packing of one direction (``kgcn_tpu``'s
-    ``_build_arrays``).  s/r/eid are the kept edges; eid maps back to the
-    original edge positions."""
-    n_st = max(_cdiv(num_senders, ts), 1)
-    n_rt = max(_cdiv(num_receivers, tr), 1)
-    key = (r // tr).astype(np.int64) * n_st + s // ts
-    order = np.argsort(key, kind="stable")
-    key_sorted = key[order]
+def _to_card(te: TiledCOO, device) -> TiledCOO:
+    """``te`` and its transpose, with their plans, on ``device`` through ONE
+    host-to-device copy: every int32 array laid into one host buffer, each
+    from a 16-byte boundary (the plans' int4 reads), then views of the copy
+    (one split).  A copy call costs the host some 20 µs, and a structure
+    with its transpose and plans holds a dozen arrays."""
+    dirs = (te,) if te.transpose is None else (te, te.transpose)
+    names = [[f.name for f in dataclasses.fields(d) if isinstance(getattr(d, f.name), torch.Tensor)]
+             for d in dirs]
+    arrays = [getattr(d, n) for d, ns in zip(dirs, names) for n in ns]
+    arrays += [d.plan.buf for d in dirs]
+    sizes = []
+    for t in arrays:
+        if t.dtype != torch.int32:
+            raise ValueError(f"TiledCOO arrays are int32 (got {t.dtype})")
+        sizes += [t.numel(), -t.numel() % 4]
+    host = np.empty(sum(sizes), np.int32)
+    o = 0
+    for t, n, pad in zip(arrays, sizes[::2], sizes[1::2]):
+        host[o:o + n] = t.numpy().reshape(-1)
+        o += n + pad
+    views = torch.from_numpy(host).to(device).split(sizes)[::2]
+    it = (v.view(t.shape) for v, t in zip(views, arrays))
+    moved = [{n: next(it) for n in ns} for ns in names]
+    for d, m in zip(dirs, moved):
+        m["plan"] = dataclasses.replace(d.plan, buf=next(it))
+    if len(dirs) == 2:
+        moved[0]["transpose"] = te.transpose.replace(**moved[1])
+    return te.replace(**moved[0])
 
-    # pairs present, their counts, and each edge's rank within its pair
-    pair_keys, pair_counts = np.unique(key_sorted, return_counts=True)
-    first_idx = np.searchsorted(key_sorted, key_sorted, side="left")
-    rank = np.arange(len(order), dtype=np.int64) - first_idx
 
-    # every receiver tile owns ≥ 1 chunk, so its output rows get zeroed
-    present_rt = np.unique(pair_keys // n_st)
-    missing_rt = np.setdiff1d(np.arange(n_rt, dtype=np.int64), present_rt,
-                              assume_unique=True)
-    all_keys = np.concatenate([pair_keys, missing_rt * n_st])  # filler st=0
-    all_counts = np.concatenate([pair_counts, np.zeros(len(missing_rt), np.int64)])
-    porder = np.argsort(all_keys, kind="stable")
-    all_keys, all_counts = all_keys[porder], all_counts[porder]
-    chunks_per_pair = np.maximum(_cdiv(all_counts, chunk), 1)
-    chunk_base = np.concatenate([[0], np.cumsum(chunks_per_pair)])
-    n_chunks = int(chunk_base[-1])
+def _host_lib():
+    lib = _build.load("tiled_host")
+    if lib.kgcn_tiled_plan.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.kgcn_tiled_arrays.argtypes = [ptr] * 3 + [i64] + [i32] * 6 + [i64, i32]
+        lib.kgcn_tiled_arrays.restype = i64
+        lib.kgcn_tiled_arrays_take.argtypes = [ptr] * 3
+        lib.kgcn_tiled_arrays_take.restype = None
+        lib.kgcn_tiled_plan.argtypes = [ptr] * 5 + [i32] * 9 + [ptr] * 2
+        lib.kgcn_tiled_plan.restype = i64
+        lib.kgcn_tiled_plan_take.argtypes = [ptr]
+        lib.kgcn_tiled_plan_take.restype = None
+    return lib
 
-    chunk_rt = np.repeat(all_keys // n_st, chunks_per_pair).astype(np.int32)
-    chunk_st = np.repeat(all_keys % n_st, chunks_per_pair).astype(np.int32)
 
-    # slot of each sorted edge = (base chunk of its pair)·chunk + rank
-    slot = chunk_base[np.searchsorted(all_keys, key_sorted)] * chunk + rank
-    slot_src = np.full(n_chunks * chunk, num_edges, np.int32)
-    s_loc = np.zeros(n_chunks * chunk, np.int32)
-    r_loc = np.zeros(n_chunks * chunk, np.int32)
-    slot_src[slot] = eid[order]
-    s_loc[slot] = (s[order] % ts).astype(np.int32)
-    r_loc[slot] = (r[order] % tr).astype(np.int32)
-
-    meta = TiledMeta(ts=ts, tr=tr, chunk=chunk, n_chunks=n_chunks, n_st=n_st,
-                     n_rt=n_rt, num_senders=num_senders,
+def _build_arrays(s, r, eid, num_senders, num_receivers, num_edges, ts, tr, chunk,
+                  budget=None, edge_slot=False):
+    """One direction's arrays (``kgcn_tpu``'s ``_build_arrays`` and
+    ``_pad_chunks``) from ``kgcn_tiled_arrays`` (``csrc/tiled_host.cc``):
+    s/r/eid are the kept edges in input order; ``budget`` pads the chunk
+    list to that many chunks (raises if short); ``edge_slot`` also returns
+    each original edge's flat slot (dropped edges: the slot count)."""
+    s = np.ascontiguousarray(s, np.int64)
+    r = np.ascontiguousarray(r, np.int64)
+    eid = np.ascontiguousarray(eid, np.int32)
+    lib = _host_lib()
+    n_chunks = lib.kgcn_tiled_arrays(
+        s.ctypes.data, r.ctypes.data, eid.ctypes.data, len(s), num_senders,
+        num_receivers, num_edges, ts, tr, chunk, -1 if budget is None else budget,
+        int(edge_slot))
+    if n_chunks < 0:
+        raise ValueError(f"chunk budget {budget} < required {-n_chunks}; "
+                         "raise the budget or the chunk size")
+    if n_chunks == 0:
+        raise ValueError("tiled structure: an edge lies outside the node range")
+    slots = np.empty((3, n_chunks, chunk), np.int32)  # slot_src, s_loc, r_loc
+    chunks = np.empty((2, n_chunks), np.int32)        # chunk_rt, chunk_st
+    slot_of_edge = np.empty(num_edges, np.int32) if edge_slot else None
+    lib.kgcn_tiled_arrays_take(slots.ctypes.data, chunks.ctypes.data,
+                               None if slot_of_edge is None else slot_of_edge.ctypes.data)
+    meta = TiledMeta(ts=ts, tr=tr, chunk=chunk, n_chunks=int(n_chunks),
+                     n_st=max(_cdiv(num_senders, ts), 1),
+                     n_rt=max(_cdiv(num_receivers, tr), 1), num_senders=num_senders,
                      num_receivers=num_receivers, num_edges=num_edges)
-    return TiledCOO(
-        s_loc=torch.from_numpy(s_loc.reshape(n_chunks, chunk)),
-        r_loc=torch.from_numpy(r_loc.reshape(n_chunks, chunk)),
-        slot_src=torch.from_numpy(slot_src.reshape(n_chunks, chunk)),
-        chunk_rt=torch.from_numpy(chunk_rt),
-        chunk_st=torch.from_numpy(chunk_st),
-        meta=meta,
-    )
+    te = TiledCOO(s_loc=torch.from_numpy(slots[1]), r_loc=torch.from_numpy(slots[2]),
+                  slot_src=torch.from_numpy(slots[0]), chunk_rt=torch.from_numpy(chunks[0]),
+                  chunk_st=torch.from_numpy(chunks[1]), meta=meta)
+    return te if slot_of_edge is None else te.replace(edge_slot=torch.from_numpy(slot_of_edge))
 
 
 def build_tiled(senders, receivers, num_nodes: int, *, weights=None,
@@ -196,58 +243,150 @@ def build_tiled(senders, receivers, num_nodes: int, *, weights=None,
         inv[perm] = np.arange(num_nodes, dtype=perm.dtype)
         s_v, r_v = inv[s_v], inv[r_v]
 
-    te = _build_arrays(s_v, r_v, eid, n_send, num_nodes, num_edges, ts, tr, chunk)
-    if chunk_budget is not None:
-        te = _pad_chunks(te, chunk_budget)
+    # after padding: the sentinel of a dropped edge is the FINAL slot count
+    te = _build_arrays(s_v, r_v, eid, n_send, num_nodes, num_edges, ts, tr, chunk,
+                       chunk_budget, edge_slot=True)
     if with_transpose:
-        tt = _build_arrays(r_v, s_v, eid, num_nodes, n_send, num_edges, tr, ts, chunk)
-        if chunk_budget is not None:
-            tt = _pad_chunks(tt, chunk_budget)
-        te = te.replace(transpose=tt)
+        te = te.replace(transpose=_build_arrays(r_v, s_v, eid, num_nodes, n_send, num_edges,
+                                                tr, ts, chunk, chunk_budget))
     if perm is not None:
         te = te.replace(node_perm=torch.from_numpy(perm.astype(np.int32)),
                         node_inv=torch.from_numpy(inv.astype(np.int32)))
-    # after padding: the sentinel of a dropped edge is the FINAL slot count
-    return te.replace(edge_slot=torch.from_numpy(_slot_of_edge_np(te)))
+    return te
 
 
-def _slot_of_edge_np(te: TiledCOO) -> np.ndarray:
-    """[E] int32 flat slot of each original edge; dropped edges carry the
-    slot count (the index of the appended zero)."""
+# ---------------------------------------------------------------------------
+# the SpMM kernel's plan (host side, built for the card only)
+
+# pieces per CUDA block of the SpMM kernel, one per warp (csrc/tiled.cu's WARPS)
+PIECES_PER_BLOCK = 8
+# the piece size (a multiple of 32, a warp's batch: 32-512) aims at about
+# this many pieces a structure: 16 warps on each of the H100's 132 SMs,
+# enough x-row gathers in flight to cover their latency
+_TARGET_PIECES = 2048
+# below this many real slots a piece is one row (a molecule batch's ~750
+# slots: ~250 warps, each a chain of a few loads, instead of ~25 pieces of
+# 32), a row longer than `piece` cut at the multiples of `piece` in it
+_SMALL = 8 * _TARGET_PIECES
+
+
+@dataclasses.dataclass
+class TiledPlan:
+    """The SpMM kernel's cut of one direction's real slots (host-built by
+    ``with_plan``).  Piece ``p`` is entries ``[starts[p], starts[p+1])``.
+    Below ``_SMALL`` entries every piece is a whole row, a row of more than
+    ``piece`` entries cut at the multiples of ``piece`` inside it; beyond,
+    there is a cut at each multiple of ``piece``, moved back to the start of
+    its row unless that row is longer than ``piece`` or starts more than
+    ``max(8, piece // 4)`` back.  A warp sums a piece in order, writing each
+    receiver row that lies in this piece alone straight to the output, and
+    the first and last rows, where other pieces share them, to partial rows.
+    A row whose slots span pieces ("split") is then the sum of its partials,
+    taken in a fixed order by the last CUDA block of ``PIECES_PER_BLOCK``
+    pieces to write one of them.
+
+    The arrays live in one int32 tensor ``buf``, each from a 16-byte
+    boundary (the kernel reads pieces and splits as int4), so a plan moves
+    to the card in one copy; ``array(name)`` (or the property of that name)
+    is a view of it:
+
+    entries: ``[3, n_real]`` edge id (the weight's index), receiver row and
+        sender of each real slot, sorted by receiver row (within a row in
+        slot order, the plain version's order of sums).
+    starts: ``[n_pieces + 1]`` first entry of each piece, then n_real.
+    pieces: ``[n_pieces, 4]`` (split row, partial) of the piece's first row
+        and of its last row; ``-1, -1`` where that row is whole in this
+        piece, and for the last row where it is also the first.
+    splits: ``[n_split, 4]`` receiver row, first partial, partial count and
+        number of blocks holding its partials, of each split row; its
+        partials are consecutive, in piece order.
+    empty_rows: ``[n_empty]`` receiver rows without a real slot (the kernel
+        writes them as zeros).
+    arrivals: ``[n_split]`` count of the blocks that have written a split
+        row's partials in the running launch; 0 between launches (the last
+        block resets it), so launches on one structure must run in stream
+        order.
+
+    piece: the target number of real slots per piece, ``min(512, 32 *
+        max(1, ceil(n_real / (32 * _TARGET_PIECES))))``.
+    counts: (n_real, n_pieces, n_split, n_empty).
+    offsets: each array's first element in ``buf``, in ``ARRAYS`` order.
+    n_parts: number of partial rows (the launch's scratch).
+    seconds: host seconds spent building the plan.
+    """
+
+    piece: int
+    counts: tuple
+    offsets: tuple
+    n_parts: int
+    buf: torch.Tensor
+    seconds: float = 0.0
+
+    ARRAYS = ("entries", "starts", "pieces", "splits", "empty_rows", "arrivals")
+
+    def shape(self, name) -> tuple:
+        n_real, n_pieces, n_split, n_empty = self.counts
+        return {"entries": (3, n_real), "starts": (n_pieces + 1,),
+                "pieces": (n_pieces, 4), "splits": (n_split, 4),
+                "empty_rows": (n_empty,), "arrivals": (n_split,)}[name]
+
+    def array(self, name) -> torch.Tensor:
+        shape = self.shape(name)
+        o = self.offsets[self.ARRAYS.index(name)]
+        return self.buf[o:o + math.prod(shape)].view(shape)
+
+    entries = property(lambda self: self.array("entries"))
+    starts = property(lambda self: self.array("starts"))
+    pieces = property(lambda self: self.array("pieces"))
+    splits = property(lambda self: self.array("splits"))
+    empty_rows = property(lambda self: self.array("empty_rows"))
+    arrivals = property(lambda self: self.array("arrivals"))
+
+    def pointers(self) -> list:
+        """Each array's device address, in ``ARRAYS`` order."""
+        base = self.buf.data_ptr()
+        return [base + 4 * o for o in self.offsets]
+
+    def to(self, device) -> "TiledPlan":
+        return dataclasses.replace(self, buf=self.buf.to(device))
+
+
+def _plan(te: TiledCOO) -> TiledPlan:
+    """The plan of one direction from ``kgcn_tiled_plan`` (``csrc/
+    tiled_host.cc``): one pass over the slots, a few microseconds for a
+    molecule batch."""
     m = te.meta
-    total = m.n_chunks * m.chunk
-    src = te.slot_src.numpy().reshape(-1)
-    out = np.full((m.num_edges + 1,), total, np.int64)
-    out[src] = np.arange(total, dtype=np.int64)
-    return out[: m.num_edges].astype(np.int32)
+    lib = _host_lib()
+    counts = (ctypes.c_longlong * 6)()
+    offsets = (ctypes.c_longlong * 6)()
+    total = lib.kgcn_tiled_plan(
+        *(getattr(te, name).data_ptr() for name in ("slot_src", "s_loc", "r_loc",
+                                                     "chunk_rt", "chunk_st")),
+        m.n_chunks, m.chunk, m.ts, m.tr, m.num_receivers, m.num_edges,
+        _TARGET_PIECES, _SMALL, PIECES_PER_BLOCK, counts, offsets)
+    if total < 0:
+        raise ValueError("tiled plan: a real slot's receiver lies outside the structure")
+    buf = torch.empty(total, dtype=torch.int32)
+    lib.kgcn_tiled_plan_take(buf.data_ptr())
+    P, *rest, n_parts = counts
+    return TiledPlan(piece=P, counts=tuple(rest), offsets=tuple(offsets[:]),
+                     n_parts=n_parts, buf=buf)
 
 
-def _pad_chunks(te: TiledCOO, budget: int) -> TiledCOO:
-    """Pad the chunk list to ``budget`` chunks.  Fillers repeat the last
-    chunk's (rt, st) with all-padding slots, so they add nothing to the last
-    receiver tile.  Raises if the budget is short."""
-    m = te.meta
-    if m.n_chunks > budget:
-        raise ValueError(f"chunk budget {budget} < required {m.n_chunks}; "
-                         "raise the budget or the chunk size")
-    pad = budget - m.n_chunks
-    if pad == 0:
+def with_plan(te: TiledCOO) -> TiledCOO:
+    """``te`` (a host structure) with the SpMM kernel's plan, and its
+    transpose with its own: the real slots sorted by receiver row, stably,
+    so a row keeps slot order (the plain version's order of sums), as (edge
+    id, receiver row, sender).  A plan's ``seconds`` is its host time."""
+    if te.transpose is not None and te.transpose.plan is None:
+        te = te.replace(transpose=with_plan(te.transpose))
+    if te.plan is not None:
         return te
-    last_rt = int(te.chunk_rt[-1]) if m.n_chunks else 0
-    last_st = int(te.chunk_st[-1]) if m.n_chunks else 0
-
-    def fill(value, shape):
-        return torch.full(shape, value, dtype=torch.int32)
-
-    return TiledCOO(
-        s_loc=torch.cat([te.s_loc, fill(0, (pad, m.chunk))]),
-        r_loc=torch.cat([te.r_loc, fill(0, (pad, m.chunk))]),
-        slot_src=torch.cat([te.slot_src, fill(m.num_edges, (pad, m.chunk))]),
-        chunk_rt=torch.cat([te.chunk_rt, fill(last_rt, (pad,))]),
-        chunk_st=torch.cat([te.chunk_st, fill(last_st, (pad,))]),
-        meta=dataclasses.replace(m, n_chunks=budget),
-        transpose=te.transpose,
-    )
+    _check_structure(te, torch.device("cpu"))
+    t0 = time.perf_counter()
+    plan = _plan(te)
+    plan.seconds = time.perf_counter() - t0
+    return te.replace(plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +564,7 @@ def _lib():
     lib = _build.load("tiled")
     if lib.kgcn_tiled_spmm.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.kgcn_tiled_spmm.argtypes = [ptr] * 8 + [i32] * 9 + [ptr]
+        lib.kgcn_tiled_spmm.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
         lib.kgcn_tiled_spmm.restype = ctypes.c_int
         lib.kgcn_tiled_sddmm.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
         lib.kgcn_tiled_sddmm.restype = ctypes.c_int
@@ -433,9 +572,15 @@ def _lib():
 
 
 def _spmm_launch(te: TiledCOO, weights, x, bf16: bool):
-    """One launch of the SpMM kernel → ``[num_receivers, F]`` float32."""
-    m = te.meta
-    _check_structure(te, x.device)
+    """One launch of the SpMM kernel over ``te.plan`` → ``[num_receivers,
+    F]`` float32."""
+    m, plan = te.meta, te.plan
+    if plan is None:
+        raise ValueError("the tiled SpMM kernel needs the structure's plan "
+                         "(TiledCOO.to a CUDA device attaches it)")
+    if plan.buf.dtype != torch.int32 or plan.buf.device != x.device:
+        raise ValueError(f"TiledPlan.buf must be int32 on {x.device} (got "
+                         f"{plan.buf.dtype} on {plan.buf.device})")
     _check_operand("x", x, m.num_senders, x.device)
     if (weights.dtype != torch.float32 or weights.device != x.device
             or tuple(weights.shape) != (m.num_edges,) or not weights.is_contiguous()):
@@ -446,14 +591,15 @@ def _spmm_launch(te: TiledCOO, weights, x, bf16: bool):
     out = torch.empty((m.num_receivers, F), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    # the split rows' partials (none on a molecule batch: no allocation)
+    part = (torch.empty((plan.n_parts, F), dtype=torch.float32, device=x.device)
+            if plan.n_parts else None)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.kgcn_tiled_spmm(
-            te.s_loc.data_ptr(), te.r_loc.data_ptr(), te.slot_src.data_ptr(),
-            te.chunk_rt.data_ptr(), te.chunk_st.data_ptr(), weights.data_ptr(),
-            x.data_ptr(), out.data_ptr(), m.n_chunks, m.chunk, m.ts, m.tr,
-            m.n_rt, m.num_receivers, m.num_edges, F, int(bf16), stream)
+            *plan.pointers(), weights.data_ptr(), x.data_ptr(), out.data_ptr(),
+            0 if part is None else part.data_ptr(), *plan.counts, F, int(bf16), stream)
     _build.check(lib, code, "tiled_spmm launch")
     tiled_spmm.launches += 1
     return out

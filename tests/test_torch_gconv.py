@@ -5,7 +5,9 @@ mode), values and all four gradients.
 Tolerance: float32 with rtol = atol = 1e-5 — the two packages sum the
 N-term contractions in different orders, nothing else differs.
 """
+import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +67,24 @@ def test_gconv_matches_gconv_dense(shape):
     np.testing.assert_allclose(out, want, **TOL)
     for name, g, w in zip(("adj", "x", "w", "b"), grads, want_grads):
         np.testing.assert_allclose(g, w, err_msg=f"d{name}", **TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 600, 4, 3), (2, 1, 1024, 3, 2)])
+def test_gconv_large_graphs_match_gconv_dense(shape):
+    """Dense graphs of 600 and 1024 nodes at narrow widths (the kernel's
+    two-launch design on the card).  Value and dX as above (rtol = atol =
+    1e-5); dA, dW and
+    db sum over up to B·N·N terms (7·10⁵), so their atol is 1e-5 of their
+    largest magnitude."""
+    from kgcn_tpu.ops.spmm import gconv_dense
+
+    arrs, cot = _inputs(shape, seed=4)
+    out, grads = _torch_value_and_grads(arrs, cot)
+    want, want_grads = _jax_value_and_grads(gconv_dense, arrs, cot)
+    np.testing.assert_allclose(out, want, **TOL)
+    for name, g, w in zip(("adj", "x", "w", "b"), grads, want_grads):
+        tol = TOL if name == "x" else dict(rtol=1e-5, atol=1e-5 * np.abs(w).max())
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **tol)
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 10, 7, 5), (1, 1, 300, 5, 3)])
@@ -150,3 +170,45 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+class _FakeLib:
+    """A stand-in for the built library: records each kernel call's sizes
+    and returns CUDA success (and, as the scratch size and the count of
+    kernels launched, the two-launch design's beyond 64 nodes)."""
+
+    def __init__(self):
+        self.calls = []
+        lib = self
+
+        def kgcn_gconv_f32(*args):
+            lib.calls.append(args[6:11])  # C, B, N, Fin, Fout
+            args[12]._obj.value = 2 if args[8] > 64 else 1  # kernels launched
+            return 0
+
+        def kgcn_gconv_f32_scratch_floats(C, B, N, Fin, Fout):
+            return C * B * N * Fout if N > 64 else 0
+
+        kgcn_gconv_f32.argtypes = None
+        self.kgcn_gconv_f32 = kgcn_gconv_f32
+        self.kgcn_gconv_f32_scratch_floats = kgcn_gconv_f32_scratch_floats
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1024, 3, 2), (1, 70_000, 2, 3, 2)])
+def test_gconv_launch_has_no_size_bound(monkeypatch, shape):
+    """The CUDA wrapper passes any N and B to the kernel (the kernel streams
+    N and walks B in a grid-stride loop): nothing is refused for size."""
+    from kgcn_tpu_torch.ops import _build
+    from kgcn_tpu_torch.ops import gconv as gm
+
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(gm.gconv, "launches", 0)
+    C, B, N, Fi, Fo = shape
+    out = gm._launch(torch.zeros(C, B, N, N), torch.zeros(B, N, Fi),
+                     torch.zeros(C, Fi, Fo), torch.zeros(C, Fo))
+    assert fake.calls == [shape] and out.shape == (B, N, Fo)
+    assert gm.gconv.launches == (2 if N > 64 else 1)  # the kernels it launched

@@ -76,6 +76,26 @@ def test_graph_conv_matches_flax():
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
+def test_graph_conv_on_700_node_graphs_matches_flax():
+    """The dense GraphConv on graphs of 700 nodes (padded to 768 by both
+    batchers)."""
+    from kgcn_tpu.data.synthetic import make_ring_dataset as j_ring
+    from kgcn_tpu_torch.data.synthetic import make_ring_dataset as t_ring
+
+    cfg = {"normalize_adj_flag": True}
+    jds, jinfo = j_build_dataset(j_ring(num_pairs=1, num_nodes=700, seed=2), cfg)
+    tds, tinfo = t_build_dataset(t_ring(num_pairs=1, num_nodes=700, seed=2), cfg)
+    jg = JBatcher(jds, jinfo, 2).make_batch(np.arange(2)).graph.with_dense_adj()
+    tg = TBatcher(tds, tinfo, 2).make_batch(np.arange(2)).graph.with_dense_adj()
+    assert tg.dense_adj.shape == (1, 2, 768, 768)
+    layer = jnn.GraphConv(7, channels=1)
+    params = _random_tree(layer.init(jax.random.PRNGKey(0), jg.nodes, jg), 5)
+    want = layer.apply(params, jg.nodes, jg)
+    port = _load(tnn.GraphConv(3, 7, channels=1), params["params"])
+    got = port(tg.nodes, tg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
 def test_graph_conv_without_dense_adj_raises():
     """GraphConv on a batch without a dense adjacency raised while the port
     had no edge-list path for it.  With the xla and pallas backends ported

@@ -122,6 +122,15 @@ def test_build_tiled_budget_too_small_raises():
         tt.build_tiled(s, r, 64, weights=w, ts=32, tr=32, chunk=16, chunk_budget=2)
 
 
+def test_build_tiled_rejects_an_edge_outside_the_nodes():
+    """The native packer checks every kept edge against the tiles of the
+    node range before it writes a slot."""
+    s, r, w = _coo(64, 300, seed=1)
+    r[5] = 64 * 3
+    with pytest.raises(ValueError, match="outside the node range"):
+        tt.build_tiled(s, r, 64, weights=w, ts=32, tr=32, chunk=16)
+
+
 def _graphs():
     """A uniform, a power-law and a block-diagonal edge list."""
     rng = np.random.RandomState(0)
@@ -401,3 +410,377 @@ def test_gat_layer_matches_flax(normalize, path):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **F32)
     np.testing.assert_allclose(port.attn.grad.numpy(), np.asarray(gp["params"]["attn"]),
                                **F32)
+
+
+# ---- the SpMM kernel's plan (TiledPlan) ---------------------------------------
+#
+# On the card the SpMM walks the structure's TiledPlan: the real slots in
+# receiver order (stable in slot order) cut into pieces, split rows summed
+# from their partials.  Its arithmetic is replayed here in NumPy, in the
+# kernel's order, and held against the plain version and the JAX package.
+
+# csrc/tiled.cu: a split row of at most this many partials is summed by one
+# warp in piece order, a longer one in PIECES_PER_BLOCK consecutive runs
+SPLIT_WARP = 64
+
+
+def _path_structure_graph():
+    """The solubility training path's first batch on the tiled backend (1 504
+    nodes, ~740 edges): its GraphBatch, as the Batcher builds it on the CPU."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.runtime.backend import Backend
+    from kgcn_tpu_torch.runtime.config import load_config
+
+    cfg = load_config("example_config/solubility_cls.json", {})
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    bs = int(cfg["batch_size"])
+    return Batcher(ds, info, bs, backend=Backend("tiled", "bfloat16")).make_batch(
+        np.arange(bs)).graph
+
+
+def _path_structure():
+    """The path batch's (TiledCOO of channel 0, senders, receivers, weights,
+    valid mask, node count) as the batch carries them."""
+    g = _path_structure_graph()
+    ev = None if g.edge_valid is None else g.edge_valid[0].numpy()
+    return (g.tiled_adj[0], g.senders[0].numpy(), g.receivers[0].numpy(),
+            g.edge_weights[0].numpy(), ev, g.total_nodes)
+
+
+def _hub_structure(kind):
+    """``hub``: a receiver of 3 000 in-edges among 2 000 nodes (its row spans
+    ~94 pieces: more than SPLIT_WARP partials); ``locality_hubs``: 8 000
+    edges from Pareto senders (node 0 sends ~3 000) relabelled degree-first,
+    whose transpose has the hubs as receivers; ``large``: 20 000 uniform
+    edges and 2 000 more into one receiver among 4 000 nodes, past
+    ``tt._SMALL`` real slots (cuts every ``piece``, moved to row starts)."""
+    rng = np.random.RandomState(11)
+    V, E = 2000, 4000
+    if kind == "locality_hubs":
+        s = np.minimum((rng.pareto(1.2, 2 * E) * 2).astype(np.int64), V - 1)
+        r = rng.randint(0, V, 2 * E)
+    elif kind == "hub":
+        s = rng.randint(0, V, E + 3000)
+        r = np.concatenate([rng.randint(0, V, E), np.full(3000, 7)])
+    else:
+        V = 4000
+        s = rng.randint(0, V, 22_000)
+        r = np.concatenate([rng.randint(0, V, 20_000), np.full(2000, 11)])
+    w = (rng.random_sample(len(s)) + 0.1).astype(np.float32)
+    return tt.build_tiled(s, r, V, weights=w, ts=256, tr=256, chunk=64,
+                          locality=kind == "locality_hubs")
+
+
+PLAN_NAMES = ["path", "budget", "empty_receiver_tiles", "locality", "hub",
+              "locality_hubs", "large", "rectangular", "unaligned"]
+
+
+def _plan_structure(name):
+    """The named structure with its plans, as ``to`` a CUDA device builds them."""
+    if name == "path":
+        return tt.with_plan(_path_structure()[0])
+    if name in ("hub", "locality_hubs", "large"):
+        return tt.with_plan(_hub_structure(name))
+    return tt.with_plan(_both(name)[-1])
+
+
+def _piece_rows(plan):
+    """(piece of each entry, first and last row of each piece)."""
+    row = plan.entries[1].numpy().astype(np.int64)
+    starts = plan.starts.numpy().astype(np.int64)
+    piece = np.repeat(np.arange(len(starts) - 1), np.diff(starts))
+    return piece, row[starts[:-1]], row[starts[1:] - 1]
+
+
+def _piece_size(n_real):
+    """The plan's target piece: a multiple of 32 (a warp's batch), 32-512,
+    for about ``tt._TARGET_PIECES`` pieces a structure."""
+    return int(min(512, 32 * max(1, -(-n_real // (32 * tt._TARGET_PIECES)))))
+
+
+def _cut_window(piece):
+    """How far back a cut may move to a row start: a quarter piece, at
+    least 8."""
+    return max(8, piece // 4)
+
+
+def _check_cuts(plan):
+    """The pieces tile the entries in order.  Below ``tt._SMALL`` entries a
+    piece is a row, a row of more than ``piece`` entries cut at the
+    multiples of ``piece`` in it; beyond, each cut lies at most
+    ``_cut_window(piece)`` before its multiple of ``piece``, at a row start
+    unless that row has more than ``piece`` entries or starts more than
+    ``_cut_window(piece)`` back."""
+    row = plan.entries[1].numpy().astype(np.int64)
+    starts = plan.starts.numpy().astype(np.int64)
+    n, P = len(row), plan.piece
+    assert P == _piece_size(n) and P % 32 == 0
+    assert starts[0] == 0 and starts[-1] == n and len(starts) == plan.pieces.shape[0] + 1
+    assert (np.diff(starts) >= 1).all()
+    cut = starts[1:-1]
+    if n < tt._SMALL:
+        first, last = row[starts[:-1]], row[starts[1:] - 1]
+        assert (first == last).all()  # no piece spans two rows
+        assert (np.diff(starts) <= P).all()
+        new_row = np.flatnonzero(np.diff(row)) + 1
+        assert np.isin(new_row, cut).all()  # every row starts a piece
+        inside = cut[~np.isin(cut, new_row)]
+        assert (inside % P == 0).all()
+        assert (np.bincount(row)[row[inside]] > P).all()
+        return
+    W = _cut_window(P)
+    target = np.arange(1, len(cut) + 1) * P
+    assert ((cut <= target) & (cut >= target - W)).all()
+    # the row that holds each target entry: where it starts, how long it is
+    t_row = row[target]
+    run_start = np.searchsorted(row, t_row)
+    run_len = np.bincount(row)[t_row]
+    stays = (run_len > P) | (target - run_start > W)
+    np.testing.assert_array_equal(cut[stays], target[stays])  # cut inside its row
+    np.testing.assert_array_equal(cut[~stays], run_start[~stays])  # moved to its start
+
+
+def _rb_np(a):
+    """float32 → bfloat16 (round to nearest even) → float32, in NumPy."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _replay(te, weights, x, bf16):
+    """The SpMM kernel's arithmetic in its order, in NumPy float32: each
+    piece sums its rows from 0 in entry order (w·x, and with bf16 the
+    operands and the message rounded); whole rows go to the output, the
+    pieces' first and last rows to partials; a split row is the sum of its
+    partials (in order where there are at most SPLIT_WARP, else
+    PIECES_PER_BLOCK consecutive runs in order, then the runs in order);
+    rows without a slot are zeros.  Checks that every row is written once."""
+    plan, m = tt.with_plan(te).plan, te.meta
+    eid, row, send = plan.entries.numpy().astype(np.int64)
+    w = np.asarray(weights, np.float32)[eid]
+    xs = np.asarray(x, np.float32)[send]
+    msg = (_rb_np(_rb_np(w)[:, None] * _rb_np(xs)) if bf16
+           else w[:, None] * xs)
+    piece, first, last = _piece_rows(plan)
+    info = plan.pieces.numpy().astype(np.int64)
+    c = np.where(row == first[piece], info[piece, 1],
+                 np.where(row == last[piece], info[piece, 3], -1))
+    direct = c < 0
+    F = xs.shape[1]
+    out = np.zeros((m.num_receivers, F), np.float32)
+    np.add.at(out, row[direct], msg[direct])      # in entry order
+    part = np.zeros((plan.n_parts, F), np.float32)
+    np.add.at(part, c[~direct], msg[~direct])
+    written = np.zeros(m.num_receivers, np.int64)
+    pairs = np.unique(np.stack([row[direct], piece[direct]]), axis=1)
+    np.add.at(written, pairs[0], 1)
+
+    def in_order(rows):
+        total = np.zeros(F, np.float32)
+        for r in rows:
+            total = total + r
+        return total
+
+    for r, off, count, _ in plan.splits.numpy().astype(np.int64):
+        per = count if count <= SPLIT_WARP else -(-count // tt.PIECES_PER_BLOCK)
+        runs = [in_order(part[off + min(i * per, count): off + min((i + 1) * per, count)])
+                for i in range(tt.PIECES_PER_BLOCK)]
+        out[r] = in_order(runs)
+        written[r] += 1
+    written[plan.empty_rows.numpy()] += 1
+    assert (written == 1).all()
+    return out
+
+
+def test_spmm_plan_built_for_the_card_only():
+    """``build_tiled``, the CPU Batcher and a move to the CPU attach no plan
+    (the plain version never reads it); ``with_plan``, which ``to`` a CUDA
+    device calls, attaches one to each direction, once, and a move keeps it."""
+    te = _both("budget")[-1]
+    assert te.plan is None and te.transpose.plan is None
+    assert te.to("cpu").plan is None and te.to("cpu").transpose.plan is None
+    g = _path_structure_graph()
+    assert all(t.plan is None and t.transpose.plan is None for t in g.tiled_adj)
+    assert all(t.plan is None for t in g.to("cpu").tiled_adj)
+    tp = tt.with_plan(te)
+    assert tp.plan is not None and tp.transpose.plan is not None
+    assert tt.with_plan(tp).plan is tp.plan
+    moved = tp.to("cpu")
+    assert moved.transpose.plan is not None
+    np.testing.assert_array_equal(moved.plan.entries.numpy(), tp.plan.entries.numpy())
+    assert tp.plan.seconds > 0
+
+
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_spmm_plan_covers_every_real_slot_once(name):
+    """Both directions: the plan's entries are the structure's real slots,
+    each once, as (edge id, receiver row, sender), sorted by receiver row and
+    within a row in slot order (the plain version's order of sums)."""
+    te = _plan_structure(name)
+    for st in (te, te.transpose):
+        valid, send, recv = (t.numpy() for t in tt._slot_rows(st))
+        eid, row, sender = st.plan.entries.numpy().astype(np.int64)
+        slot = np.full(st.meta.num_edges + 1, -1, np.int64)
+        src = st.slot_src.numpy().reshape(-1)
+        slot[src] = np.arange(len(src))
+        slot = slot[eid]
+        np.testing.assert_array_equal(np.sort(slot), np.flatnonzero(valid))
+        np.testing.assert_array_equal(src[slot], eid)
+        np.testing.assert_array_equal(row, recv[slot])
+        np.testing.assert_array_equal(sender, send[slot])
+        assert (np.diff(row) >= 0).all()
+        assert (np.diff(slot)[np.diff(row) == 0] > 0).all()  # stable
+        assert (row < st.meta.num_receivers).all() and (sender < st.meta.num_senders).all()
+
+
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_spmm_plan_pieces_and_partials(name):
+    """Pieces tile the entries, cut at row starts except inside rows of
+    more than ``piece`` entries (or, past ``tt._SMALL`` entries, where a
+    row start lies too far back); split rows are exactly the rows whose
+    entries lie in more than one piece, each with consecutive partials in
+    piece order that the pieces name; every partial is used once; whole
+    rows name none; empty rows are the rows without an entry; no arrival is
+    pending.  Molecule batches split no row."""
+    te = _plan_structure(name)
+    longest = 0
+    for st in (te, te.transpose):
+        plan = st.plan
+        row = plan.entries[1].numpy().astype(np.int64)
+        _check_cuts(plan)
+        piece, first, last = _piece_rows(plan)
+        info, splits = plan.pieces.numpy(), plan.splits.numpy()
+        rows_u, n_pieces = np.unique(np.unique(np.stack([row, piece]), axis=1)[0],
+                                     return_counts=True)
+        np.testing.assert_array_equal(splits[:, 0], rows_u[n_pieces > 1])
+        used = []
+        for k, (r, off, count, blocks) in enumerate(splits):
+            ps = np.unique(piece[row == r])
+            assert count == len(ps)
+            assert blocks == len(np.unique(ps // tt.PIECES_PER_BLOCK))
+            which = np.where(first[ps] == r, 0, 2)
+            np.testing.assert_array_equal(info[ps, which], k)
+            np.testing.assert_array_equal(info[ps, which + 1], np.arange(off, off + count))
+            used.extend(info[ps, which + 1])
+            longest = max(longest, count)
+        assert sorted(used) == list(range(plan.n_parts))
+        assert (info[~np.isin(first, splits[:, 0]), :2] == -1).all()
+        assert (info[~np.isin(last, splits[:, 0]) | (last == first), 2:] == -1).all()
+        filled = np.zeros(st.meta.num_receivers, bool)
+        filled[row] = True
+        np.testing.assert_array_equal(plan.empty_rows.numpy(), np.flatnonzero(~filled))
+        assert plan.arrivals.shape == (len(splits),) and not plan.arrivals.any()
+        # every array starts on a 16-byte boundary of the one buffer
+        assert all(o % 4 == 0 for o in plan.offsets)
+    if name in ("hub", "locality_hubs"):
+        assert longest > SPLIT_WARP  # the many-warp sum is exercised
+    if name == "large":
+        assert te.plan.counts[0] >= tt._SMALL and longest > 1
+    if name == "path":
+        assert longest == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_spmm_plan_replay_matches_reference(name, dtype):
+    """The kernel's order of sums gives the plain version's values, both
+    directions: rtol = atol = 1e-6 on every row that one piece holds (the
+    same roundings, summed in the same order), and every row, split hub
+    rows of thousands of order-1 terms too, within 1e-6 +
+    sqrt(n)·2^-24·Σ|message| of the f64 sum of its n messages (the
+    probabilistic bound of an f32 sum in any order; Higham and Mary 2019),
+    where the plain version's own slot-order sum is off by ~1e-4."""
+    te = _plan_structure(name)
+    rng = np.random.RandomState(12)
+    w = (rng.random_sample(te.meta.num_edges) + 0.1).astype(np.float32)
+    bf16 = dtype == "bfloat16"
+    for st in (te, te.transpose):
+        x = rng.standard_normal((st.meta.num_senders, 20)).astype(np.float32)
+        want = tt.tiled_spmm_reference(st, torch.from_numpy(w), torch.from_numpy(x),
+                                       dtype).numpy()
+        got = _replay(st, w, x, bf16)
+        eid, row, send = st.plan.entries.numpy().astype(np.int64)
+        n = np.bincount(row, minlength=st.meta.num_receivers)
+        whole = ~np.isin(np.arange(st.meta.num_receivers), st.plan.splits[:, 0].numpy())
+        np.testing.assert_allclose(got[whole], want[whole], rtol=1e-6, atol=1e-6)
+        wq, xq = w[eid], x[send]
+        if bf16:
+            wq, xq = _rb_np(wq), _rb_np(xq)
+        msg = wq.astype(np.float64)[:, None] * xq
+        if bf16:
+            msg = _rb_np(msg.astype(np.float32)).astype(np.float64)
+        exact = np.zeros(got.shape)
+        np.add.at(exact, row, msg)
+        mag = np.zeros(got.shape)
+        np.add.at(mag, row, np.abs(msg))
+        tol = 1e-6 + np.sqrt(n)[:, None] * 2.0 ** -24 * mag
+        assert (np.abs(got - exact) <= tol).all()
+
+
+def _replay_product(te, w, x, bf16):
+    """``tiled_spmm``'s forward through the replay: the locality
+    permutation in and out, as the wrapper applies it."""
+    if te.node_perm is None:
+        return _replay(te, w, x, bf16)
+    return _replay(te, w, x[te.node_perm.numpy()], bf16)[te.node_inv.numpy()]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["path", "budget", "empty_receiver_tiles", "locality"])
+def test_spmm_plan_replay_matches_jax(name, dtype):
+    """The replay against the JAX package's tiled SpMM (Pallas, interpret
+    mode): the forward on the structure, and dx = Aᵀ g (the transpose
+    structure, through jax.vjp) — tolerances as for the plain versions."""
+    if name == "path":
+        te, s, r, w, ev, V = _path_structure()
+        m = te.meta
+        kw = dict(ts=m.ts, tr=m.tr, chunk=m.chunk, chunk_budget=m.n_chunks, valid_mask=ev)
+        je = jt.build_tiled(s, r, V, weights=w, **kw)
+        assert_same_structure(je, tt.build_tiled(s, r, V, weights=w, **kw))
+        Vs = V
+    else:
+        V, Vs, s, r, w, je, te = _both(name)
+    x, g = _inputs(Vs, V, 24, seed=13)
+    jdt = jnp.dtype(dtype)
+    bf16 = dtype == "bfloat16"
+    want, vjp = jax.vjp(lambda xv: jt.tiled_spmm(je, jnp.asarray(w), xv, compute_dtype=jdt),
+                        jnp.asarray(x))
+    np.testing.assert_allclose(_replay_product(te, w, x, bf16), np.asarray(want), **TOL[dtype])
+    (want_dx,) = vjp(jnp.asarray(g))
+    tr = te.transpose.replace(node_perm=te.node_perm, node_inv=te.node_inv)
+    np.testing.assert_allclose(_replay_product(tr, w, g, bf16), np.asarray(want_dx),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("name", ["budget", "locality"])
+def test_move_to_the_card_copies_every_array_once(name):
+    """``_to_card`` (what ``TiledCOO.to`` a CUDA device runs after
+    ``with_plan``), here onto the CPU: every array of both directions and
+    their plans comes back equal, as views of one buffer, each on a 16-byte
+    boundary of it."""
+    te = tt.with_plan(_both(name)[-1])
+    moved = tt._to_card(te, "cpu")
+    base = moved.s_loc.untyped_storage().data_ptr()
+    for d0, d1 in ((te, moved), (te.transpose, moved.transpose)):
+        for f in dataclasses.fields(d0):
+            a, b = getattr(d0, f.name), getattr(d1, f.name)
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b), f.name
+                assert b.untyped_storage().data_ptr() == base, f.name
+                assert (b.data_ptr() - base) % 16 == 0, f.name
+            elif f.name not in ("transpose", "plan"):
+                assert a == b, f.name
+        for n in tt.TiledPlan.ARRAYS:
+            assert torch.equal(d0.plan.array(n), d1.plan.array(n)), n
+            assert (d1.plan.array(n).data_ptr() - base) % 16 == 0, n
+    assert moved.transpose.transpose is None
+
+
+def test_plan_builder_rejects_a_receiver_outside_the_structure():
+    """The host builder checks each real slot's receiver row against the
+    structure's receiver count, and the wrapper raises."""
+    te = _both("budget")[-1]
+    bad = te.replace(meta=dataclasses.replace(te.meta, num_receivers=te.meta.tr - 1))
+    with pytest.raises(ValueError, match="outside the structure"):
+        tt.with_plan(bad.replace(transpose=None))
