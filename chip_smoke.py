@@ -30,8 +30,10 @@ non-zero exit and no result line:
    output), and a uniform random graph of 100 000 nodes and 1 000 000
    edges at F 128 tiled by choose_tiling; each case's SpMM plans (built by
    the host library csrc/tiled_host.cc, as the move to the card builds
-   them), with their shape and host ms; two launches of the SpMM bitwise
-   equal; device times as in phase 3, the library calls being
+   them), with their shape and host ms; the SDDMM per edge (it walks the
+   forward plan's real entries into an [E] output) against the plain
+   version's per-edge form; two launches of the SpMM and of the SDDMM
+   bitwise equal; device times as in phase 3, the library calls being
    torch.sparse.mm and torch.sparse.sampled_addmm;
 5. train — ``python -m kgcn_tpu_torch.cli.main train`` in this process:
    the tiled solubility GCN and the tiled GAT for 2 epochs (finite, falling
@@ -46,10 +48,13 @@ non-zero exit and no result line:
    the solubility GCN with dropout 0 and the f32 payload on the GPU and on
    the CPU from one seed (per-epoch training costs within 1e-3 relative);
    3 dense GCN steps on the 700-node graphs, GPU vs CPU (1e-3); two GPU
-   runs of 3 steps from one seed bitwise equal, for GAT on the tiled backend
-   and GIN with xla; ``segment_sum``'s and ``segment_softmax``'s values and
-   gradients on the card with no host sync (with a GAT batch's segments,
-   sorted on the host, and with ids on the card alone); then one epoch of each timed step by step (host batch
+   runs of 3 steps from one seed bitwise equal, for GAT on the tiled backend,
+   GIN with xla and GIN with pallas on ring6 graphs (phase 10's data: the
+   ELL kernel and its dx kernel); ``segment_sum``'s and
+   ``segment_softmax``'s values and gradients on the card with no host sync
+   (with a GAT batch's segments, sorted on the host, and with ids on the
+   card alone), and so the ELL aggregation's value and dx on a ring6 batch;
+   then one epoch of each timed step by step (host batch
    assembly and tiled-structure building, step wall time and the SpMM plans
    that the move to the card builds within it, device busy time and idle
    share);
@@ -91,21 +96,31 @@ non-zero exit and no result line:
    the GPU and on the CPU from one seed (costs within 1e-3 relative); and a
    step breakdown (the graph batch's host build and its stream structures,
    host ms per step, step wall time, device busy time and idle share);
-9. kernel check: ELL — the pallas backend's ELL gather kernel against its
-   plain version run on CPU copies of the inputs (float32 rtol = atol =
-   1e-4, bf16 x 1e-2: the einsum sums in another order, and bf16 rounds the
-   output once), on the ELL path's batch of 25 ring graphs (V 150, K 5; F 3
-   and 50), 1 024 ring graphs (F 50), uniform degree 8 (V 16 384, F 128),
-   V 100 000 with K 10 (10⁶ slots, F 128), a skewed case (K 16, mean degree
-   5, most slots padding) and K 1 at F 81; the autograd wrapper's value, dx
-   and dw on the card against the CPU; device times as in phase 3, the
-   library call being torch.sparse.mm on a CSR of the same slots;
+9. kernel check: ELL — the pallas backend's ELL gather kernel and its dx
+   kernel against their plain versions run on CPU copies of the inputs
+   (float32 rtol = atol = 1e-4, bf16 x 1e-2: the einsum sums in another
+   order, and bf16 rounds the output once; dx is the plain index_add_,
+   whose CPU order the kernel keeps, so f32 is printed as bitwise equal or
+   not), on the ELL path's batch of 25 ring graphs (V 150, K 5; F 3 and
+   50), 1 024 ring graphs (F 50), uniform degree 8 (V 16 384, F 128), V
+   100 000 with K 10 (10⁶ slots, F 128), a skewed case (K 16, mean degree
+   5, most slots padding) and K 1 at F 81, each with its transposed slot
+   lists (the Batcher's for the ring6 batches); two dx launches bitwise
+   equal; C = 3 (three ring6 batches as channels, F 50, shared and
+   per-channel x): the fused forward against the per-channel plain sum and,
+   in f32, bitwise against three one-channel launches added in channel
+   order, dx against the plain dx, and the card's transpose against the
+   host's; the autograd wrapper's value, dx and dw on the card against the
+   CPU; device times as in phase 3, the library call being torch.sparse.mm
+   on a CSR of the same slots (its transpose for dx);
 10. ell — a ring dataset of 6-node graphs (``make_ring_dataset(num_pairs=
    1000, num_nodes=6, seed=0)``, which the ELL gate admits) written as a
    pickle, then ``cli.main train`` for gin (example_config/gin.json's
    settings, spmm_backend pallas, 2 epochs) and ``cli.main infer``, and gcn
-   for 1 epoch: exact launch counts (2·C ELL launches per GIN forward, 3·C
-   per GCN forward, none in a backward), falling cost, every file; 3 f32
+   for 1 epoch: exact launch counts (one forward launch per aggregation,
+   whatever C: 2 per GIN forward, 3 per GCN forward; one dx launch per
+   backward aggregation whose input needs a gradient: 1 per GIN step, 3 per
+   GCN step), falling cost, every file; 3 f32
    GIN steps on the GPU and on the CPU from one seed (1e-3); a step
    breakdown with the idle share; then gin on example_config/gin.json
    itself with pallas and with xla, where the gate refuses ELL: 0 ELL
@@ -481,25 +496,37 @@ def _csr(te, weights):
 
 
 def tiled_bound(te, F):
-    """(bound_ms, bound_by) of either kernel on this structure's real edges:
-    the [num_senders, F] and [num_receivers, F] operands moved once (the
-    SpMM reads x and writes out, the SDDMM reads x and g), per edge its
-    sender, receiver and edge index and its weight (SpMM) or its output
-    (SDDMM), 2·F FLOP per edge.  Padding slots and filler chunks are not
-    work the function needs."""
+    """(bound_ms, bound_by) of the SpMM on this structure's real edges: the
+    [num_senders, F] x read once and the [num_receivers, F] output written
+    once, per edge its sender, receiver, edge index and weight, 2·F FLOP
+    per edge.  Padding slots and filler chunks are not work the function
+    needs."""
     m = te.meta
     n_edges = int((te.slot_src < m.num_edges).sum())
     nbytes = 4 * ((m.num_senders + m.num_receivers) * F + 4 * n_edges)
     return bound(nbytes, 2 * n_edges * F)
 
 
-def _check(what, got, want):
+def sddmm_bound(te, F):
+    """(bound_ms, bound_by) of the SDDMM: x [num_senders, F] and g
+    [num_receivers, F] read once, each real edge's (edge id, receiver,
+    sender) read once, dw [E] written once, 2·F FLOP per real edge."""
+    m = te.meta
+    n_edges = int((te.slot_src < m.num_edges).sum())
+    nbytes = 4 * ((m.num_senders + m.num_receivers) * F + 3 * n_edges + m.num_edges)
+    return bound(nbytes, 2 * n_edges * F)
+
+
+def _check(what, got, want, tol=TOL):
+    """max |got - want| (compared in f32, on got's device); raises past
+    rtol = atol = ``tol``."""
     import torch
 
     torch.cuda.synchronize()
+    got, want = got.float(), want.float().to(got.device)
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not torch.allclose(got, want, rtol=TOL, atol=TOL):
-        raise AssertionError(f"{what}: max |kernel - plain| = {err}")
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} (limit {tol})")
     return err
 
 
@@ -554,7 +581,7 @@ def phase_tiled_check():
                     tt.tiled_spmm_reference(te_cpu.transpose, w_cpu, gc, dt).to(DEVICE))
                 errs[f"sddmm {dt}"] = _check(
                     f"tiled_sddmm {label} F={F} {dt}", tt._sddmm_launch(te, x, g, bf16),
-                    tt.tiled_sddmm_reference(te_cpu, xc, gc, dt).to(DEVICE))
+                    tt.tiled_sddmm_edges_reference(te_cpu, xc, gc, dt).to(DEVICE))
             for dt in ("float32", "bfloat16"):
                 bf16 = dt == "bfloat16"
                 for name, st, op in (("spmm", te, x), ("spmm^T", te.transpose, g)):
@@ -562,6 +589,10 @@ def phase_tiled_check():
                                        tt._spmm_launch(st, w, op, bf16)):
                         raise AssertionError(f"tiled {name} {label} F={F} {dt}: "
                                              "two launches differ")
+                if not torch.equal(tt._sddmm_launch(te, x, g, bf16),
+                                   tt._sddmm_launch(te, x, g, bf16)):
+                    raise AssertionError(f"tiled sddmm {label} F={F} {dt}: two "
+                                         "launches differ")
             lib_err = float((torch.sparse.mm(mat, x)
                              - tt.tiled_spmm_reference(te, w, x, "float32")).abs().max())
             iters = 10 if n_edges > 500_000 else 50
@@ -576,26 +607,27 @@ def phase_tiled_check():
                 sddmm=device_ms(lambda: tt._sddmm_launch(te, x, g, True), iters),
                 sddmm_f32=device_ms(lambda: tt._sddmm_launch(te, x, g, False), iters),
                 sddmm_plain=device_ms(
-                    lambda: tt.tiled_sddmm_reference(te, x, g, "bfloat16"), iters),
+                    lambda: tt.tiled_sddmm_edges_reference(te, x, g, "bfloat16"), iters),
                 sddmm_library=library_ms(
                     lambda: torch.sparse.sampled_addmm(pat, g, xt, beta=0.0), iters),
             )
             b, by = tiled_bound(te_cpu, F)
+            sb, sby = sddmm_bound(te_cpu, F)
             rows.append(dict(label=label, F=F, on_path=on_path,
                              spmm_err=max(v for k, v in errs.items() if "spmm" in k),
                              sddmm_err=max(v for k, v in errs.items() if "sddmm" in k),
-                             bound=b, bound_by=by, **t))
+                             bound=b, bound_by=by, sddmm_bound=sb, sddmm_bound_by=sby, **t))
             say(f"  F={F}: max |kernel - plain| "
                 + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
                 + f" (library spmm vs plain f32 {lib_err:.3g}); two launches of "
-                "spmm and spmm^T bitwise equal, f32 and bf16")
+                "spmm, spmm^T and sddmm (per edge) bitwise equal, f32 and bf16")
             say(f"  F={F} device ms (bf16 payload unless marked): spmm kernel "
                 f"{t['spmm']:.6f} (f32 {t['spmm_f32']:.6f}; transpose {t['spmm_T']:.6f}) "
                 f"plain {t['spmm_plain']:.6f} "
                 f"library {t['spmm_library']}; sddmm kernel "
-                f"{t['sddmm']:.6f} (f32 {t['sddmm_f32']:.6f}) plain "
-                f"{t['sddmm_plain']:.6f} library {t['sddmm_library']}; bound of "
-                f"either {b:.6f} ({by})")
+                f"{t['sddmm']:.6f} (f32 {t['sddmm_f32']:.6f}; with its zeroed [E] "
+                f"output) plain {t['sddmm_plain']:.6f} library {t['sddmm_library']}; "
+                f"bound spmm {b:.6f} ({by}), sddmm {sb:.6f} ({sby})")
     _check_wrapper_gradients(cases)
     return rows
 
@@ -658,7 +690,7 @@ def _counted():
     return {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
             "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
             "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw,
-            "ell_spmm": te.spmm_ell_gpu}
+            "ell_spmm": te.spmm_ell_gpu, "ell_spmm_dx": te.spmm_ell_dx_gpu}
 
 
 def _counts():
@@ -794,8 +826,8 @@ def phase_train(workdir):
     per_forward = gconv_kernels_a_forward(cfg, bs=10)
     steps_gpu_vs_cpu("dense GCN (700-node rings, batch 10)", cfg, 3,
                      lambda info: {"gconv": 3 * per_forward}, bs=10)
-    steps_repeat_bitwise()
-    segments_without_sync()
+    steps_repeat_bitwise(workdir)
+    segments_without_sync(workdir)
     step_breakdown()
     return launches
 
@@ -877,20 +909,25 @@ def steps_gpu_vs_cpu(label, cfg, steps, launches, bs=None):
         raise AssertionError(f"GPU and CPU {label} step costs differ by {max(rel)}")
 
 
-def steps_repeat_bitwise(steps=3):
+def steps_repeat_bitwise(workdir, steps=3):
     """Two GPU runs of the first ``steps`` training steps from one seed give
     the same bits, costs and every parameter: GAT on the tiled backend (the
-    edge softmax's segment sums, the tiled SpMM and SDDMM) and GIN on
-    example_config/gin.json with xla (the edge-list scatter's segment sum)."""
+    edge softmax's segment sums, the tiled SpMM and SDDMM), GIN on
+    example_config/gin.json with xla (the edge-list scatter's segment sum)
+    and GIN on the ring6 data with pallas (the ELL kernel and its dx kernel,
+    which must have run)."""
     import torch
 
     from kgcn_tpu_torch.models.registry import build_model
     from kgcn_tpu_torch.runtime.train import Trainer
 
     for name, src, over in (("gat tiled", GAT_CONFIG, {"spmm_backend": "tiled"}),
-                            ("gin xla", GIN_CONFIG, {"spmm_backend": "xla"})):
+                            ("gin xla", GIN_CONFIG, {"spmm_backend": "xla"}),
+                            ("gin pallas (ring6)", GIN_CONFIG,
+                             {"spmm_backend": "pallas", "dataset": ring6_file(workdir)})):
         cfg = _load_config(src, **over)
         info, batches = _trainer_batches(cfg, steps)
+        dx_before = _counts()["ell_spmm_dx"]
         runs = []
         for _ in range(2):
             trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info,
@@ -902,6 +939,8 @@ def steps_repeat_bitwise(steps=3):
                 costs.append(cost.detach().clone())
             runs.append((costs, {k: v.detach().clone() for k, v in state.params.items()}))
         (c1, p1), (c2, p2) = runs
+        if "pallas" in name and _counts()["ell_spmm_dx"] == dx_before:
+            raise AssertionError(f"{name}: the ELL dx kernel did not run")
         differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
         if differ or not all(torch.equal(a, b) for a, b in zip(c1, c2)):
             raise AssertionError(f"{name}: two runs of {steps} steps differ: costs "
@@ -911,20 +950,24 @@ def steps_repeat_bitwise(steps=3):
             f"{[float(c) for c in c1]}, {len(p1)} parameters)")
 
 
-def segments_without_sync(iters=200):
+def segments_without_sync(workdir, iters=200):
     """``ops/segment``'s ``segment_sum`` (the xla scatter) and
     ``segment_softmax`` (GAT's edge softmax, masked), their values and
     gradients at a GAT (tiled) batch's shape, with the batch's segments
     (``GraphBatch.receiver_segments``: sorted on the host, sent with one
-    copy) and with ids on the card alone, all without a host sync: under
+    copy) and with ids on the card alone, and the ELL aggregation's value
+    and dx on a ring6 batch (pallas: the forward kernel, then the dx kernel
+    over the batch's transposed slot lists), all without a host sync: under
     ``torch.cuda.set_sync_debug_mode("error")`` a synchronising call
-    raises.  Values against ``index_add_`` and a plain
-    softmax (1e-5); at the GAT batch's shape it also times a value and
+    raises.  Values against ``index_add_`` and a plain softmax (1e-5), the
+    ELL ones against the same call on the CPU (1e-5); at the GAT batch's
+    shape it also times a value and
     gradient on the host clock against ``index_add_`` (whose atomics do not
     repeat bitwise): the step is host-bound, so this is its cost."""
     import torch
 
     from kgcn_tpu_torch.ops.segment import segment_softmax, segment_sum
+    from kgcn_tpu_torch.ops.spmm import ell_aggregate
 
     _, (host_batch,) = _trainer_batches(_load_config(GAT_CONFIG, spmm_backend="tiled"), 1)
     moved = host_batch.graph.to(DEVICE)
@@ -949,14 +992,36 @@ def segments_without_sync(iters=200):
         out = fn(data, ids, V)
         return out, torch.autograd.grad(out, data, torch.ones_like(out))[0]
 
+    ell_host = _ring6_batch(workdir, 25).graph
+    ell_graph = ell_host.to(DEVICE)
+    gen_cpu = torch.Generator().manual_seed(2)
+    ell_x = torch.randn((ell_graph.total_nodes, 50), generator=gen_cpu)
+    ell_g = torch.randn((ell_graph.total_nodes, 50), generator=gen_cpu)
+
+    def ell_value_and_grad(graph, x, g):
+        x = x.clone().requires_grad_(True)
+        out = ell_aggregate(graph.ell_senders, graph.ell_weights, x, backend="pallas",
+                            transpose=graph.ell_transpose())
+        return out, torch.autograd.grad(out, x, g)[0]
+
+    ell_in = (ell_x.to(DEVICE), ell_g.to(DEVICE))
     torch.cuda.synchronize()
+    dx_before = _counts()["ell_spmm_dx"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, grad = value_and_grad(batch_sum)
         out_card, grad_card = value_and_grad(segment_sum)  # sorted on the card
         alpha, _ = value_and_grad(softmax)
+        ell_out, ell_dx = ell_value_and_grad(ell_graph, *ell_in)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    if _counts()["ell_spmm_dx"] != dx_before + 1:
+        raise AssertionError("the ELL backward did not launch its dx kernel once")
+    for name, a, b in zip(("value", "dx"), (ell_out, ell_dx),
+                          ell_value_and_grad(ell_host, ell_x, ell_g)):
+        if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"ELL aggregation {name} on the card vs CPU: "
+                                 f"{float((a.cpu() - b).abs().max())}")
     want = index_add(data.detach(), ids, V)
     for o, g in ((out, grad), (out_card, grad_card)):
         if not torch.allclose(o, want, rtol=1e-5, atol=1e-5) or not torch.equal(
@@ -980,8 +1045,9 @@ def segments_without_sync(iters=200):
         torch.cuda.synchronize()
         host.setdefault(name, []).append((time.perf_counter() - t0) / iters * 1e3)
     say(f"segment_sum "
-        "(the batch's segments and a sort on the card, equal) and segment_softmax: "
-        "values and gradients on the card with no host sync (sync debug mode "
+        "(the batch's segments and a sort on the card, equal), segment_softmax and "
+        "the ELL aggregation (ring6 batch, its dx kernel): values and gradients on "
+        "the card with no host sync (sync debug mode "
         f"error); host ms per segment_sum value and gradient at {E} edges, "
         f"{V} nodes (two rounds): "
         + ", ".join(f"{k} {v}" for k, v in host.items()))
@@ -1774,9 +1840,9 @@ def ring6_file(workdir):
     return path
 
 
-def _ring6_ell(workdir, bs):
-    """Channel 0's ELL arrays (idx, w) of the first ring6 batch of ``bs``
-    graphs on the pallas backend."""
+def _ring6_batch(workdir, bs, first=0):
+    """The ring6 batch of ``bs`` graphs from graph ``first`` on the pallas
+    backend (host tensors; the Batcher's ELL arrays and their transpose)."""
     import numpy as np
 
     from kgcn_tpu_torch.data.batcher import Batcher
@@ -1785,17 +1851,22 @@ def _ring6_ell(workdir, bs):
 
     cfg = _load_config(GIN_CONFIG, dataset=ring6_file(workdir))
     ds, info = load_jbl(cfg["dataset"], cfg)
-    g = Batcher(ds, info, bs, backend=Backend("pallas")).make_batch(np.arange(bs)).graph
-    if g.ell_senders is None:
+    batch = Batcher(ds, info, bs, backend=Backend("pallas")).make_batch(
+        np.arange(first, first + bs))
+    if batch.graph.ell_senders is None:
         raise AssertionError("the ELL gate refused the ring6 dataset")
-    return g.ell_senders[0], g.ell_weights[0]
+    return batch
+
 
 
 def ell_cases(workdir):
     """(label, idx [V, K] int32, w [V, K] f32 on the CPU, widths, on the
-    main path)."""
+    main path, the transpose (offsets [1, V + 1], slots): the batch's own
+    for the ring6 batches, ``ell_transpose``'s for the others)."""
     import numpy as np
     import torch
+
+    from kgcn_tpu_torch.ops.ell import ell_transpose
 
     rng = np.random.RandomState(0)
 
@@ -1803,8 +1874,12 @@ def ell_cases(workdir):
         return (torch.from_numpy(rng.randint(0, V, (V, K)).astype(np.int32)),
                 torch.from_numpy((rng.random_sample((V, K)) + 0.1).astype(np.float32)))
 
-    cases = [("ring6 batch (25 graphs)", *_ring6_ell(workdir, 25), (3, 50), True),
-             ("ring6 1024 graphs", *_ring6_ell(workdir, 1024), (50,), False),
+    def ring6(bs):  # one channel: the batch's arrays and transpose
+        g = _ring6_batch(workdir, bs).graph
+        return g.ell_senders[0], g.ell_weights[0]
+
+    cases = [("ring6 batch (25 graphs)", *ring6(25), (3, 50), True),
+             ("ring6 1024 graphs", *ring6(1024), (50,), False),
              ("uniform degree 8", *uniform(16384, 8), (128,), False),
              ("V=100000 K=10", *uniform(100_000, 10), (128,), False)]
     V, K = 16384, 16
@@ -1814,28 +1889,48 @@ def ell_cases(workdir):
     idx[pad], w[pad] = 0, 0.0
     cases.append(("skewed K=16 mean degree 5", idx, w, (128,), False))
     cases.append(("K=1", *uniform(1504, 1), (81,), False))
-    return cases
+    out = []
+    for c in cases:
+        if c[0].startswith("ring6"):
+            t = _ring6_batch(workdir, c[1].shape[0] // 6).graph.ell_transpose()
+        else:
+            t = tuple(torch.from_numpy(a) for a in ell_transpose(
+                c[1].numpy(), c[2].numpy(), c[1].shape[0]))
+        out.append((*c, t))
+    return out
 
 
-def _ell_csr(idx, w, n_cols):
+def _ell_csr(idx, w, n_cols, transpose=False):
     """The ELL matrix (row v, column idx[v, k], value w[v, k]; padding
-    slots left out) as CSR."""
+    slots left out), or its transpose, as CSR."""
     import torch
 
     V, K = idx.shape
     rows = torch.arange(V, device=idx.device).repeat_interleave(K)
     keep = w.reshape(-1) != 0
-    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], idx.reshape(-1).long()[keep]]),
-                                  w.reshape(-1)[keep], (V, n_cols))
+    ij = torch.stack([rows[keep], idx.reshape(-1).long()[keep]])
+    shape = (V, n_cols)
+    if transpose:
+        ij, shape = ij.flip(0), shape[::-1]
+    coo = torch.sparse_coo_tensor(ij, w.reshape(-1)[keep], shape)
     return coo.coalesce().to_sparse_csr()
 
 
 def ell_bound(idx, w, F, elem=4):
-    """(bound_ms, bound_by): idx and w read once (8 B a slot), x read once
-    and the output written once (V·F each), 2·F FLOP per real slot."""
-    V, K = idx.shape
+    """(bound_ms, bound_by) of the forward: idx and w read once (8 B a
+    slot), x read once and the output written once (V·F each), 2·F FLOP
+    per real slot."""
+    V, K = idx.shape[-2:]
+    C = idx.numel() // (V * K)
     nnz = int((w != 0).sum())
-    return bound(V * K * 8 + 2 * V * F * elem, 2 * nnz * F)
+    return bound(C * V * K * 8 + (C + 1) * V * F * elem, 2 * nnz * F)
+
+
+def ell_dx_bound(n_slots, V, N, F, C=1, elem=4):
+    """(bound_ms, bound_by) of dx: each real slot's id and weight read once
+    (8 B), the offsets once, g [V, F] read once, dx ([N, F] per channel
+    group) written once, 2·F FLOP per real slot."""
+    return bound(8 * n_slots + 4 * C * (N + 1) + (V + C * N) * F * elem, 2 * n_slots * F)
 
 
 def phase_ell_check(workdir):
@@ -1843,30 +1938,36 @@ def phase_ell_check(workdir):
 
     from kgcn_tpu_torch.ops import ell_spmm as te
 
-    phase(9, "kernel check: ELL gather (kgcn_tpu_torch/ops/csrc/ell.cu)")
+    phase(9, "kernel check: ELL gather and its dx (kgcn_tpu_torch/ops/csrc/ell.cu)")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     cases = ell_cases(workdir)
-    for label, idx_c, w_c, widths, on_path in cases:
+    for label, idx_c, w_c, widths, on_path, (off_c, slots_c) in cases:
         idx, w = idx_c.to(DEVICE), w_c.to(DEVICE)
+        off, slots = off_c.to(DEVICE), slots_c.to(DEVICE)
         V, K = idx.shape
         real = int((w_c != 0).sum())
-        say(f"ell {label}: V {V}, K {K}, {real} real slots of {V * K}")
-        mat = _ell_csr(idx, w, V)
+        say(f"ell {label}: V {V}, K {K}, {real} real slots of {V * K}; transpose: "
+            f"largest out-degree {int((off_c[0, 1:] - off_c[0, :-1]).max())}")
+        mat, mat_t = _ell_csr(idx, w, V), _ell_csr(idx, w, V, transpose=True)
         for F in widths:
             x = torch.randn((V, F), device=DEVICE, generator=gen)
-            errs = {}
+            g = torch.randn((V, F), device=DEVICE, generator=gen)
+            errs, dx_equal = {}, None
             for dt in ("float32", "bfloat16"):
-                xd = x.to(getattr(torch, dt))
-                got = te._launch(idx, w, xd)
-                want = te.spmm_ell_reference(idx_c, w_c, xd.cpu()).to(DEVICE)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                tol = ELL_TOL[dt]
-                if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                    raise AssertionError(f"ell_spmm {label} F={F} {dt}: max |kernel - "
-                                         f"plain| = {err} (limit {tol})")
-                errs[dt] = err
+                xd, gd = x.to(getattr(torch, dt)), g.to(getattr(torch, dt))
+                errs[dt] = _check(
+                    f"ell_spmm {label} F={F} {dt}", te._launch(idx, w, xd),
+                    te.spmm_ell_reference(idx_c, w_c, xd.cpu()), ELL_TOL[dt])
+                got = te._dx_launch(off, slots, w, gd, (V, F))
+                want = te.spmm_ell_dx_reference(idx_c, w_c, gd.cpu(), (V, F))
+                errs[f"dx {dt}"] = _check(f"ell dx {label} F={F} {dt}", got, want,
+                                                ELL_TOL[dt])
+                if dt == "float32":  # the CPU's index_add_ adds in the kernel's order
+                    dx_equal = torch.equal(got.cpu(), want)
+            if not torch.equal(te._dx_launch(off, slots, w, g, (V, F)),
+                               te._dx_launch(off, slots, w, g, (V, F))):
+                raise AssertionError(f"ell dx {label} F={F}: two launches differ")
             lib_err = float((torch.sparse.mm(mat, x) - te.spmm_ell_reference(idx, w, x))
                             .abs().max())
             iters = 10 if V * K > 500_000 else 50
@@ -1876,26 +1977,108 @@ def phase_ell_check(workdir):
                 kernel_bf16=device_ms(lambda: te._launch(idx, w, xb), iters),
                 plain=device_ms(lambda: te.spmm_ell_reference(idx, w, x), iters),
                 library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
+                dx=device_ms(lambda: te._dx_launch(off, slots, w, g, (V, F)), iters),
+                dx_plain=device_ms(lambda: te.spmm_ell_dx_reference(idx, w, g, (V, F)),
+                                   iters),
+                dx_library=library_ms(lambda: torch.sparse.mm(mat_t, g), iters),
             )
             b, by = ell_bound(idx_c, w_c, F)
+            db, dby = ell_dx_bound(real, V, V, F)
             rows.append(dict(label=label, F=F, on_path=on_path, err=errs["float32"],
-                             err_bf16=errs["bfloat16"], bound=b, bound_by=by, **t))
-            say(f"  F={F}: max |kernel - plain| f32 {errs['float32']:.3g} bf16 "
-                f"{errs['bfloat16']:.3g} (library vs plain f32 {lib_err:.3g}); device ms: "
+                             err_bf16=errs["bfloat16"], dx_err=errs["dx float32"],
+                             dx_on_path=on_path and F > 3, bound=b, bound_by=by,
+                             dx_bound=db, dx_bound_by=dby, **t))
+            say(f"  F={F}: max |kernel - plain| "
+                + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (library vs plain f32 {lib_err:.3g}); dx f32 bitwise equal to the "
+                f"CPU's index_add_: {dx_equal}; two dx launches bitwise equal; device ms: "
                 f"kernel f32 {t['kernel']:.6f} (bf16 {t['kernel_bf16']:.6f}) plain "
-                f"{t['plain']:.6f} library {t['library']}; bound {b:.6f} ({by})")
+                f"{t['plain']:.6f} library {t['library']}; bound {b:.6f} ({by}); dx "
+                f"kernel {t['dx']:.6f} plain {t['dx_plain']:.6f} library "
+                f"{t['dx_library']}; bound {db:.6f} ({dby})")
+    rows += _check_ell_channels(workdir, gen)
     _check_ell_gradients(cases)
     return rows
 
 
+def _check_ell_channels(workdir, gen, F=50):
+    """C = 3 (the channels: three ring6 batches' ELL arrays): the fused
+    forward against the per-channel plain sum (and, f32, bitwise against
+    three one-channel launches added in channel order), dx against the
+    plain index_add_ dx, shared and per-channel x; the card's transpose
+    (``ell_transpose_device``) against the host's."""
+    import torch
+
+    from kgcn_tpu_torch.ops import ell_spmm as te
+    from kgcn_tpu_torch.ops.ell import ell_transpose
+
+    graphs = [_ring6_batch(workdir, 25, first=25 * c).graph for c in range(3)]
+    idx_c = torch.stack([g.ell_senders[0] for g in graphs])
+    w_c = torch.stack([g.ell_weights[0] for g in graphs])
+    C, V, K = idx_c.shape
+    off_c, slots_c = (torch.from_numpy(a) for a in ell_transpose(idx_c.numpy(),
+                                                                  w_c.numpy(), V))
+    idx, w, off, slots = (t.to(DEVICE) for t in (idx_c, w_c, off_c, slots_c))
+    d_off, d_slots = (t.cpu() for t in te.ell_transpose_device(idx, w, V))
+    for c in range(C):
+        if not (torch.equal(d_off[c].diff(), off_c[c].diff()) and torch.equal(
+                d_slots[d_off[c, 0]:d_off[c, -1]], slots_c[off_c[c, 0]:off_c[c, -1]])):
+            raise AssertionError(f"ell_transpose_device channel {c} differs from the host's")
+    real = int(slots_c.numel())
+    rows = []
+    for shared in (True, False):
+        x_shape = (V, F) if shared else (C, V, F)
+        x = torch.randn(x_shape, device=DEVICE, generator=gen)
+        g = torch.randn((V, F), device=DEVICE, generator=gen)
+        xs = (x,) * C if shared else x.unbind(0)
+        errs = {}
+        for dt in ("float32", "bfloat16"):
+            xd, gd = x.to(getattr(torch, dt)), g.to(getattr(torch, dt))
+            got = te._launch(idx, w, xd)
+            errs[dt] = _check(f"ell_spmm C=3 shared={shared} {dt}", got,
+                                    te.spmm_ell_reference(idx_c, w_c, xd.cpu()), ELL_TOL[dt])
+            if dt == "float32":
+                per = [te._launch(idx[c], w[c], xs[c].contiguous()) for c in range(C)]
+                if not torch.equal(got, per[0] + per[1] + per[2]):
+                    raise AssertionError("ell_spmm C=3: the fused launch differs from "
+                                         "three one-channel launches added in order")
+            errs[f"dx {dt}"] = _check(
+                f"ell dx C=3 shared={shared} {dt}", te._dx_launch(off, slots, w, gd, x_shape),
+                te.spmm_ell_dx_reference(idx_c, w_c, gd.cpu(), x_shape), ELL_TOL[dt])
+        t = dict(
+            kernel=device_ms(lambda: te._launch(idx, w, x), 50),
+            per_channel=device_ms(lambda: [te._launch(idx[c], w[c], xs[c])
+                                           for c in range(C)], 50),
+            plain=device_ms(lambda: te.spmm_ell_reference(idx, w, x), 50),
+            dx=device_ms(lambda: te._dx_launch(off, slots, w, g, x_shape), 50),
+            dx_plain=device_ms(lambda: te.spmm_ell_dx_reference(idx, w, g, x_shape), 50),
+        )
+        b, by = ell_bound(idx_c, w_c, F)
+        db, dby = ell_dx_bound(real, V, V, F, C=1 if shared else C)
+        label = f"C=3 ring6 batches, {'shared' if shared else 'per-channel'} x"
+        rows.append(dict(label=label, F=F, on_path=False, err=errs["float32"],
+                         err_bf16=errs["bfloat16"], dx_err=errs["dx float32"],
+                         dx_on_path=False, bound=b, bound_by=by, dx_bound=db,
+                         dx_bound_by=dby, library=None, dx_library=None, **t))
+        say(f"ell {label} (V {V}, K {K}, F {F}): max |kernel - plain| "
+            + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; f32 fused launch bitwise equal to three one-channel launches; "
+            f"device ms: fused {t['kernel']:.6f} (one launch a channel "
+            f"{t['per_channel']:.6f}) plain {t['plain']:.6f}; bound {b:.6f} ({by}); dx "
+            f"{t['dx']:.6f} plain {t['dx_plain']:.6f}; bound {db:.6f} ({dby})")
+    say("ell_transpose_device (the COO entry's) equals the host lists on the C=3 case")
+    return rows
+
+
 def _check_ell_gradients(cases):
-    """``SpmmEll`` (the autograd Function: dx by the transpose scatter, dw
-    asked for) on the card against the same call on the CPU."""
+    """``SpmmEll`` (the autograd Function: dx by the dx kernel over slot
+    lists built on the card, dw asked for) on the card against the same
+    call on the CPU."""
     import torch
 
     from kgcn_tpu_torch.ops import ell_spmm as te
 
-    for label, idx_c, w_c, widths, _ in cases:
+    for label, idx_c, w_c, widths, _, _ in cases:
         if not label.startswith(("ring6 batch", "skewed")):
             continue
         F = widths[-1]
@@ -1956,7 +2139,6 @@ def phase_ell(workdir):
     tspmm._PALLAS_FALLBACK_WARNED[0] = False  # a fallback here must show
     data = ring6_file(workdir)
     n_graphs = 2 * RING6["num_pairs"]
-    C = 1
     launches = {k: 0 for k in _counted()}
 
     def add(counts):
@@ -1964,8 +2146,11 @@ def phase_ell(workdir):
             launches[k] += v
 
     outputs = dict(dataset=data, spmm_backend="pallas", make_plot=False)
-    for name, src, epochs, per_forward in (("gin_pallas", GIN_CONFIG, 2, 2 * C),
-                                           ("gcn_pallas", GCN_RING_CONFIG, 1, 3 * C)):
+    # one forward launch per ell_aggregate, whatever C; one dx launch per
+    # aggregation whose input needs a gradient (GIN's first aggregates the
+    # features, which need none; GCN's aggregate X W_c + b_c)
+    for name, src, epochs, per_forward, dx_per_step in (
+            ("gin_pallas", GIN_CONFIG, 2, 2, 1), ("gcn_pallas", GCN_RING_CONFIG, 1, 3, 3)):
         d = os.path.join(workdir, name)
         _, counts, steps, evals, out = train_run(
             workdir, name, src, epochs, falling=epochs > 1,
@@ -1974,12 +2159,13 @@ def phase_ell(workdir):
             prediction_data=os.path.join(d, "prediction.jbl"), **outputs)
         if "[spmm] backend: pallas" not in out or "pallas backend requested" in out:
             raise AssertionError(f"train {name}: did not take the ELL route")
-        _expect(f"train {name}", counts, {"ell_spmm": per_forward * (steps + evals)})
+        _expect(f"train {name}", counts, {"ell_spmm": per_forward * (steps + evals),
+                                           "ell_spmm_dx": dx_per_step * steps})
         add(counts)
         add(ell_infer(workdir, name, n_graphs, per_forward))
     steps_gpu_vs_cpu("GIN (pallas, ring6)", _load_config(
         GIN_CONFIG, dataset=ring6_file(workdir), spmm_backend="pallas"), 3,
-        lambda info: {"ell_spmm": 2 * info.adj_channel_num * 3})
+        lambda info: {"ell_spmm": 2 * 3, "ell_spmm_dx": 3})
     step_breakdown((("gin_pallas", GIN_CONFIG, dict(dataset=data, spmm_backend="pallas")),))
 
     # synthetic.jbl: the gate refuses ELL, so the data (not a fault of the
@@ -2049,16 +2235,20 @@ def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
         "max_abs_err": max(r["sddmm_err"] for r in tiled_rows),
         "ms": mean(gat, "sddmm"),
         "plain_ms": mean(gat, "sddmm_plain"),
-        "bound_ms": mean(gat, "bound"),
-        "bound_by": gat[0]["bound_by"],
+        "bound_ms": mean(gat, "sddmm_bound"),
+        "bound_by": gat[0]["sddmm_bound_by"],
         "library_ms": mean(gat, "sddmm_library"),
-    }] + stream_summary_rows(stream_rows, launches, mean) + [
-        ell_summary_row(ell_rows, launches, mean)]
+    }] + stream_summary_rows(stream_rows, launches, mean) + ell_summary_rows(
+        ell_rows, launches, mean)
 
 
-def ell_summary_row(rows, launches, mean):
+def ell_summary_rows(rows, launches, mean):
+    """Kernel 7's two rows: the forward (the ring6 batch at F 3 and 50) and
+    its dx kernel (the ring6 batch at F 50, the width the path's backward
+    gives it), both float32."""
     on_path = [r for r in rows if r["on_path"]]
-    return {
+    dx_path = [r for r in rows if r["dx_on_path"]]
+    return [{
         "name": "ell_spmm",
         "route": "cuda",
         "source": "kgcn_tpu_torch/ops/csrc/ell.cu",
@@ -2070,7 +2260,19 @@ def ell_summary_row(rows, launches, mean):
         "bound_ms": mean(on_path, "bound"),
         "bound_by": on_path[0]["bound_by"],
         "library_ms": mean(on_path, "library"),
-    }
+    }, {
+        "name": "ell_spmm_dx",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/ell.cu",
+        "replaces": "kgcn_tpu/ops/pallas_spmm.py:30",
+        "launches": launches["ell_spmm_dx"],
+        "max_abs_err": max(r["dx_err"] for r in rows),
+        "ms": mean(dx_path, "dx"),
+        "plain_ms": mean(dx_path, "dx_plain"),
+        "bound_ms": mean(dx_path, "dx_bound"),
+        "bound_by": dx_path[0]["dx_bound_by"],
+        "library_ms": mean(dx_path, "dx_library"),
+    }]
 
 
 def stream_summary_rows(rows, launches, mean):

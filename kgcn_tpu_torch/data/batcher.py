@@ -14,7 +14,10 @@ with ``stream`` the stream structures (``_attach_stream``, as
 ``kgcn_tpu/data/batcher.py:395-418``), and with ``xla`` or ``pallas`` the
 ELL arrays (``_prepare_ell`` / ``_ell_arrays``, as
 ``kgcn_tpu/data/batcher.py:217-257``: per-graph padded neighbour lists
-built once per dataset under the ``ell_layout_ok`` gate, offset per batch).
+built once per dataset under the ``ell_layout_ok`` gate, offset per batch;
+beside them, each graph's transpose, which the GPU's dx kernel walks; a
+batch's ELL arrays and transpose are laid into one int32 buffer,
+``GraphBatch.ell_pack``, which moves to the card in one copy).
 The JAX package attaches the ELL arrays on every backend, but its layers
 read them only on these two, so no value differs.  ``host_seconds``
 accumulates the host time spent assembling batches, and ``tiled_seconds``
@@ -24,6 +27,7 @@ not ported (ROADMAP.md queue A).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import time
 from typing import Iterator, Optional
@@ -33,8 +37,19 @@ import torch
 
 from kgcn_tpu_torch.data.dataset import Dataset, DatasetInfo
 from kgcn_tpu_torch.graph.batch import GraphBatch, batch_graphs, pad_edge_budget
-from kgcn_tpu_torch.ops.ell import coo_to_ell, ell_layout_ok, scan_ell_stats
+from kgcn_tpu_torch.ops import _build
+from kgcn_tpu_torch.ops.ell import coo_to_ell, ell_layout_ok, ell_transpose, scan_ell_stats
 from kgcn_tpu_torch.runtime.backend import Backend
+
+
+def _ell_host():
+    """The ELL batch packer ``kgcn_ell_pack`` (``ops/csrc/ell_host.cc``)."""
+    lib = _build.load("ell_host")
+    if lib.kgcn_ell_pack.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.kgcn_ell_pack.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.kgcn_ell_pack.restype = ctypes.c_longlong
+    return lib
 
 
 def as_tensor(x: np.ndarray) -> torch.Tensor:
@@ -191,9 +206,9 @@ class Batcher:
             self.stream_seconds += time.perf_counter() - t0
         elif self.backend.name in ("xla", "pallas"):
             t0 = time.perf_counter()
-            ei, ew = self._ell_arrays(idx, B)
+            ei, ew, pack = self._ell_arrays(idx, B)
             if ei is not None:
-                graph = graph.replace(ell_senders=ei, ell_weights=ew)
+                graph = graph.replace(ell_senders=ei, ell_weights=ew, ell_pack=pack)
             self.ell_seconds += time.perf_counter() - t0
 
         def pad_rows(x):
@@ -267,7 +282,10 @@ class Batcher:
         """Per-graph ELL arrays ``[G, C, N, K]``, built once when
         ``ell_layout_ok`` admits the dataset (max in-degree ≤ 32, padded
         slots within 2× the real edges); batches assemble them by
-        concatenation and a node offset."""
+        concatenation and a node offset.  With them each graph's transpose
+        (``ell_transpose``): per channel its real slots ``v*K + k`` grouped
+        by sender, padded to ``N*K`` (``t_slots``), their count
+        (``t_count``) and each sender's list end (``t_end``)."""
         self._ell_ready = True
         ds = self.ds
         if ds.adjs is None:
@@ -278,32 +296,59 @@ class Batcher:
         if not ell_layout_ok(max_deg, len(ds.adjs) * C * N, total_edges):
             return
         K = max_deg
-        per_graph = np.zeros((len(ds.adjs), C, N, K), np.int32)
-        per_graph_w = np.zeros((len(ds.adjs), C, N, K), np.float32)
+        G = len(ds.adjs)
+        per_graph = np.zeros((G, C, N, K), np.int32)
+        per_graph_w = np.zeros((G, C, N, K), np.float32)
         for g, gs in enumerate(ds.adjs):
             for c, (r, cc, v) in enumerate(gs):
                 per_graph[g, c], per_graph_w[g, c] = coo_to_ell(cc, r, v, N,
                                                                 max_degree=K)
-        self._ell = {"idx": per_graph, "w": per_graph_w, "K": K}
+        # every (graph, channel) as one channel of the transpose
+        offsets, slots = ell_transpose(per_graph.reshape(G * C, N, K),
+                                       per_graph_w.reshape(G * C, N, K), N)
+        count = offsets[:, -1] - offsets[:, 0]
+        t_slots = np.zeros((G * C, N * K), np.int32)
+        t_slots[np.arange(N * K)[None, :] < count[:, None]] = slots
+        self._ell = {"idx": per_graph, "w": per_graph_w, "K": K,
+                     "t_slots": t_slots.reshape(G, C, N * K),
+                     # each sender's list end, counted from its graph's list start
+                     "t_end": np.ascontiguousarray(
+                         (offsets[:, 1:] - offsets[:, :1]).reshape(G, C, N)),
+                     "t_count": np.ascontiguousarray(count.reshape(G, C))}
+        # the packer's per-dataset operands, their addresses taken once
+        self._ell["ptrs"] = tuple(self._ell[k].ctypes.data for k in (
+            "idx", "w", "t_slots", "t_end", "t_count"))
 
     def _ell_arrays(self, idx: np.ndarray, B: int):
         """The batch's ``[C, B*N, K]`` ELL arrays for graph indices ``idx``
-        (None, None when the gate refused the dataset)."""
+        and the int32 buffer that holds them (senders, the weights' bits),
+        then the transpose's offsets ``[C, B*N + 1]`` and slots (as
+        ``ell_transpose`` gives them for the batch: a sender's slots all lie
+        in its own graph, so the graphs' lists, offset and concatenated in
+        batch order, keep (v, k) order); (None, None, None) when the gate
+        refused the dataset."""
         if not self._ell_ready:
             self._prepare_ell()
         if self._ell is None:
-            return None, None
-        N, K = self.max_nodes, self._ell["K"]
-        gi = self._ell["idx"][idx]  # [G, C, N, K]
-        gw = self._ell["w"][idx]
-        G, C = gi.shape[:2]
-        offs = (np.arange(G, dtype=np.int32) * N)[:, None, None, None]
-        gi = gi + offs * (gw != 0)  # padding slots stay at global node 0
-        out_i = np.zeros((C, B * N, K), np.int32)
-        out_w = np.zeros((C, B * N, K), np.float32)
-        out_i[:, : G * N] = np.transpose(gi, (1, 0, 2, 3)).reshape(C, G * N, K)
-        out_w[:, : G * N] = np.transpose(gw, (1, 0, 2, 3)).reshape(C, G * N, K)
-        return torch.from_numpy(out_i), torch.from_numpy(out_w)
+            return None, None, None
+        e = self._ell
+        N, K = self.max_nodes, e["K"]
+        graphs = np.ascontiguousarray(idx, np.int64)
+        G, C = len(graphs), e["idx"].shape[1]
+        if G and (graphs.min() < 0 or graphs.max() >= len(e["idx"])):
+            raise IndexError(f"graph indices outside the dataset's {len(e['idx'])}")
+        n = C * B * N * K
+        head = 2 * n + C * (B * N + 1)
+        # room for every slot of the batch's graphs; cut to the real ones
+        pack = np.empty(head + G * C * N * K, np.int32)
+        n_slots = _ell_host().kgcn_ell_pack(*e["ptrs"], graphs.ctypes.data, G, B, C, N, K,
+                                            pack.ctypes.data)
+        pack = pack[:head + n_slots]
+        shape = (C, B * N, K)
+        # NumPy views, each then wrapped: cheaper than torch views on the host
+        return (torch.from_numpy(pack[:n].reshape(shape)),
+                torch.from_numpy(pack[n:2 * n].view(np.float32).reshape(shape)),
+                torch.from_numpy(pack))
 
     def _pad_node_axis(self, x):
         """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the

@@ -19,7 +19,10 @@ rules —
   weights baked in, built on the host by ``with_stream``;
 * ``ell_senders`` / ``ell_weights`` optionally carry the per-channel ELL
   arrays (padded per-row neighbour lists, ``ops/ell.py``) that the ``xla``
-  and ``pallas`` backends aggregate over, built by the ``Batcher``;
+  and ``pallas`` backends aggregate over, built by the ``Batcher``, which
+  lays them and their transpose (each sender's slots, for the GPU's dx
+  kernel) into one int32 buffer, ``ell_pack``, so that all of it moves to
+  the card in one copy;
 * ``node_ids`` replaces ``nodes`` in node-embedding mode (KG workloads):
   ``[V]`` vocabulary ids into an embedding table;
 * ``host_receivers`` keeps the receivers' host array on a batch moved to
@@ -71,6 +74,9 @@ class GraphBatch:
         0), or None.
     ell_weights: ``[C, V, K]`` float32 weight of each ELL slot (padding
         slots 0), or None.
+    ell_pack: 1-D int32 buffer of ``ell_senders``, the bits of
+        ``ell_weights`` (both views of it), then the transpose's offsets
+        ``[C, V + 1]`` and slots (``ops/ell.ell_transpose``), or None.
     n_graph, max_nodes: Python ints.
     backend: the resolved spmm backend (``"dense"``, ``"xla"``,
         ``"pallas"``, ``"tiled"`` or ``"stream"``).
@@ -93,6 +99,7 @@ class GraphBatch:
     stream_adj: Optional[tuple] = None
     ell_senders: Optional[torch.Tensor] = None
     ell_weights: Optional[torch.Tensor] = None
+    ell_pack: Optional[torch.Tensor] = None
     n_graph: int = 1
     max_nodes: int = 1
     backend: str = "dense"
@@ -106,7 +113,24 @@ class GraphBatch:
     def replace(self, **changes) -> "GraphBatch":
         if "receivers" in changes and "host_receivers" not in changes:
             changes["host_receivers"] = None  # no longer these receivers
+        if ({"ell_senders", "ell_weights"} & set(changes)) and "ell_pack" not in changes:
+            changes["ell_pack"] = None  # no longer these arrays' pack
         return dataclasses.replace(self, **changes)
+
+    def ell_transpose(self):
+        """``(offsets [C, V + 1], slots)``: the ELL arrays' transpose that
+        the ``Batcher`` laid into ``ell_pack`` (views of it, made once per
+        batch object: the layers share them), or None."""
+        if self.ell_pack is None:
+            return None
+        cached = self.__dict__.get("_ell_transpose")
+        if cached is None or cached[0] is not self.ell_pack:
+            C, V, _ = self.ell_senders.shape
+            n = 2 * self.ell_senders.numel()
+            views = (self.ell_pack[n:n + C * (V + 1)].view(C, V + 1),
+                     self.ell_pack[n + C * (V + 1):])
+            cached = self.__dict__["_ell_transpose"] = (self.ell_pack, views)
+        return cached[1]
 
     def receiver_segments(self, c: Optional[int] = None):
         """``(ids, order, offsets)`` of channel ``c``'s receivers, or with
@@ -262,7 +286,12 @@ class GraphBatch:
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)
+            and not (f.name in ("ell_senders", "ell_weights") and self.ell_pack is not None)
         }
+        if self.ell_pack is not None:  # the ELL arrays move inside ell_pack
+            pack, shape, n = moved["ell_pack"], self.ell_senders.shape, self.ell_senders.numel()
+            moved["ell_senders"] = pack[:n].view(shape)
+            moved["ell_weights"] = pack[n:2 * n].view(torch.float32).view(shape)
         for name in ("tiled_adj", "stream_adj"):
             structs = getattr(self, name)
             if structs is not None:

@@ -130,7 +130,8 @@ class GraphConv(nn.Module):
             )
         if graph.ell_senders is not None:
             return ell_aggregate(graph.ell_senders, graph.ell_weights, hw,
-                                 backend=graph.backend)
+                                 backend=graph.backend,
+                                 transpose=graph.ell_transpose())
         return spmm_multichannel(graph.senders, graph.receivers, graph.edge_weights,
                                  hw, graph.total_nodes, backend=_coo_backend(graph),
                                  segments=graph.receiver_segments())
@@ -166,7 +167,8 @@ class GINAggregate(nn.Module):
             )
         elif graph.ell_senders is not None:
             agg = ell_aggregate(graph.ell_senders, graph.ell_weights, x,
-                                backend=graph.backend)
+                                backend=graph.backend,
+                                transpose=graph.ell_transpose())
         else:
             agg = spmm_multichannel(graph.senders, graph.receivers,
                                     graph.edge_weights, x, graph.total_nodes,

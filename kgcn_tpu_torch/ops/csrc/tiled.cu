@@ -4,7 +4,8 @@
 //
 //   spmm:  out[r, :] = sum over slots of edge e with receiver r of
 //          w[e] * x[s_e, :]          x [num_senders, F] -> out [num_receivers, F]
-//   sddmm: dw[slot] = <g[r_slot, :], x[s_slot, :]>    -> [n_chunks, chunk]
+//   sddmm: dw[e] = <g[r_e, :], x[s_e, :]> for each edge e of the structure
+//          -> [E] (the caller zeroes it: edges not in the structure read 0)
 //
 // Replaces the Pallas TPU kernels `_spmm_kernel` and `_sddmm_kernel`
 // (kgcn_tpu/ops/tiled_spmm.py:320 and :353).  The TPU kernels gather and
@@ -52,7 +53,19 @@
 //   slot (the plan's empty_rows) are written as zeros, spread evenly over
 //   the grid's warps; every row of out is written once, and padding slots,
 //   budget fillers and edge-free tiles are never visited.
-// SDDMM: one warp per slot (grid-stride), lanes over F, a shuffle reduction.
+// SDDMM: walks the forward plan's entries (edge id, receiver row, sender):
+//   the real slots alone, so padding slots, budget fillers and edge-free
+//   tiles are never visited, and each edge's dot is written straight to
+//   dw[edge id] (no per-slot output to gather back into edge order).  A
+//   lane group (LPR = 4-32 lanes, sized to F like the ELL kernel's) takes
+//   an entry, each lane VEC consecutive columns per pass (one 16-byte load
+//   of x and of g when F % 4 == 0); a warp takes 32 / LPR entries at a time
+//   and keeps 4 of them per group in flight, their metadata read once,
+//   coalesced, by one lane each.  A lane sums its columns in order, then the
+//   group's lanes are added by an xor butterfly (a fixed order, the same
+//   total in every lane), so the result does not depend on the launch.
+//   bf16 payload: both operands rounded to bf16, exact products summed in
+//   f32; f32: products rounded apart (__fmul_rn), as before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,7 +82,8 @@ constexpr int BATCH = 16;         // gathered x rows a warp keeps in flight
 constexpr int SPLIT_WARP = 64;    // split rows of at most this many partials: one warp
 constexpr int ZERO_ROWS = 16;     // empty rows per warp, sizing the grid
 constexpr int SMS = 132;          // H100 SXM
-constexpr int SDDMM_WARPS = 8;    // SDDMM blocks: 8 warps, one slot each
+constexpr int SDDMM_WARPS = 8;    // SDDMM blocks: 8 warps
+constexpr int SDDMM_INFLIGHT = 4; // entries a SDDMM lane group keeps in flight
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -366,36 +380,107 @@ cudaError_t launch_spmm_vec(const int* ent, const int* starts, const int* pieces
                                         n_empty, F, stream);
 }
 
+template <bool BF16, int LPR, int VEC>
 __global__ void __launch_bounds__(SDDMM_WARPS * 32)
-tiled_sddmm_kernel(const int* __restrict__ s_loc, const int* __restrict__ r_loc,
-                   const int* __restrict__ slot_src,
-                   const int* __restrict__ chunk_rt,
-                   const int* __restrict__ chunk_st,
-                   const float* __restrict__ x, const float* __restrict__ g,
-                   float* __restrict__ out, long long total, int chunk, int ts,
-                   int tr, int num_edges, int F, int bf16) {
+tiled_sddmm_kernel(const int* __restrict__ ent, const float* __restrict__ x,
+                   const float* __restrict__ g, float* __restrict__ dw, int n_real,
+                   int F) {
+  constexpr int GPW = 32 / LPR;                 // entries a warp takes at once
+  constexpr int ROUND = GPW * SDDMM_INFLIGHT;   // entries a warp takes a round (<= 32)
   const int lane = threadIdx.x % 32;
+  const int grp = lane / LPR, l = lane % LPR;
   const long long nwarps = (long long)gridDim.x * SDDMM_WARPS;
-  for (long long slot = (long long)blockIdx.x * SDDMM_WARPS + threadIdx.x / 32;
-       slot < total; slot += nwarps) {
-    const int src = slot_src[slot];
-    if (src < 0 || src >= num_edges) {  // padding slot
-      if (lane == 0) out[slot] = 0.f;
-      continue;
+  for (long long e0 = ((long long)blockIdx.x * SDDMM_WARPS + threadIdx.x / 32) * ROUND;
+       e0 < n_real; e0 += nwarps * ROUND) {
+    // entry e0 + i's (edge id, receiver row, sender), read by lane i
+    int my_edge = -1, my_row = 0, my_send = 0;
+    if (lane < ROUND && e0 + lane < n_real) {
+      my_edge = __ldcs(ent + e0 + lane);
+      my_row = __ldcs(ent + n_real + e0 + lane);
+      my_send = __ldcs(ent + 2LL * n_real + e0 + lane);
     }
-    const long long c = slot / chunk;
-    const float* xs = x + (size_t)(chunk_st[c] * ts + s_loc[slot]) * F;
-    const float* gr = g + (size_t)(chunk_rt[c] * tr + r_loc[slot]) * F;
-    float sum = 0.f;
-    for (int k = lane; k < F; k += 32) {
-      float a = xs[k], b = gr[k];
-      if (bf16) { a = round_bf16(a); b = round_bf16(b); }
-      sum += __fmul_rn(a, b);
+    int edge[SDDMM_INFLIGHT], row[SDDMM_INFLIGHT], send[SDDMM_INFLIGHT];
+    float sum[SDDMM_INFLIGHT];
+#pragma unroll
+    for (int u = 0; u < SDDMM_INFLIGHT; ++u) {
+      const int i = u * GPW + grp;  // this group's u-th entry of the round
+      edge[u] = __shfl_sync(FULL, my_edge, i);
+      row[u] = __shfl_sync(FULL, my_row, i);
+      send[u] = __shfl_sync(FULL, my_send, i);
+      sum[u] = 0.f;
+    }
+    for (int c0 = 0; c0 < F; c0 += LPR * VEC) {
+      const int f = c0 + l * VEC;
+      float xv[SDDMM_INFLIGHT][VEC], gv[SDDMM_INFLIGHT][VEC];
+#pragma unroll
+      for (int u = 0; u < SDDMM_INFLIGHT; ++u) {
+        if (edge[u] >= 0 && f < F) {
+          const float* xp = x + (size_t)send[u] * F + f;
+          const float* gp = g + (size_t)row[u] * F + f;
+          if constexpr (VEC == 4) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(xp));
+            const float4 b = __ldg(reinterpret_cast<const float4*>(gp));
+            xv[u][0] = a.x; xv[u][1] = a.y; xv[u][2] = a.z; xv[u][3] = a.w;
+            gv[u][0] = b.x; gv[u][1] = b.y; gv[u][2] = b.z; gv[u][3] = b.w;
+          } else if constexpr (VEC == 2) {
+            const float2 a = __ldg(reinterpret_cast<const float2*>(xp));
+            const float2 b = __ldg(reinterpret_cast<const float2*>(gp));
+            xv[u][0] = a.x; xv[u][1] = a.y;
+            gv[u][0] = b.x; gv[u][1] = b.y;
+          } else {
+            xv[u][0] = __ldg(xp);
+            gv[u][0] = __ldg(gp);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) xv[u][i] = gv[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SDDMM_INFLIGHT; ++u) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float a = xv[u][i], b = gv[u][i];
+          if (BF16) { a = round_bf16(a); b = round_bf16(b); }
+          sum[u] += __fmul_rn(a, b);
+        }
+      }
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) out[slot] = sum;
+    for (int u = 0; u < SDDMM_INFLIGHT; ++u) {
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) sum[u] += __shfl_xor_sync(FULL, sum[u], o, LPR);
+      if (l == 0 && edge[u] >= 0) __stcs(dw + edge[u], sum[u]);
+    }
   }
+}
+
+template <bool BF16, int VEC>
+cudaError_t launch_sddmm(const int* ent, const float* x, const float* g, float* dw,
+                         int n_real, int F, cudaStream_t stream) {
+  const int lanes = (F + VEC - 1) / VEC;
+  const int lpr = lanes <= 4 ? 4 : lanes <= 8 ? 8 : lanes <= 16 ? 16 : 32;
+  const long long round = (32 / lpr) * SDDMM_INFLIGHT;
+  long long blocks = ((long long)n_real + SDDMM_WARPS * round - 1) / (SDDMM_WARPS * round);
+  blocks = std::min<long long>(std::max<long long>(blocks, 1), SMS * 16);
+  const dim3 grid((unsigned)blocks), block(SDDMM_WARPS * 32);
+  switch (lpr) {
+    case 4: tiled_sddmm_kernel<BF16, 4, VEC><<<grid, block, 0, stream>>>(ent, x, g, dw, n_real, F); break;
+    case 8: tiled_sddmm_kernel<BF16, 8, VEC><<<grid, block, 0, stream>>>(ent, x, g, dw, n_real, F); break;
+    case 16: tiled_sddmm_kernel<BF16, 16, VEC><<<grid, block, 0, stream>>>(ent, x, g, dw, n_real, F); break;
+    default: tiled_sddmm_kernel<BF16, 32, VEC><<<grid, block, 0, stream>>>(ent, x, g, dw, n_real, F);
+  }
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_sddmm_vec(const int* ent, const float* x, const float* g, float* dw,
+                             int n_real, int F, cudaStream_t stream) {
+  // 16-byte (8-byte) rows when F % 4 (F % 2) == 0 and x and g start aligned
+  const uintptr_t a = (uintptr_t)x | (uintptr_t)g;
+  if (F % 4 == 0 && a % 16 == 0) return launch_sddmm<BF16, 4>(ent, x, g, dw, n_real, F, stream);
+  if (F % 2 == 0 && a % 8 == 0) return launch_sddmm<BF16, 2>(ent, x, g, dw, n_real, F, stream);
+  return launch_sddmm<BF16, 1>(ent, x, g, dw, n_real, F, stream);
 }
 
 }  // namespace
@@ -424,20 +509,17 @@ int kgcn_tiled_spmm(const int* entries, const int* starts, const int* pieces,
                                             n_pieces, n_split, n_empty, F, s);
 }
 
-// out [n_chunks, chunk]: per slot <g[receiver], x[sender]> (0 in padding
-// slots), x [num_senders, F], g [num_receivers, F].  Same conventions.
-int kgcn_tiled_sddmm(const int* s_loc, const int* r_loc, const int* slot_src,
-                     const int* chunk_rt, const int* chunk_st, const float* x,
-                     const float* g, float* out, int n_chunks, int chunk,
-                     int ts, int tr, int num_edges, int F, int bf16,
-                     void* stream) {
-  const long long total = (long long)n_chunks * chunk;
-  long long blocks = (total + SDDMM_WARPS - 1) / SDDMM_WARPS;
-  if (blocks > SMS * 16) blocks = SMS * 16;  // grid-stride past 16 blocks/SM
-  tiled_sddmm_kernel<<<(unsigned)blocks, SDDMM_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      s_loc, r_loc, slot_src, chunk_rt, chunk_st, x, g, out, total, chunk, ts,
-      tr, num_edges, F, bf16);
-  return (int)cudaGetLastError();
+// dw [E]: per edge of the plan's entries [3, n_real] (edge id, receiver
+// row, sender; the forward structure's TiledPlan) <g[row], x[sender]>,
+// x [num_senders, F], g [num_receivers, F].  Writes only the plan's edges
+// (the caller zeroes dw first).  Same conventions as kgcn_tiled_spmm.
+int kgcn_tiled_sddmm(const int* entries, const float* x, const float* g, float* dw,
+                     int n_real, int F, int bf16, void* stream) {
+  if (F <= 0) return (int)cudaErrorInvalidValue;
+  if (n_real <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? (int)launch_sddmm_vec<true>(entries, x, g, dw, n_real, F, s)
+              : (int)launch_sddmm_vec<false>(entries, x, g, dw, n_real, F, s);
 }
 
 const char* kgcn_cuda_error_string(int code) {

@@ -9,6 +9,9 @@ the padding waste is small.
 * ``ELL_MAX_DEGREE``, ``ell_layout_ok``, ``scan_ell_stats`` and
   ``coo_to_ell`` are NumPy, equal to the JAX package's array for array (the
   ``Batcher`` builds its ELL arrays with them, under the same gate).
+* ``ell_transpose`` (NumPy) lists each sender's slots, the transpose that
+  the GPU's dx kernel walks; the ``Batcher`` builds it per graph once per
+  dataset, beside the forward arrays.
 * ``spmm_ell`` and ``spmm_ell_multichannel`` are the plain PyTorch
   versions: gather, then einsum.  On the CPU they are the path itself; on
   the GPU ``ops/ell_spmm.py`` launches the hand-written kernel
@@ -77,6 +80,35 @@ def coo_to_ell(senders, receivers, weights, num_nodes: int,
     idx[r_sorted, slot] = s[order]
     w[r_sorted, slot] = w_v[order]
     return idx, w
+
+
+def ell_transpose(idx, w, num_rows: int):
+    """The ELL arrays' transpose: each sender's slots, for the dx kernel.
+
+    idx, w ``[C, V, K]`` (or ``[V, K]``, one channel) → ``(offsets [C,
+    num_rows + 1], slots [S])`` int32: ``slots`` holds the flat slot id
+    ``v*K + k`` of every real slot (weight ≠ 0), channel by channel, grouped
+    by sender ``idx[c, v, k]`` and within a sender in increasing (v, k)
+    order (the order in which the reference's segment sum and ``index_add_``
+    add them); sender ``u`` of channel ``c`` owns ``slots[offsets[c, u] :
+    offsets[c, u + 1]]``, the offsets counted from the start of ``slots``.
+    Offsets, not a padded ``[V, K_T]``: the ELL gate bounds the in-degree,
+    not the out-degree, so one hub sender would pad every row."""
+    idx = np.asarray(idx)
+    w = np.asarray(w)
+    if idx.ndim == 2:
+        idx, w = idx[None], w[None]
+    C, V, K = idx.shape
+    flat = np.flatnonzero(w.reshape(-1) != 0)  # real slots in (c, v, k) order
+    key = (flat // (V * K)) * num_rows + idx.reshape(-1)[flat]
+    order = np.argsort(key, kind="stable")
+    slots = (flat[order] % max(V * K, 1)).astype(np.int32)
+    cum = np.cumsum(np.bincount(key, minlength=C * num_rows)).reshape(C, num_rows)
+    offsets = np.zeros((C, num_rows + 1), np.int32)
+    offsets[:, 1:] = cum
+    if num_rows:
+        offsets[1:, 0] = cum[:-1, -1]
+    return offsets, slots
 
 
 def spmm_ell(idx, w, x):

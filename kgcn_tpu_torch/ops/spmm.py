@@ -10,7 +10,9 @@
 * ``tiled``: one ``tiled_spmm`` per channel, summed — the CUDA kernel on
   the GPU.
 * ``pallas``: the ELL kernel (``ops/ell_spmm.py``, CUDA on the GPU).
-  ``ell_aggregate`` runs it once per channel on the batch's ELL arrays.
+  ``ell_aggregate`` runs it once for all channels on the batch's ELL
+  arrays, and its backward's dx kernel once over the batch's transposed
+  slot lists.
   ``spmm`` converts its COO list with ``spmm_pallas``.  ``spmm_multichannel``
   (the layers' edge-list route, taken when the batch has no ELL arrays)
   takes the ``xla`` scatter and says so once, as the JAX package's jitted
@@ -131,19 +133,19 @@ def spmm_multichannel(senders, receivers, weights, x, num_nodes: int, *,
                     weights, x.reshape(C * V, x.shape[2]), num_nodes, segments)
 
 
-def ell_aggregate(ell_senders, ell_weights, x, backend: str = "xla"):
+def ell_aggregate(ell_senders, ell_weights, x, backend: str = "xla", transpose=None):
     """Channel-summed ELL aggregation ``out[v] = Σ_c Σ_k w[c,v,k]·x_c[i[c,v,k]]``.
 
     ell_senders / ell_weights ``[C, V, K]``; x ``[C, V, F]`` (per channel)
-    or ``[V, F]`` (shared).  ``pallas``: one differentiable ELL kernel call
-    per channel (``SpmmEll``), summed; otherwise the gather and einsum."""
+    or ``[V, F]`` (shared).  ``pallas``: one differentiable ELL call for all
+    channels (``SpmmEll``): on the card one forward launch, whatever C, whose
+    per-channel f32 sums are added in channel order (the bits of the
+    per-channel products summed ``o_0 + o_1 + …`` in f32), and in the
+    backward one dx launch over ``transpose`` (the batch's sender-grouped
+    slot lists, ``GraphBatch.ell_transpose()``; built on the card when
+    None), with no atomics; otherwise the gather and einsum."""
     if backend == "pallas":
-        xs = x.unbind(0) if x.dim() == 3 else (x,) * ell_senders.shape[0]
-        out = None
-        for c, xc in enumerate(xs):
-            o = SpmmEll.apply(ell_senders[c], ell_weights[c], xc)
-            out = o if out is None else out + o
-        return out
+        return SpmmEll.apply(ell_senders, ell_weights, x, transpose)
     return spmm_ell_multichannel(ell_senders, ell_weights, x)
 
 

@@ -7,7 +7,7 @@ structure (``TiledCOO``) and the same two device operations,
   custom backward (``_TiledSpMM``): dx is the same kernel on the transpose
   structure and d(weights) is the SDDMM, as the JAX custom VJP ``_core``
   (``tiled_spmm.py:477-508``) computes them;
-* ``tiled_sddmm(te, a, b)`` — ``out[e] = ⟨a[r_e], b[s_e]⟩``.
+* ``tiled_sddmm(te, a, b)`` — ``out[e] = ⟨a[r_e], b[s_e]⟩``, per edge.
 
 Host side (per batch): ``build_tiled`` groups the edges by (receiver tile,
 sender tile) and packs them into fixed-size chunks that never cross a tile
@@ -22,10 +22,12 @@ so the CPU path, which never reads it, does not pay for it.  The same
 library packs the structures themselves (``_build_arrays``).
 
 Device side: on CUDA tensors the wrappers launch the hand-written Hopper
-kernels of ``csrc/tiled.cu`` (the SpMM walks the structure's plan); on CPU
-tensors they compute the plain versions
-``tiled_spmm_reference`` / ``tiled_sddmm_reference``.  Neither falls back to
-the other.  ``tiled_spmm.launches`` and ``tiled_sddmm.launches`` count kernel
+kernels of ``csrc/tiled.cu`` (both walk the structure's plan: the SpMM its
+pieces, the SDDMM its real entries, writing each edge's value straight into
+an ``[E]`` output); on CPU tensors they compute the plain versions
+``tiled_spmm_reference`` / ``tiled_sddmm_edges_reference`` (the per-edge
+form of the per-slot ``tiled_sddmm_reference``).  Neither falls back to the
+other.  ``tiled_spmm.launches`` and ``tiled_sddmm.launches`` count kernel
 launches and nothing else.
 
 Payload dtype (``compute_dtype``, config ``tiled_compute_dtype``, default
@@ -523,19 +525,38 @@ def tiled_spmm_reference(te: TiledCOO, weights, x, compute_dtype="bfloat16"):
     return out[: m.num_receivers]
 
 
-def tiled_sddmm_reference(te: TiledCOO, x, g, compute_dtype="bfloat16"):
-    """Plain PyTorch version of the SDDMM kernel: per slot ``⟨g[r], x[s]⟩``
-    in float32 (operands rounded to bf16 in bf16 mode); padding slots 0.
-    → ``[n_chunks, chunk]``."""
-    m = te.meta
+def _slot_dots(te: TiledCOO, x, g, compute_dtype):
+    """(valid, ``⟨g[r], x[s]⟩`` of every slot, flat) in float32, operands
+    rounded to bf16 in bf16 mode."""
     valid, send, recv = _slot_rows(te)
     xs = x.to(torch.float32)[send]
     gr = g.to(torch.float32)[recv]
     if is_bf16(compute_dtype):
         xs, gr = _rb(xs), _rb(gr)
-    dot = (xs * gr).sum(dim=1)
+    return valid, (xs * gr).sum(dim=1)
+
+
+def tiled_sddmm_reference(te: TiledCOO, x, g, compute_dtype="bfloat16"):
+    """Plain PyTorch version of the SDDMM, per slot: ``⟨g[r], x[s]⟩`` in
+    float32 (operands rounded to bf16 in bf16 mode); padding slots 0.
+    → ``[n_chunks, chunk]``."""
+    m = te.meta
+    valid, dot = _slot_dots(te, x, g, compute_dtype)
     dot = torch.where(valid, dot, torch.zeros_like(dot))
     return dot.reshape(m.n_chunks, m.chunk)
+
+
+def tiled_sddmm_edges_reference(te: TiledCOO, x, g, compute_dtype="bfloat16"):
+    """The same per edge, as the kernel writes it: each real slot's value
+    at its edge id (``slot_src``), edges not in the structure 0 → ``[E]``
+    float32."""
+    m = te.meta
+    valid, dot = _slot_dots(te, x, g, compute_dtype)
+    # padding slots all go to a sacrificial last element
+    eid = torch.where(valid, te.slot_src.reshape(-1).long(),
+                      torch.full_like(dot, m.num_edges, dtype=torch.long))
+    out = torch.zeros(m.num_edges + 1, dtype=torch.float32, device=dot.device)
+    return out.scatter_(0, eid, dot)[:-1]
 
 
 # ---------------------------------------------------------------------------
@@ -566,21 +587,27 @@ def _lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.kgcn_tiled_spmm.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
         lib.kgcn_tiled_spmm.restype = ctypes.c_int
-        lib.kgcn_tiled_sddmm.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        lib.kgcn_tiled_sddmm.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         lib.kgcn_tiled_sddmm.restype = ctypes.c_int
     return lib
+
+
+def _check_plan(te: TiledCOO, device, kernel):
+    """``te.plan``, which the kernels walk, checked to be on ``device``."""
+    plan = te.plan
+    if plan is None:
+        raise ValueError(f"the tiled {kernel} kernel needs the structure's plan "
+                         "(TiledCOO.to a CUDA device attaches it)")
+    if plan.buf.dtype != torch.int32 or plan.buf.device != device:
+        raise ValueError(f"TiledPlan.buf must be int32 on {device} (got "
+                         f"{plan.buf.dtype} on {plan.buf.device})")
+    return plan
 
 
 def _spmm_launch(te: TiledCOO, weights, x, bf16: bool):
     """One launch of the SpMM kernel over ``te.plan`` → ``[num_receivers,
     F]`` float32."""
-    m, plan = te.meta, te.plan
-    if plan is None:
-        raise ValueError("the tiled SpMM kernel needs the structure's plan "
-                         "(TiledCOO.to a CUDA device attaches it)")
-    if plan.buf.dtype != torch.int32 or plan.buf.device != x.device:
-        raise ValueError(f"TiledPlan.buf must be int32 on {x.device} (got "
-                         f"{plan.buf.dtype} on {plan.buf.device})")
+    m, plan = te.meta, _check_plan(te, x.device, "SpMM")
     _check_operand("x", x, m.num_senders, x.device)
     if (weights.dtype != torch.float32 or weights.device != x.device
             or tuple(weights.shape) != (m.num_edges,) or not weights.is_contiguous()):
@@ -606,24 +633,23 @@ def _spmm_launch(te: TiledCOO, weights, x, bf16: bool):
 
 
 def _sddmm_launch(te: TiledCOO, x, g, bf16: bool):
-    """One launch of the SDDMM kernel → ``[n_chunks, chunk]`` float32."""
-    m = te.meta
-    _check_structure(te, x.device)
+    """One launch of the SDDMM kernel over ``te.plan``'s real entries →
+    ``[E]`` float32 in edge order (edges not in the structure 0: the
+    output is zeroed first, the one other launch)."""
+    m, plan = te.meta, _check_plan(te, x.device, "SDDMM")
     _check_operand("x", x, m.num_senders, x.device)
     _check_operand("g", g, m.num_receivers, x.device)
     if g.shape[1] != x.shape[1]:
         raise ValueError(f"x and g widths differ: {x.shape[1]} vs {g.shape[1]}")
-    out = torch.empty((m.n_chunks, m.chunk), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    out = torch.zeros(m.num_edges, dtype=torch.float32, device=x.device)
+    n_real = plan.counts[0]
+    if n_real == 0 or x.shape[1] == 0:
         return out
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.kgcn_tiled_sddmm(
-            te.s_loc.data_ptr(), te.r_loc.data_ptr(), te.slot_src.data_ptr(),
-            te.chunk_rt.data_ptr(), te.chunk_st.data_ptr(), x.data_ptr(),
-            g.data_ptr(), out.data_ptr(), m.n_chunks, m.chunk, m.ts, m.tr,
-            m.num_edges, x.shape[1], int(bf16), stream)
+        code = lib.kgcn_tiled_sddmm(plan.pointers()[0], x.data_ptr(), g.data_ptr(),
+                                    out.data_ptr(), n_real, x.shape[1], int(bf16), stream)
     _build.check(lib, code, "tiled_sddmm launch")
     tiled_sddmm.launches += 1
     return out
@@ -638,13 +664,7 @@ def _spmm(te, weights, x, bf16):
 def _sddmm(te, x, g, bf16):
     if x.is_cuda:
         return _sddmm_launch(te, x.contiguous(), g.contiguous(), bf16)
-    return tiled_sddmm_reference(te, x, g, "bfloat16" if bf16 else "float32")
-
-
-def _slots_to_edges(te: TiledCOO, slots):
-    """Per-slot values → ``[E]`` in edge order (dropped edges get 0)."""
-    flat = torch.cat([slots.reshape(-1), slots.new_zeros(1)])
-    return flat[te.edge_slot.long()]
+    return tiled_sddmm_edges_reference(te, x, g, "bfloat16" if bf16 else "float32")
 
 
 class _TiledSpMM(torch.autograd.Function):
@@ -666,7 +686,7 @@ class _TiledSpMM(torch.autograd.Function):
         g = g.to(torch.float32).contiguous()
         dw = dx = None
         if ctx.needs_input_grad[0]:
-            dw = _slots_to_edges(ctx.te, _sddmm(ctx.te, x, g, ctx.bf16))
+            dw = _sddmm(ctx.te, x, g, ctx.bf16)
         if ctx.needs_input_grad[1]:
             dx = _spmm(ctx.te.transpose, weights, g, ctx.bf16)
         return dw, dx, None, None
@@ -698,8 +718,7 @@ def tiled_sddmm(te: TiledCOO, a, b, *, compute_dtype="bfloat16"):
     if te.node_perm is not None:
         perm = te.node_perm.long()
         a, b = a.index_select(0, perm), b.index_select(0, perm)
-    slots = _sddmm(te, b.to(torch.float32), a.to(torch.float32), bf16)
-    return _slots_to_edges(te, slots)
+    return _sddmm(te, b.to(torch.float32), a.to(torch.float32), bf16)
 
 
 tiled_spmm.launches = 0

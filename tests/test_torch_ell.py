@@ -381,3 +381,225 @@ def test_the_kernel_wrapper_checks_its_operands():
         tes._launch(idx, w, x.double())
     with pytest.raises(ValueError, match="contiguous x"):
         tes._launch(idx, w, x.t())
+
+
+# ---- the dx kernel's slot lists and orders of sums ---------------------------
+
+
+def _ell_channels(C, V, K, F, seed):
+    """C channels of random ELL arrays, a shared x and per-channel xs."""
+    parts = [_ell(V, K, F, seed=seed + c) for c in range(C)]
+    return (np.stack([p[0] for p in parts]), np.stack([p[1] for p in parts]),
+            parts[0][2], np.stack([p[2] for p in parts]))
+
+
+def _ring6_batches(backend="pallas"):
+    """(graph indices, the port's GraphBatch) of three ring6 batches: a full
+    one, a partial one of scattered graphs, the dataset's last 25."""
+    from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+
+    _, tb = _batchers(make_ring_dataset(num_pairs=100, num_nodes=6, seed=0), backend)
+    return [tb.make_batch(i).graph for i in (np.arange(25), np.array([3, 40, 41, 199]),
+                                              np.arange(175, 200))]
+
+
+def _check_lists(offsets, slots, idx, w):
+    """Each real slot once, in its sender's list, in increasing (v, k)
+    order; no padding slot."""
+    C, V, K = idx.shape
+    for c in range(C):
+        lo, hi = int(offsets[c, 0]), int(offsets[c, -1])
+        lists = slots[lo:hi].astype(np.int64)
+        np.testing.assert_array_equal(np.sort(lists), np.flatnonzero(w[c].reshape(-1)))
+        for u in range(offsets.shape[1] - 1):
+            mine = slots[offsets[c, u]:offsets[c, u + 1]].astype(np.int64)
+            assert (idx[c].reshape(-1)[mine] == u).all()
+            assert (np.diff(mine) > 0).all()
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_batch_transpose_equals_a_recomputation_on_ring6(backend):
+    """The Batcher's transposed slot lists (built per graph once per
+    dataset, offset per batch) equal ``ell_transpose`` recomputed from the
+    batch's own forward ELL arrays; ``ell_senders`` and ``ell_weights`` are
+    views of the same int32 buffer."""
+    for g in _ring6_batches(backend):
+        offsets, slots = g.ell_transpose()
+        want = tell.ell_transpose(g.ell_senders.numpy(), g.ell_weights.numpy(),
+                                  g.total_nodes)
+        assert offsets.dtype == slots.dtype == torch.int32
+        np.testing.assert_array_equal(offsets.numpy(), want[0])
+        np.testing.assert_array_equal(slots.numpy(), want[1])
+        lo = g.ell_pack.data_ptr()
+        hi = lo + 4 * g.ell_pack.numel()
+        for t in (g.ell_senders, g.ell_weights, offsets, slots):  # inside the pack
+            assert lo <= t.data_ptr() and t.data_ptr() + 4 * t.numel() <= hi
+        assert g.ell_weights.dtype == torch.float32
+        assert g.ell_pack.numel() == (2 * g.ell_senders.numel() + offsets.numel()
+                                      + slots.numel())
+
+
+@pytest.mark.parametrize("source", ["ring6", "random"])
+def test_transpose_lists_each_real_slot_once_in_slot_order(source):
+    if source == "ring6":
+        for g in _ring6_batches():
+            offsets, slots = g.ell_transpose()
+            _check_lists(offsets.numpy(), slots.numpy(), g.ell_senders.numpy(),
+                         g.ell_weights.numpy())
+        return
+    idx, w, _, _ = _ell_channels(3, 70, 6, 4, seed=30)
+    idx[1, 5] = 9  # a hub sender: one out-edge from every slot of a row
+    offsets, slots = tell.ell_transpose(idx, w, 70)
+    _check_lists(offsets, slots, idx, w)
+
+
+def _emulate_dx(offsets, slots, w, g, K, x_shape):
+    """The dx kernel's arithmetic in PyTorch: per channel, each row's sum
+    from 0 over its slot list in list order, each product and each sum
+    rounded to f32 apart; for a shared x the channels' sums added in
+    channel order."""
+    C = w.shape[0]
+    N, F = x_shape[-2:]
+    wf = w.reshape(C, -1)
+    out = []
+    for c in range(C):
+        acc = torch.zeros((N, F), dtype=torch.float32)
+        deg = (offsets[c, 1:] - offsets[c, :-1]).long()
+        for j in range(int(deg.max()) if N else 0):
+            rows = torch.nonzero(deg > j).reshape(-1)
+            s = slots[offsets[c, rows].long() + j].long()
+            acc[rows] = acc[rows] + wf[c, s][:, None] * g[s // K]
+        out.append(acc)
+    if len(x_shape) == 3:
+        return torch.stack(out)
+    tot = out[0]
+    for o in out[1:]:
+        tot = tot + o
+    return tot
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("C,V,K,F", [(1, 150, 5, 3), (1, 120, 7, 50), (3, 90, 4, 12)])
+def test_dx_kernel_order_equals_index_add_bitwise(C, V, K, F, shared):
+    """A PyTorch emulation of the dx kernel's order of sums over the host
+    slot lists equals the plain ``index_add_`` dx bitwise in f32, for one
+    and for three channels, shared and per-channel x."""
+    idx, w, x, xc = _ell_channels(C, V, K, F, seed=40 + C)
+    g = torch.from_numpy(np.random.RandomState(41).standard_normal((V, F))
+                         .astype(np.float32))
+    x_shape = x.shape if shared else xc.shape
+    offsets, slots = (torch.from_numpy(a) for a in tell.ell_transpose(idx, w, V))
+    got = _emulate_dx(offsets, slots, torch.from_numpy(w), g, K, x_shape)
+    want = tes.spmm_ell_dx_reference(torch.from_numpy(idx), torch.from_numpy(w), g, x_shape)
+    assert torch.equal(got, want)
+    # the wrapper on CPU tensors is the plain version
+    assert torch.equal(tes.spmm_ell_dx_gpu(torch.from_numpy(idx), torch.from_numpy(w), g,
+                                           x_shape), want)
+
+
+@pytest.mark.parametrize("V,K,F", [(150, 5, 3), (120, 7, 50)])
+def test_dx_kernel_order_matches_jax_vjp(V, K, F):
+    """The emulated dx kernel against JAX's ``spmm_ell_ad`` dx through
+    ``jax.vjp`` (Pallas in interpret mode): the same sums."""
+    from kgcn_tpu.ops.pallas_spmm import spmm_ell_ad as j_ad
+
+    idx, w, x = _ell(V, K, F, seed=7)
+    g = np.random.RandomState(8).standard_normal((V, F)).astype(np.float32)
+    with pallas_interpret():
+        _, vjp = jax.vjp(lambda x_: j_ad(jnp.asarray(idx), jnp.asarray(w), x_),
+                         jnp.asarray(x))
+        (jdx,) = vjp(jnp.asarray(g))
+    offsets, slots = (torch.from_numpy(a) for a in tell.ell_transpose(idx, w, V))
+    got = _emulate_dx(offsets, slots, torch.from_numpy(w)[None], torch.from_numpy(g), K,
+                      x.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdx), **TOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_fused_forward_equals_the_per_channel_sum_bitwise(shared):
+    """C = 3: the channel-ordered fused forward (the plain version the CPU
+    runs and the order in which the kernel adds its channels) equals the
+    per-channel products summed ``o_0 + o_1 + o_2`` in f32, as
+    ``ell_aggregate`` summed them one launch per channel; and
+    ``ell_aggregate`` on pallas is that fused call, with dx equal to the
+    per-channel calls' summed gradients."""
+    idx, w, x, xc = _ell_channels(3, 80, 5, 9, seed=50)
+    ti, tw = torch.from_numpy(idx), torch.from_numpy(w)
+    tx = torch.from_numpy(x if shared else xc)
+    xs = (tx,) * 3 if shared else tx.unbind(0)
+    per = [tes.spmm_ell_reference(ti[c], tw[c], xs[c]) for c in range(3)]
+    want = per[0] + per[1] + per[2]
+    assert torch.equal(tes.spmm_ell_reference(ti, tw, tx), want)
+    assert torch.equal(tes.spmm_ell_gpu(ti, tw, tx), want)
+    xg = tx.clone().requires_grad_(True)
+    got = tspmm.ell_aggregate(ti, tw, xg, backend="pallas")
+    assert torch.equal(got, want)
+    cot = torch.from_numpy(np.random.RandomState(51).standard_normal((80, 9))
+                           .astype(np.float32))
+    (got * cot).sum().backward()
+    dx = [tes.spmm_ell_dx_reference(ti[c], tw[c], cot, tuple(xs[c].shape)) for c in range(3)]
+    np.testing.assert_allclose(xg.grad.numpy(), (dx[0] + dx[1] + dx[2] if shared
+                                                 else torch.stack(dx)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["coo", "channels"])
+def test_device_transpose_matches_the_host_one(case):
+    """``ell_transpose_device`` (the COO entry's, a stable sort with padding
+    keyed last) gives each sender the host ``ell_transpose``'s list."""
+    if case == "coo":
+        s, r, w = _coo(30, 120, seed=2, zero_every=5)
+        ti, tw = tes.coo_to_ell_device(torch.from_numpy(s), torch.from_numpy(r),
+                                       torch.from_numpy(w), 30, 6)
+        ti, tw = ti[None], tw[None]
+    else:
+        idx, w, _, _ = _ell_channels(3, 40, 5, 2, seed=60)
+        ti, tw = torch.from_numpy(idx), torch.from_numpy(w)
+    N = ti.shape[1]
+    d_off, d_slots = tes.ell_transpose_device(ti, tw, N)
+    h_off, h_slots = tell.ell_transpose(ti.numpy(), tw.numpy(), N)
+    assert d_off.dtype == d_slots.dtype == torch.int32
+    assert d_slots.numel() == ti.numel()
+    for c in range(ti.shape[0]):
+        np.testing.assert_array_equal(np.diff(d_off[c].numpy()), np.diff(h_off[c]))
+        np.testing.assert_array_equal(d_slots[d_off[c, 0]:d_off[c, -1]].numpy(),
+                                      h_slots[h_off[c, 0]:h_off[c, -1]])
+
+
+def test_the_batch_moves_its_ell_pack_in_one_copy():
+    """``GraphBatch.to`` copies ``ell_pack`` once, and ``ell_senders`` and
+    ``ell_weights`` become views of the copy (here onto the meta device); a
+    batch whose ELL arrays are replaced drops the stale pack."""
+    g = _ring6_batches()[0]
+    moved = g.to("meta")
+    assert moved.ell_pack.device.type == "meta"
+    size = moved.ell_pack.untyped_storage().nbytes()
+    for name in ("ell_senders", "ell_weights"):
+        a, b = getattr(g, name), getattr(moved, name)
+        assert b.untyped_storage().nbytes() == size  # the pack's storage, no copy of its own
+        assert b.shape == a.shape and b.dtype == a.dtype
+    assert moved.ell_transpose()[1].shape == g.ell_transpose()[1].shape
+    assert g.replace(ell_senders=g.ell_senders.clone()).ell_transpose() is None
+    assert g.replace(ell_weights=g.ell_weights.clone()).ell_pack is None
+
+
+def test_dx_launches_stay_zero_on_the_cpu():
+    tes.spmm_ell_dx_gpu.launches = 0
+    idx, w, x, _ = _ell_channels(2, 30, 3, 4, seed=70)
+    xg = torch.from_numpy(x).requires_grad_(True)
+    tspmm.ell_aggregate(torch.from_numpy(idx), torch.from_numpy(w), xg,
+                        backend="pallas").sum().backward()
+    assert xg.grad is not None and tes.spmm_ell_dx_gpu.launches == 0
+
+
+def test_the_dx_kernel_wrapper_checks_its_operands():
+    idx, w, x, _ = _ell_channels(1, 8, 2, 4, seed=71)
+    offsets, slots = (torch.from_numpy(a) for a in tell.ell_transpose(idx, w, 8))
+    w, g = torch.from_numpy(w), torch.from_numpy(x)
+    with pytest.raises(TypeError, match="int32 indices"):
+        tes._dx_launch(offsets, slots.long(), w, g, (8, 4))
+    with pytest.raises(TypeError, match="int32 offsets"):
+        tes._dx_launch(offsets.long(), slots, w, g, (8, 4))
+    with pytest.raises(ValueError, match="do not fit"):
+        tes._dx_launch(offsets, slots, w, g, (9, 4))
+    with pytest.raises(ValueError, match="several devices"):
+        tes._dx_launch(offsets.to("meta"), slots, w, g, (8, 4))

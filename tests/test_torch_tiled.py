@@ -47,6 +47,13 @@ def jax_backend(name, dtype="float32"):
         set_dense_path(True)
 
 
+def _slots_to_edges(te, slots):
+    """Per-slot values → ``[E]`` in edge order (dropped edges get 0), by the
+    structure's ``edge_slot``."""
+    flat = torch.cat([slots.reshape(-1), slots.new_zeros(1)])
+    return flat[te.edge_slot.long()]
+
+
 def _coo(V, E, seed, vs=None):
     rng = np.random.RandomState(seed)
     s = rng.randint(0, vs or V, E).astype(np.int32)
@@ -241,7 +248,7 @@ def test_plain_versions_against_the_coo_oracle(dtype):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
     dots = (aq[torch.from_numpy(r).long()] * xq[torch.from_numpy(s).long()]).sum(1)
     dots = torch.where(torch.from_numpy(w) != 0, dots, torch.zeros_like(dots))
-    got = tt._slots_to_edges(te, tt.tiled_sddmm_reference(te, torch.from_numpy(x),
+    got = _slots_to_edges(te, tt.tiled_sddmm_reference(te, torch.from_numpy(x),
                                                           torch.from_numpy(a), dtype))
     np.testing.assert_allclose(got.numpy(), dots.numpy(), **F32)
 
@@ -784,3 +791,41 @@ def test_plan_builder_rejects_a_receiver_outside_the_structure():
     bad = te.replace(meta=dataclasses.replace(te.meta, num_receivers=te.meta.tr - 1))
     with pytest.raises(ValueError, match="outside the structure"):
         tt.with_plan(bad.replace(transpose=None))
+
+
+# ---- the SDDMM per edge over the plan's entries --------------------------------
+
+SDDMM_NAMES = sorted(set(PLAN_NAMES) | {c[0] for c in CASES})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", SDDMM_NAMES)
+def test_sddmm_per_edge_plain_equals_slots_then_edges(name, dtype):
+    """The per-edge plain version (each real slot's dot scattered to its
+    edge id) equals the per-slot plain version gathered into edge order by
+    ``_slots_to_edges``, bitwise, on every structure of this file (budget
+    fillers, the locality relabelling, hubs, rectangular operands)."""
+    te = _plan_structure(name)
+    m = te.meta
+    x, g = (torch.from_numpy(a) for a in _inputs(m.num_senders, m.num_receivers, 24, seed=4))
+    got = tt.tiled_sddmm_edges_reference(te, x, g, dtype)
+    want = _slots_to_edges(te, tt.tiled_sddmm_reference(te, x, g, dtype))
+    assert got.shape == (m.num_edges,) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", SDDMM_NAMES)
+def test_sddmm_plan_walk_covers_every_edge_once(name):
+    """The SDDMM kernel's walk in PyTorch: one dot per plan entry, written at
+    its edge id into a zeroed ``[E]``, equals the per-edge plain version
+    (f32, 1e-5: another order of sums); the entries name each edge of the
+    structure once, and the edges outside it read 0."""
+    te = _plan_structure(name)
+    m = te.meta
+    x, g = (torch.from_numpy(a) for a in _inputs(m.num_senders, m.num_receivers, 24, seed=5))
+    eid, row, send = te.plan.entries.long()
+    assert len(np.unique(eid.numpy())) == len(eid)
+    out = torch.zeros(m.num_edges).index_copy_(0, eid, (x[send] * g[row]).sum(1))
+    want = tt.tiled_sddmm_edges_reference(te, x, g, "float32")
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **F32)
+    in_structure = te.edge_slot.numpy() < m.n_chunks * m.chunk
+    assert set(eid.numpy()) == set(np.flatnonzero(in_structure))
