@@ -80,9 +80,16 @@ non-zero exit and no result line:
    the scatters are also held against an f64 sum, each row within 1e-4 +
    sqrt(n)·2^-24·Σ|message| (n its messages), and with order-1 weights
    against that alone (the plain version's own f32 error on the hub row
-   passes 1e-4); two launches of each scatter bitwise equal; device times
-   as in phase 3, the library calls being torch.sparse.mm and
-   torch.sparse.sampled_addmm;
+   passes 1e-4); the weight gradient's padding slots exactly 0, its dy
+   row reads at F 128 counted (one per run of a receiver in a span), and on
+   the rectangular case its other lane layouts (F 5, 16, 27, 32, 33, and
+   128 off 16-byte alignment), each held as above; two launches of each
+   scatter and of the weight gradient bitwise equal; one weight-gradient
+   launch under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   device times as in phase 3, the library calls being torch.sparse.mm and
+   torch.sparse.sampled_addmm, and the weight gradient's also with the L2
+   flushed before each call (``device_ms(cold=True)``); bounds over the
+   rows of x and dy that the edges touch (``stream_bound``);
 8. kg — a knowledge graph of WN18RR's published shape (40 943 entities, 11
    relations with its training-set relation shares, 89 969 distinct
    triples, power-law entity frequency) generated from a seed as a triple
@@ -230,43 +237,72 @@ def call_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, attempts=3):
-    """Device time per call of ``fn`` in ms: the summed duration of every
-    CUDA kernel it launches (torch.profiler), over ``iters`` calls.  A
+def device_ms(fn, iters, attempts=3, cold=False):
+    """Device time per call of ``fn`` in ms from torch.profiler: the mean
+    duration of the CUDA kernels it recorded over ``iters`` calls, times the
+    kernels a call launches (the records over the calls, rounded up: on the
+    H100 a window of many calls has been seen to lose one record).  A
     profiling window that records no device time at all (seen once on the
     H100 for a 1.5 µs kernel) is taken again, up to ``attempts`` times, and
     then the time comes from CUDA events around the calls (``call_ms``:
-    launch overhead included, so an upper bound), said so on the log."""
+    launch overhead included, so an upper bound), said so on the log.
+    ``cold``: before each call a 128 MB write (over twice the H100's 50 MB
+    L2) evicts what the last call left in the L2; its kernels are left out
+    by name."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def kernels(prof, skip=()):
+        return [ev for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == DeviceType.CUDA and ev.key not in skip]
+
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE) if cold else None
+    skip = set()
+    if cold:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                flush.zero_()
+            torch.cuda.synchronize()
+        skip = {ev.key for ev in kernels(prof)}
+        if not skip:
+            raise AssertionError("torch.profiler recorded no kernel of the L2 flush")
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if cold:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(getattr(ev, "device_time_total", 0.0)
-                       for ev in prof.key_averages())
+        evs = kernels(prof, skip)
+        total_us = sum(getattr(ev, "device_time_total", 0.0) for ev in evs)
+        n = sum(ev.count for ev in evs)
         if total_us > 0:
-            return total_us / iters / 1e3
+            return total_us / n * -(-n // iters) / 1e3
         say("  torch.profiler recorded no device time; profiling again")
+    if cold:
+        raise AssertionError("torch.profiler recorded no device time")
     ms = call_ms(fn, iters)
     say(f"  device time from CUDA events instead (upper bound): {ms:.6f} ms")
     return ms
 
 
-def kernels_in(fn, counted, attempts=3):
+def kernels_in(fn, counted, attempts=10):
     """(CUDA kernels that torch.profiler records in one call of ``fn``, the
-    launches that ``counted.launches`` added in that call)."""
+    launches that ``counted.launches`` added in that call).  Empty profiling
+    windows come in runs (up to three in a row seen on the H100), so a
+    window that records no kernel is taken again, after a pause that grows
+    with each attempt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        time.sleep(0.1 * attempt)
         before = counted.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -276,7 +312,7 @@ def kernels_in(fn, counted, attempts=3):
         if n:
             return n, counted.launches - before
         say("  torch.profiler recorded no kernel; profiling again")
-    raise AssertionError("torch.profiler recorded no kernel in three windows")
+    raise AssertionError(f"torch.profiler recorded no kernel in {attempts} windows")
 
 
 def library_ms(fn, iters):
@@ -1425,18 +1461,28 @@ def _stream_csr(ss):
     return mat, pat
 
 
-def stream_bound(ss, F, kind):
-    """(bound_ms, bound_by) on this structure's real edges: the
-    [num_senders, F] and [num_receivers, F] f32 operands moved once (the
-    scatters read x and write out, the weight gradient reads x and dy), per
-    edge its sender and, by kind, its receiver row and weight (scatter),
-    its one-hot row of tr_w bf16 (scatter_mat) or its receiver row and
-    output (dw); 2·F FLOP per edge.  Padding slots are not needed work."""
+def stream_bound(ss, F, kind, touched=True):
+    """(bound_ms, bound_by) on this structure's real edges: the rows of the
+    [num_senders, F] x and [num_receivers, F] dy that the edges touch, each
+    read once, and the output written once (the scatters' [num_receivers, F]
+    out, every row; the weight gradient's [slots], padding included); per
+    edge its sender and, by kind, its receiver row and weight (scatter), its
+    one-hot row of tr_w bf16 (scatter_mat) or its slot and receiver row
+    (dw); 2·F FLOP per edge.  Padding slots are not needed work.
+    ``touched=False``: every row of x and dy instead, as PRs 3-8 counted."""
+    import torch
+
     m = ss.meta
-    n_edges = int((ss.slot_src < m.num_edges).sum())
+    slot, row, send = ss.plan.entries.long()
+    n_edges = len(slot)
     per_edge = {"scatter": 12, "scatter_mat": 4 + 2 * m.tr_w, "dw": 12}[kind]
-    nbytes = 4 * (m.num_senders + m.num_receivers) * F + per_edge * n_edges
-    return bound(nbytes, 2 * n_edges * F)
+    senders = torch.unique(send).numel() if touched else m.num_senders
+    receivers = torch.unique(row).numel() if touched else m.num_receivers
+    if kind == "dw":
+        nbytes = 4 * (senders + receivers) * F + 4 * m.slots
+    else:
+        nbytes = 4 * (senders + m.num_receivers) * F
+    return bound(nbytes + per_edge * n_edges, 2 * n_edges * F)
 
 
 def phase_stream_check(workdir):
@@ -1451,6 +1497,7 @@ def phase_stream_check(workdir):
     cases = stream_cases(workdir)
     say(f"structures built on the host in {time.time() - t0:.2f} s")
     rows = []
+    synced = False
     for label, ss_cpu, widths, on_path in cases:
         ss = ss_cpu.to(DEVICE)
         m, mt = ss.meta, ss.transpose.meta
@@ -1458,14 +1505,19 @@ def phase_stream_check(workdir):
         say(f"stream {label}: {m.num_senders} -> {m.num_receivers} nodes, {n_edges} "
             f"edges of {m.num_edges}, (tr_w, chunk, mc, wb) = "
             f"{(m.tr_w, m.chunk, m.mc, m.wb)}, slots {m.slots} (transpose "
-            f"{mt.slots}), one-hots {ss.oh is not None}")
+            f"{mt.slots}), one-hots {ss.oh is not None}; the weight gradient reads "
+            f"{dw_dy_reads(ss_cpu)} dy rows at F 128 for its {n_edges} edges")
         mat, pat = _stream_csr(ss)
+        padding = ss.slot_sender >= m.num_senders
         for F in widths:
             x = torch.randn((m.num_senders, F), device=DEVICE, generator=gen)
             g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
             # plain versions on CPU copies: index_add_ sums in slot order there
             xc, gc = x.cpu(), g.cpu()
             hub = label.startswith("hub")
+            if not synced:
+                dw_without_sync(ss, x, g)
+                synced = True
 
             def held(what, got, ss_c, w_c, x_c, mode, plain):
                 """The kernel against its plain version (1e-4) and, on the hub
@@ -1497,9 +1549,12 @@ def phase_stream_check(workdir):
                     ss_cpu.transpose, ss_cpu.transpose.w_slots, gc, dt,
                     lambda: ts.stream_scatter_reference(
                         ss_cpu.transpose, ss_cpu.transpose.w_slots, gc, dt))
-                errs[f"dw {dt}"] = _check(
-                    f"stream_dw {label} F={F} {dt}", ts._dw_launch(ss, x, g, bf16),
-                    ts.stream_dw_reference(ss_cpu, xc, gc, dt).to(DEVICE))
+                dw = ts._dw_launch(ss, x, g, bf16)
+                errs[f"dw {dt}"] = _check(f"stream_dw {label} F={F} {dt}", dw,
+                                          ts.stream_dw_reference(ss_cpu, xc, gc, dt))
+                if bool(dw[padding].ne(0).any()):
+                    raise AssertionError(f"stream_dw {label} F={F} {dt}: a padding "
+                                         "slot is not 0")
             errs["scatter_mat"] = held(
                 f"stream_scatter_mat {label} F={F}", ts._scatter_mat_launch(ss, x),
                 ss_cpu, ss_cpu.oh, xc, "onehot",
@@ -1527,12 +1582,14 @@ def phase_stream_check(workdir):
                 spmm_library=library_ms(lambda: torch.sparse.mm(mat, x), iters),
                 dw=device_ms(lambda: ts._dw_launch(ss, x, g, True), iters),
                 dw_f32=device_ms(lambda: ts._dw_launch(ss, x, g, False), iters),
+                dw_cold=device_ms(lambda: ts._dw_launch(ss, x, g, True), iters, cold=True),
                 dw_plain=device_ms(
                     lambda: ts.stream_dw_reference(ss, x, g, "bfloat16"), iters),
                 dw_library=library_ms(
                     lambda: torch.sparse.sampled_addmm(pat, g, xt, beta=0.0), iters),
             )
             bounds = {k: stream_bound(ss_cpu, F, k) for k in ("scatter", "scatter_mat", "dw")}
+            bounds["dw, every row"] = stream_bound(ss_cpu, F, "dw", touched=False)
             rows.append(dict(label=label, F=F, on_path=on_path, bounds=bounds,
                              scatter_err=max(v for k, v in errs.items()
                                              if k.startswith("scatter ")
@@ -1547,8 +1604,12 @@ def phase_stream_check(workdir):
                 f"{t['scatter_bf16']:.6f}) plain f32 {t['scatter_plain']:.6f}; "
                 f"scatter_mat {t['scatter_mat']:.6f} plain {t['scatter_mat_plain']:.6f}; "
                 f"library spmm {t['spmm_library']}; dw bf16 {t['dw']:.6f} (f32 "
-                f"{t['dw_f32']:.6f}) plain {t['dw_plain']:.6f} library {t['dw_library']}; "
+                f"{t['dw_f32']:.6f}; bf16 with the L2 cold {t['dw_cold']:.6f}) plain "
+                f"{t['dw_plain']:.6f} library {t['dw_library']}; "
                 "bounds " + ", ".join(f"{k} {b:.6f} ({by})" for k, (b, by) in bounds.items()))
+        if label.startswith("rectangular"):
+            rows[-1]["dw_err"] = max(rows[-1]["dw_err"], _check_dw_layouts(label, ss_cpu, ss,
+                                                                           gen))
     _check_stream_gradients(cases)
     return rows
 
@@ -1593,9 +1654,75 @@ def _check_exact(what, got, exact, tol):
     return float(diff.max())
 
 
+def dw_dy_reads(ss):
+    """The dy rows the weight-gradient kernel reads at F 128, where a warp
+    walks a span of the plan's entries holding dy from one entry to the
+    next: one per run of a receiver row in a span."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    plan = ss.plan
+    row = plan.entries[1].long()
+    span = torch.arange(len(row)) // ts._dw_span(plan, 128)
+    return torch.unique_consecutive(span * ss.meta.num_receivers + row).numel()
+
+
+def _check_dw_layouts(label, ss_cpu, ss, gen):
+    """The weight-gradient kernel's lane layouts that the cases' widths
+    leave out, on one structure, both payloads: 4 consecutive columns a
+    lane in groups of 4 (F 16) and 8 (F 32); 4 strided in groups of 4 (F 5),
+    8 (F 27) and 16 (F 33); and F 128 with x and dy off 16-byte alignment (4
+    strided in a group of 32).  Each within 1e-4 of the plain version, its
+    padding slots exactly 0, two launches bitwise equal.  Returns the
+    largest error."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    m = ss.meta
+    padding = ss.slot_sender >= m.num_senders
+    errs = []
+    for F, off in ((5, 0), (16, 0), (27, 0), (32, 0), (33, 0), (128, 1)):
+        # off: the rows start a float past a 16-byte boundary
+        x = torch.randn(m.num_senders * F + off, device=DEVICE, generator=gen)[off:]
+        g = torch.randn(m.num_receivers * F + off, device=DEVICE, generator=gen)[off:]
+        x, g = x.view(m.num_senders, F), g.view(m.num_receivers, F)
+        what = f"stream_dw {label} F={F}" + (" unaligned" if off else "")
+        for dt in ("float32", "bfloat16"):
+            dw = ts._dw_launch(ss, x, g, dt == "bfloat16")
+            errs.append(_check(f"{what} {dt}", dw,
+                               ts.stream_dw_reference(ss_cpu, x.cpu(), g.cpu(), dt)))
+            if bool(dw[padding].ne(0).any()):
+                raise AssertionError(f"{what} {dt}: a padding slot is not 0")
+            if not torch.equal(dw, ts._dw_launch(ss, x, g, dt == "bfloat16")):
+                raise AssertionError(f"{what} {dt}: two launches differ")
+    say(f"  stream_dw lane layouts at F 5, 16, 27, 32, 33 and unaligned 128: max |kernel - "
+        f"plain| {max(errs):.3g}, padding 0, two launches bitwise equal")
+    return max(errs)
+
+
+def dw_without_sync(ss, x, g):
+    """One weight-gradient launch under ``torch.cuda.set_sync_debug_mode(
+    "error")``, where a synchronising call raises."""
+    import torch
+
+    from kgcn_tpu_torch.ops import stream_spmm as ts
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts._dw_launch(ss, x, g, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say("  stream_dw launched under sync debug mode \"error\": no host sync")
+
+
 def _check_repeatable(label, F, ss, x, g):
-    """Two launches of each scatter on the same inputs give the same bits
-    (each sum runs in the plan's fixed order; no atomics on values)."""
+    """Two launches of each scatter and of the weight gradient on the same
+    inputs give the same bits (each sum runs in a fixed order; no atomics on
+    values)."""
     import torch
 
     from kgcn_tpu_torch.ops import stream_spmm as ts
@@ -1607,6 +1734,8 @@ def _check_repeatable(label, F, ss, x, g):
                                                     g, False),
         "scatter_mat": lambda: ts._scatter_mat_launch(ss, x),
         "scatter_mat^T": lambda: ts._scatter_mat_launch(ss.transpose, g),
+        "dw f32": lambda: ts._dw_launch(ss, x, g, False),
+        "dw bf16": lambda: ts._dw_launch(ss, x, g, True),
     }
     for name, run in runs.items():
         if not torch.equal(run(), run()):

@@ -24,7 +24,10 @@
 // What bounds them: an edge gathers one F-wide f32 row of x (4F bytes, from
 // L2 once x has been read: the KG's 40 960 x 128 f32 rows are 21 MB of the
 // 50 MB L2) for 2F FLOP, and the output is written once, so the scatter is
-// bound by bytes and by the latency of dependent gathers.
+// bound by bytes and by the latency of dependent gathers.  dw is bound the
+// same way: per edge one gathered row of x and the receiver's row of dy
+// (both 4F bytes) for 2F FLOP, and 4 bytes out; x and dy must each be read
+// once, so the least time is their bytes at the HBM rate.
 //
 // scatter: the host plan (StreamPlan) lists the real slots in slot order --
 //   which is receiver order -- as (slot, row, sender), cut into pieces of
@@ -47,7 +50,34 @@
 //   real slot (the plan's empty_rows) are written as zeros by all warps in
 //   turn; every row of out is written once, and padding slots and budget
 //   fillers are never visited.
-// dw: one warp per slot (grid-stride), lanes over F, a shuffle reduction.
+// dw: walks the same plan's real entries alone, in slot order, cut into
+//   spans: the scatter's pieces, or where a structure has fewer pieces
+//   than the grid has resident warps and F > 64, spans of down to 8
+//   entries (the host's choice, _dw_span), so that a small structure still
+//   fills the card.  A warp walks a span, the next 32 entries' (slot, row,
+//   sender) prefetched a lane each, so each slot's receiver row comes with
+//   it and no padding slot is read.  A lane holds 4 columns of a pass: 4
+//   consecutive ones, one 16-byte load, where F % 4 == 0 and x and dy are
+//   16-byte aligned, else 4 strided by the group's width; the lanes split
+//   into groups of LPR = 4-32 lanes sized to F (columns past 4 * LPR in
+//   passes, so F 133 takes 2).  A group takes LPR consecutive entries of
+//   each 32 and keeps up to DW_BATCH of them in flight: their x rows, and
+//   dy only where the receiver changes (a streaming load, so that x keeps
+//   the L2).  The entries are in receiver order, so a run of one row loads
+//   dy once (where F takes all 32 lanes in one pass, as F 128 does, a warp
+//   is one group and holds dy across its whole span; a hub row spanning
+//   spans is loaded once a span).  DW_BATCH 8 fits a thread in 128
+//   registers, so two blocks an SM are resident (the strided layout, ~145
+//   registers uncapped, is held to 128).  Each lane sums its columns' products in
+//   order from 0, then a fixed butterfly over the group's lanes (strides
+//   LPR/2 ... 1) finishes every entry's dot, transposed so that a level's
+//   shuffle moves half the values it holds (at LPR 32, 9 shuffles for 8
+//   dots, not 40).  No atomics: two launches give the same bits.  An
+//   entry's lane writes its dot and the warp writes zeros into the padding
+//   slots between it and the entry before (the first span from slot 0);
+//   the padding after the last entry (a macro budget's fillers: most of a
+//   small channel's slots) is cut evenly over all warps.  So every slot of
+//   out is written once in the one launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,8 +92,9 @@ constexpr int GROUP = 128;        // columns a warp sums at a time: 4 per lane
 constexpr int BATCH = 16;         // gathered x rows a warp keeps in flight
 constexpr int SPLIT_WARP = 64;    // split rows of at most this many partials: one warp
 constexpr int ZERO_ROWS = 64;     // empty rows per warp, sizing the grid
-constexpr int SMS = 132;          // H100 SXM
-constexpr int DW_WARPS = 8;       // dw blocks: 8 warps, one slot each
+constexpr int DW_WARPS = 8;       // dw blocks: 8 warps, a piece each
+constexpr int DW_BATCH = 8;       // entries a dw lane group keeps in flight
+constexpr int DW_VEC = 4;         // columns a dw lane holds in a pass
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Weight { W_F32 = 0, W_BF16 = 1, W_ONEHOT = 2 };
@@ -322,37 +353,176 @@ stream_scatter_kernel(const int* __restrict__ ent, const int4* __restrict__ piec
   }
 }
 
-__global__ void __launch_bounds__(DW_WARPS * 32)
-stream_dw_kernel(const int* __restrict__ slot_sender,
-                 const int* __restrict__ r_loc, const int* __restrict__ sub_wid,
-                 const int* __restrict__ macro_rb, const float* __restrict__ x,
-                 const float* __restrict__ dy, float* __restrict__ out,
-                 long long slots, int chunk, int mc, int wb, int tr_w,
-                 int num_senders, int num_receivers, int F, int bf16) {
-  const int lane = threadIdx.x % 32;
-  const long long nwarps = (long long)gridDim.x * DW_WARPS;
-  for (long long slot = (long long)blockIdx.x * DW_WARPS + threadIdx.x / 32;
-       slot < slots; slot += nwarps) {
-    const int s = slot_sender[slot];
-    const long long sub = slot / chunk;
-    const long long r =
-        ((long long)macro_rb[sub / mc] * wb + sub_wid[sub]) * tr_w + r_loc[slot];
-    if (s < 0 || s >= num_senders || r < 0 || r >= num_receivers) {  // padding
-      if (lane == 0) out[slot] = 0.f;
-      continue;
-    }
-    const float* xs = x + (size_t)s * F;
-    const float* dr = dy + (size_t)r * F;
-    float sum = 0.f;
-    for (int k = lane; k < F; k += 32) {
-      float a = xs[k], b = dr[k];
-      if (bf16) { a = round_bf16(a); b = round_bf16(b); }
-      sum += __fmul_rn(a, b);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-    if (lane == 0) out[slot] = sum;
+struct Entry {
+  int slot, row, send;
+};
+
+__device__ __forceinline__ Entry dw_entry(const int* __restrict__ ent, int n_real, int e,
+                                          int e_end) {
+  Entry m{-1, -1, 0};
+  if (e < e_end) {
+    m.slot = __ldg(ent + e);
+    m.row = __ldg(ent + n_real + e);
+    m.send = __ldg(ent + 2 * (size_t)n_real + e);
   }
+  return m;
+}
+
+// the column of a row that lane l of a group of LPR holds as its i-th of
+// DW_VEC in the pass at c0: consecutive ones (CONTIG), else strided by LPR
+template <int LPR, bool CONTIG>
+__device__ __forceinline__ int dw_col(int c0, int l, int i) {
+  return CONTIG ? c0 + l * DW_VEC + i : c0 + l + LPR * i;
+}
+
+// A lane's DW_VEC columns of an F-wide row in the pass at c0, one 16-byte
+// load where they are consecutive (F % 4 == 0), else one load each; columns
+// >= F and entries that are not live read 0.  CS: a streaming (evict-first)
+// load, for dy, whose rows a span reads once a run, so that the L2 keeps
+// the x rows that every edge of a sender gathers again.
+template <int LPR, bool CONTIG, bool CS = false>
+__device__ __forceinline__ void ld_cols(const float* row, int c0, int l, int F, bool live,
+                                        float (&v)[DW_VEC]) {
+  if (CONTIG) {
+    const int c = dw_col<LPR, CONTIG>(c0, l, 0);
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* q = reinterpret_cast<const float4*>(row + c);
+    if (live && c < F) t = CS ? __ldcs(q) : __ldg(q);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < DW_VEC; ++i) {
+      const int c = dw_col<LPR, CONTIG>(c0, l, i);
+      v[i] = live && c < F ? (CS ? __ldcs(row + c) : __ldg(row + c)) : 0.f;
+    }
+  }
+}
+
+// Each of LPR lanes holds N partial sums (N <= LPR, powers of 2); the group's
+// butterfly at strides LPR/2 ... 1 adds them across lanes.  While a lane
+// holds more than one value a level is transposed: the lane keeps half its
+// values (the upper half where its stride bit is set) and adds the partner's
+// copy of them, sending the other half.  After it v[0] holds the whole sum of
+// value (lane % LPR) >> log2(LPR / N), in the lanes sharing those bits.
+template <int N, int LPR>
+__device__ __forceinline__ void reduce_lanes(float (&v)[N], int lane) {
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) {
+    const int half = N * o / LPR;  // values kept at this level; 0: a plain add
+    if (half > 0) {
+      const bool up = lane & o;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        if (k < half) {
+          const float send = up ? v[k] : v[k + half];
+          v[k] = (up ? v[k + half] : v[k]) + __shfl_xor_sync(FULL, send, o);
+        }
+      }
+    } else {
+      v[0] += __shfl_xor_sync(FULL, v[0], o);
+    }
+  }
+}
+
+// zeros into each lane's padding slots [lo, hi), the warp writing one lane's
+// range after another
+__device__ __forceinline__ void zero_gaps(float* __restrict__ out, int lo, int hi, int lane) {
+  unsigned todo = __ballot_sync(FULL, hi > lo);
+  while (todo) {
+    const int j = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int a = __shfl_sync(FULL, lo, j), b = __shfl_sync(FULL, hi, j);
+    for (int s = a + lane; s < b; s += 32) out[s] = 0.f;
+  }
+}
+
+template <bool BF16, int LPR, bool CONTIG>
+__global__ void __launch_bounds__(DW_WARPS * 32, 2)  // <= 128 registers: two blocks an SM
+stream_dw_kernel(const int* __restrict__ ent, const float* __restrict__ x,
+                 const float* __restrict__ dy, float* __restrict__ out, int n_real,
+                 int n_spans, int span, long long slots, int F) {
+  constexpr int VEC = DW_VEC;
+  constexpr int SUB = LPR < DW_BATCH ? LPR : DW_BATCH;  // a group's entries in flight
+  constexpr int SHIFT = LPR / SUB == 1 ? 0 : LPR / SUB == 2 ? 1 : LPR / SUB == 4 ? 2 : 3;
+  const int lane = threadIdx.x % 32;
+  const int grp = lane / LPR, l = lane % LPR;
+  const int p = blockIdx.x * DW_WARPS + threadIdx.x / 32;
+  const int e0 = p * span, e1 = p < n_spans ? min(e0 + span, n_real) : e0;
+  // a warp that is one group in one pass keeps dy from entry to entry
+  const bool carry = LPR == 32 && F <= 32 * VEC;
+  int held = -1;  // the row whose dy the lane holds in hd
+  float hd[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) hd[i] = 0.f;
+  int before = e0 > 0 && e0 < e1 ? __ldg(ent + e0 - 1) : -1;  // the slot before the batch
+  Entry nxt = dw_entry(ent, n_real, e0 + lane, e1);
+  for (int b = e0; b < e1; b += 32) {
+    const Entry me = nxt;
+    nxt = dw_entry(ent, n_real, b + 32 + lane, e1);
+    const int n = min(32, e1 - b);
+    const int prev = __shfl_up_sync(FULL, me.slot, 1);
+    const int lo = (lane == 0 ? before : prev) + 1;
+    before = __shfl_sync(FULL, me.slot, n - 1);
+    zero_gaps(out, lo, lane < n ? me.slot : lo, lane);
+
+#pragma unroll
+    for (int h = 0; h < LPR; h += SUB) {
+      if (h >= n) break;  // every group's entries from h on lie past the span
+      int rw[SUB], sd[SUB];
+      float acc[SUB];
+#pragma unroll
+      for (int u = 0; u < SUB; ++u) {
+        const int j = grp * LPR + h + u;  // the group's u-th entry of this sub-batch
+        rw[u] = __shfl_sync(FULL, me.row, j);
+        sd[u] = __shfl_sync(FULL, me.send, j);
+        acc[u] = 0.f;
+      }
+      for (int c0 = 0; c0 < F; c0 += LPR * VEC) {
+        float xv[SUB][VEC], dv[SUB][VEC];
+        bool fresh[SUB];
+        // every load first: the x rows, and dy where the receiver changes
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {
+          const bool live = grp * LPR + h + u < n;
+          fresh[u] = u == 0 ? !(carry && rw[0] == held) : rw[u] != rw[u - 1];
+          ld_cols<LPR, CONTIG>(x + (size_t)sd[u] * F, c0, l, F, live, xv[u]);
+          if (fresh[u])
+            ld_cols<LPR, CONTIG, true>(dy + (size_t)rw[u] * F, c0, l, F, live, dv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {  // dy rounded once a run
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            dv[u][i] = !fresh[u] ? (u == 0 ? hd[i] : dv[u - 1][i])
+                       : BF16 ? round_bf16(dv[u][i]) : dv[u][i];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            acc[u] += __fmul_rn(BF16 ? round_bf16(xv[u][i]) : xv[u][i], dv[u][i]);
+          }
+        }
+        if (carry) {
+          held = rw[SUB - 1];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) hd[i] = dv[SUB - 1][i];
+        }
+      }
+      reduce_lanes<SUB, LPR>(acc, lane);
+      const int j = grp * LPR + h + (l >> SHIFT);  // the entry whose dot this lane holds
+      const int slot = __shfl_sync(FULL, me.slot, j);
+      if ((l & ((1 << SHIFT) - 1)) == 0 && j < n) __stcs(out + slot, acc[0]);
+    }
+  }
+  // the padding after the last real slot (a macro budget's fillers may be
+  // most of the slots), cut evenly over every warp of the grid
+  const long long lo = n_real > 0 ? (long long)__ldg(ent + n_real - 1) + 1 : 0;
+  const long long nw = (long long)gridDim.x * DW_WARPS;
+  const long long per = ((slots - lo + nw - 1) / nw + 31) / 32 * 32;
+  const long long end = min(lo + (p + 1) * per, slots);
+  for (long long s = lo + p * per + lane; s < end; s += 32) out[s] = 0.f;
 }
 
 template <int WK, bool VEC>
@@ -384,6 +554,37 @@ cudaError_t launch_scatter_vec(const int* ent, const int* pieces, const int* spl
              : launch_scatter<WK, false>(ent, pieces, splits, empty_rows, arrivals, w, x,
                                          out, part, n_real, n_pieces, n_empty, piece,
                                          tr_w, F, stream);
+}
+
+template <bool BF16, bool CONTIG>
+cudaError_t launch_dw(const int* ent, const float* x, const float* dy, float* out,
+                      int n_real, int n_spans, int span, long long slots, int F,
+                      cudaStream_t stream) {
+  const int lanes = (F + DW_VEC - 1) / DW_VEC;
+  const int lpr = lanes <= 4 ? 4 : lanes <= 8 ? 8 : lanes <= 16 ? 16 : 32;
+  const int blocks = std::max((n_spans + DW_WARPS - 1) / DW_WARPS, 1);
+  switch (lpr) {
+#define KGCN_DW(L)                                                           \
+  case L:                                                                    \
+    stream_dw_kernel<BF16, L, CONTIG><<<blocks, DW_WARPS * 32, 0, stream>>>( \
+        ent, x, dy, out, n_real, n_spans, span, slots, F);                   \
+    break;
+    KGCN_DW(4) KGCN_DW(8) KGCN_DW(16) KGCN_DW(32)
+#undef KGCN_DW
+  }
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_dw_vec(const int* ent, const float* x, const float* dy, float* out,
+                          int n_real, int n_spans, int span, long long slots, int F,
+                          cudaStream_t stream) {
+  // 16-byte rows when F % 4 == 0 and x and dy start 16-byte aligned; else
+  // 4 columns a lane strided by the group's width, as the scatter's scalar
+  // path
+  if (F % 4 == 0 && ((uintptr_t)x | (uintptr_t)dy) % 16 == 0)
+    return launch_dw<BF16, true>(ent, x, dy, out, n_real, n_spans, span, slots, F, stream);
+  return launch_dw<BF16, false>(ent, x, dy, out, n_real, n_spans, span, slots, F, stream);
 }
 
 }  // namespace
@@ -423,19 +624,22 @@ int kgcn_stream_scatter(const int* entries, const int* pieces, const int* splits
   }
 }
 
-// out [slots]: per slot <dy[receiver], x[sender]> (0 in padding slots),
-// x [num_senders, F], dy [num_receivers, F].  Same conventions.
-int kgcn_stream_dw(const int* slot_sender, const int* r_loc,
-                   const int* sub_wid, const int* macro_rb, const float* x,
-                   const float* dy, float* out, long long slots, int chunk,
-                   int mc, int wb, int tr_w, int num_senders,
-                   int num_receivers, int F, int bf16, void* stream) {
-  long long blocks = (slots + DW_WARPS - 1) / DW_WARPS;
-  if (blocks > SMS * 16) blocks = SMS * 16;  // grid-stride past 16 blocks/SM
-  stream_dw_kernel<<<(unsigned)blocks, DW_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      slot_sender, r_loc, sub_wid, macro_rb, x, dy, out, slots, chunk, mc, wb,
-      tr_w, num_senders, num_receivers, F, bf16);
-  return (int)cudaGetLastError();
+// out [slots]: per slot <dy[receiver], x[sender]>, 0 in padding slots, over
+// the StreamPlan's entries [3, n_real] (slot, receiver row, sender) cut
+// into n_spans spans of `span` entries, a warp each; x [num_senders, F],
+// dy [num_receivers, F]; bf16: round both operands to bf16.  Writes every
+// slot of out once.  Same conventions as kgcn_stream_scatter.
+int kgcn_stream_dw(const int* entries, const float* x, const float* dy, float* out,
+                   int n_real, int n_spans, int span, long long slots, int F, int bf16,
+                   void* stream) {
+  if (span <= 0 || F < 0 || n_real < 0 || slots < n_real ||
+      (long long)n_spans * span < n_real)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? (int)launch_dw_vec<true>(entries, x, dy, out, n_real, n_spans, span, slots,
+                                         F, s)
+              : (int)launch_dw_vec<false>(entries, x, dy, out, n_real, n_spans, span,
+                                          slots, F, s);
 }
 
 const char* kgcn_cuda_error_string(int code) {

@@ -23,7 +23,9 @@ block's sub-chunks into macros of ``mc``; padding slots carry sender
 JAX package's array for array.  The port adds a ``StreamPlan`` per direction
 (``_build_plan``): the real slots cut into pieces of equal size for the CUDA
 scatter kernels, with the receiver rows that pieces share, so a kernel's
-time follows the real edges and not the largest in-degree.
+time follows the real edges and not the largest in-degree; the
+weight-gradient kernel walks the same entries (in the plan's pieces, or in
+shorter spans on a small structure: ``_dw_span``).
 
 Device side: on CUDA tensors the dispatchers ``stream_scatter``,
 ``stream_scatter_mat`` and ``stream_dw`` launch the hand-written Hopper
@@ -38,7 +40,9 @@ one-hots hold bf16 weights), each product is exact in f32 and the sums run
 in f32; the dx pass rounds ``dy``, the weight gradient rounds ``dy`` and x.
 ``"float32"`` rounds nothing.  The plain versions sum each output row in
 slot order; the scatter kernels in the plan's fixed order (pieces, then a
-split row's partials), so two launches give the same bits.
+split row's partials), the weight-gradient kernel each slot's products in a
+fixed order of columns (per lane, then across lanes), so two launches give
+the same bits.
 """
 from __future__ import annotations
 
@@ -146,11 +150,12 @@ def _piece_size(n_real: int) -> int:
 
 @dataclasses.dataclass
 class StreamPlan:
-    """The scatter kernels' cut of one direction's real slots (host-built by
-    ``_build_plan``).  Piece ``p`` is entries ``[p·piece, (p+1)·piece)``; a
-    warp sums it in order, writing each receiver row that lies in this piece
-    alone straight to the output, and the first and last rows, where other
-    pieces share them, to partial rows.  A row whose slots span pieces
+    """The stream kernels' cut of one direction's real slots (host-built by
+    ``_build_plan``; the weight-gradient kernel walks the entries alone).
+    Piece ``p`` is entries ``[p·piece, (p+1)·piece)``; a warp sums it in
+    order, writing each receiver row that lies in this piece alone straight
+    to the output, and the first and last rows, where other pieces share
+    them, to partial rows.  A row whose slots span pieces
     ("split") is then the sum of its partials, taken in a fixed order by the
     last CUDA block of ``PIECES_PER_BLOCK`` pieces to write one of them.
 
@@ -508,7 +513,7 @@ def _lib():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kgcn_stream_scatter.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
         lib.kgcn_stream_scatter.restype = ctypes.c_int
-        lib.kgcn_stream_dw.argtypes = [ptr] * 7 + [i64] + [i32] * 8 + [ptr]
+        lib.kgcn_stream_dw.argtypes = [ptr] * 4 + [i32] * 3 + [i64] + [i32] * 2 + [ptr]
         lib.kgcn_stream_dw.restype = ctypes.c_int
     return lib
 
@@ -576,24 +581,43 @@ def _scatter_mat_launch(ss: StreamCOO, x):
     return out
 
 
+# entries a warp of the weight-gradient kernel keeps in flight where one
+# lane group is the whole warp (F > 64; csrc/stream.cu's DW_BATCH)
+_DW_BATCH = 8
+
+
+def _dw_span(plan: StreamPlan, F: int) -> int:
+    """Entries a warp of the weight-gradient kernel walks: the plan's piece;
+    where the plan has fewer than ``_TARGET_PIECES`` pieces and F > 64 (a
+    lane group of 32 lanes, ``_DW_BATCH`` entries in flight), a multiple of
+    ``_DW_BATCH`` down to it, so that about ``_TARGET_PIECES`` warps share a
+    small structure's entries.  (Narrower F packs 32 entries in flight into
+    a warp, the plan's smallest piece.)"""
+    n_real = plan.entries.shape[1]
+    if F <= 64 or _cdiv(n_real, plan.piece) >= _TARGET_PIECES:
+        return plan.piece
+    return min(plan.piece, _DW_BATCH * max(1, _cdiv(n_real, _DW_BATCH * _TARGET_PIECES)))
+
+
 def _dw_launch(ss: StreamCOO, x, dy, bf16: bool):
-    """One launch of the weight-gradient kernel → ``[slots]`` f32."""
-    m = ss.meta
+    """One launch of the weight-gradient kernel over ``ss.plan``'s real
+    entries in spans of ``_dw_span`` → ``[slots]`` f32, every padding slot
+    written as 0 in the same launch."""
+    m, plan = ss.meta, ss.plan
     dev = x.device
-    _check_ints(ss, ("slot_sender", "r_loc", "sub_wid", "macro_rb"), dev)
+    _check_ints(plan, ("entries",), dev)
     _check_operand("x", x, (m.num_senders, x.shape[1]), torch.float32, dev)
     _check_operand("dy", dy, (m.num_receivers, x.shape[1]), torch.float32, dev)
     out = torch.empty(m.slots, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib = _lib()
+    n_real, span = plan.entries.shape[1], _dw_span(plan, x.shape[1])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.kgcn_stream_dw(
-            ss.slot_sender.data_ptr(), ss.r_loc.data_ptr(), ss.sub_wid.data_ptr(),
-            ss.macro_rb.data_ptr(), x.data_ptr(), dy.data_ptr(), out.data_ptr(),
-            m.slots, m.chunk, m.mc, m.wb, m.tr_w, m.num_senders, m.num_receivers,
-            x.shape[1], int(bf16), stream)
+            plan.entries.data_ptr(), x.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            n_real, _cdiv(n_real, span), span, m.slots, x.shape[1], int(bf16), stream)
     _build.check(lib, code, "stream_dw launch")
     stream_dw.launches += 1
     return out

@@ -266,6 +266,133 @@ def test_plan_emulation_matches_reference(name, dtype):
                 ts.stream_scatter_mat_reference(ss, ss.oh, x).numpy(), **F32)
 
 
+# csrc/stream.cu: entries a weight-gradient lane group keeps in flight
+DW_BATCH = 8
+
+
+def _dw_layout(F):
+    """(LPR, CONTIG) of the weight-gradient kernel at width F: 4 columns a
+    lane, consecutive where F % 4 == 0 (the operands on the card being
+    16-byte aligned), else strided by LPR; LPR lanes a group (4-32, the
+    fewest that cover F)."""
+    lanes = -(-F // 4)
+    return next(n for n in (4, 8, 16, 32) if lanes <= n or n == 32), F % 4 == 0
+
+
+def _emulate_dw(ss, x, dy, dtype):
+    """The weight-gradient kernel's walk in PyTorch: the plan's entries in
+    spans of ``_dw_span``, each lane group's run of one receiver reading dy
+    once (at most ``DW_BATCH`` entries a group at a time; a warp holds it
+    across its span where it is one group in one pass) — the dy each entry
+    multiplies is the one its run's first entry read; per entry each lane
+    sums its columns' products from 0 in order, then the group's lanes in a
+    butterfly at strides LPR/2 … 1; the padding slots between an entry and
+    the one before it, and after the last one (spread over the grid's
+    warps), written as zeros.  Checks that every slot is written once.
+    Returns (out, dy row reads)."""
+    m, plan = ss.meta, ss.plan
+    slot, row, send = plan.entries.long()
+    n = len(slot)
+    F = x.shape[1]
+    span = ts._dw_span(plan, F)
+    lpr, contig = _dw_layout(F)
+    sub = min(lpr, DW_BATCH)
+    passes = max(1, -(-F // (lpr * 4)))
+    carry = lpr == 32 and passes == 1
+    assert span % sub == 0
+    e = torch.arange(n)
+    # where the held dy ends: a span's start, else every sub-batch of a group
+    start = (e % span == 0) if carry else (e % span % sub == 0)
+    fresh = start | torch.cat([torch.ones(min(n, 1), dtype=torch.bool), row[1:] != row[:-1]])
+    loader = torch.cummax(torch.where(fresh, e, -1), 0).values
+    assert (row[loader] == row).all()
+    xs, dr = x.to(torch.float32)[send], dy.to(torch.float32)[row[loader]]
+    if dtype == "bfloat16":
+        xs, dr = ts._rb(xs), ts._rb(dr)
+    prod = torch.zeros((n, passes * lpr * 4))
+    prod[:, :F] = xs * dr
+    # [entry, pass, lane, column of the lane] -> each lane's columns in order
+    if contig:
+        lanes = prod.reshape(n, passes, lpr, 4).permute(0, 2, 1, 3)
+    else:
+        lanes = prod.reshape(n, passes, 4, lpr).permute(0, 3, 1, 2)
+    lanes = lanes.reshape(n, lpr, passes * 4)
+    acc = torch.zeros((n, lpr))
+    for k in range(lanes.shape[2]):
+        acc = acc + lanes[:, :, k]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    out = torch.full((m.slots,), float("nan"))
+    out[slot] = acc[:, 0]
+    written = torch.zeros(m.slots + 1, dtype=torch.long)
+    written.index_add_(0, slot, torch.ones_like(slot))
+    # each entry's gap (prev + 1 .. slot) and the tail, as +1/-1 at the ends
+    lo = torch.cat([torch.tensor([-1]), slot]) + 1
+    hi = torch.cat([slot, torch.tensor([m.slots])])
+    cover = torch.zeros(m.slots + 1, dtype=torch.long)
+    cover.index_add_(0, lo, torch.ones_like(lo)).index_add_(0, hi, -torch.ones_like(hi))
+    gap = torch.cumsum(cover, 0)[:m.slots]
+    out[gap > 0] = 0.0
+    assert ((written[:m.slots] + gap) == 1).all()
+    return out, int(fresh.sum()) * passes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_dw_emulation_matches_reference(name, dtype):
+    """The weight-gradient kernel's walk gives the plain version's values in
+    both directions, at the structure's width and at 27, 64, 128, 133 and
+    200 — every lane layout: 4 consecutive columns a lane in groups of 4
+    (F 12, 16), 8 (hub F 24), 16 (64) and 32 (128, 200 in two passes), and
+    4 strided in groups of 4 (``odd`` F 5), 8 (27), 16 (``wide`` F 33) and 32
+    (133) — with the padding slots exactly 0 (float32 rtol = atol = 1e-5:
+    only the order of the f32 sums differs; bf16 the same, its products
+    being exact), and reads dy once per run of a receiver within a lane
+    group's stretch."""
+    te = _port_structure(name)
+    F0 = 24 if name == "hub" else next(c[4] for c in CASES if c[0] == name)
+    for i, ss in enumerate((te, te.transpose)):
+        m = ss.meta
+        valid = (ss.slot_sender < m.num_senders).numpy()
+        for F in (F0, 27, 64, 128, 133, 200):
+            x = torch.from_numpy(_x(m.num_senders, F, seed=40 + i))
+            dy = torch.from_numpy(_x(m.num_receivers, F, seed=50 + i))
+            got, reads = _emulate_dw(ss, x, dy, dtype)
+            np.testing.assert_allclose(
+                got.numpy(), ts.stream_dw_reference(ss, x, dy, dtype).numpy(), **F32)
+            assert not got[~valid].any()
+            rows = ss.plan.entries[1].long()
+            lpr, _ = _dw_layout(F)
+            assert reads <= len(rows) * -(-F // (lpr * 4))
+            if F == 128:  # one pass: a run of one row within a span reads dy once
+                span = torch.arange(len(rows)) // ts._dw_span(ss.plan, F)
+                assert reads == len(torch.unique(torch.stack([span, rows]), dim=1).T)
+
+
+@pytest.mark.parametrize("n_real, F, want", [
+    (41_103, 128, 24),      # the KG's smallest channel: 1 285 pieces of 32
+    (110_359, 128, 56),     # its largest: 1 725 pieces of 64
+    (9_600, 133, 8),        # 300 pieces of 32
+    (41_103, 64, 32),       # two lane groups a warp: the plan's piece
+    (1_000_000, 128, 496),  # 1 954 pieces of 512
+    (2_000_000, 128, 512),  # enough pieces
+    (0, 128, 8),
+])
+def test_dw_span_fills_small_structures(n_real, F, want):
+    """The weight-gradient kernel's span: the plan's piece, shortened where
+    F > 64 and the plan has fewer pieces than ``_TARGET_PIECES``, to a
+    multiple of 8 that gives about that many warps."""
+    plan = ts.StreamPlan(piece=ts._piece_size(n_real),
+                         entries=torch.zeros((3, n_real), dtype=torch.int32),
+                         pieces=None, splits=None, empty_rows=None, arrivals=None,
+                         n_parts=0)
+    span = ts._dw_span(plan, F)
+    assert span == want and span % 8 == 0 and span <= plan.piece
+    if span < plan.piece:
+        assert -(-n_real // span) <= ts._TARGET_PIECES
+
+
 @pytest.mark.parametrize("name", PLAN_NAMES)
 def test_onehot_rows_hold_one_entry_at_r_loc(name):
     """The one-hot kernel reads ``oh[slot, r_loc[slot]]`` alone:
@@ -329,11 +456,12 @@ def test_stream_spmm_baked_matches_jax(name, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["square", "rectangular", "budget"])
+@pytest.mark.parametrize("name", ["square", "rectangular", "budget", "odd", "wide"])
 def test_stream_spmm_gradients_match_jax_grad(name, dtype):
     """Dynamic edge-order weights (``stream_spmm_edges``): value, dx through
     the transpose structure and d(weights) through the weight-gradient
-    kernel's plain version, against ``jax.grad``."""
+    kernel's plain version, against ``jax.grad`` (``odd`` and ``wide``: F 5
+    and 33, the kernel's small lane groups and strided columns)."""
     V, Vs, F, s, r, w, je, te = _both(name)
     x = _x(Vs, F, seed=1)
     cot = _x(V, F, seed=2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this checkout of the port against another one on the GPU, in turns.
 
-    python3 tree_compare.py BASE [--out chiprun_out/tree_compare.json]
+    python3 tree_compare.py BASE [--out chiprun_out/tree_compare.json] [--parts ell,stream_dw]
 
 BASE is a directory holding another checkout's ``kgcn_tpu_torch`` (for
 example a parent commit unpacked with ``git archive`` into a git-ignored
@@ -10,13 +10,22 @@ directory).  The script copies that package to
 both packages' kernels, and times the two through their public entry points
 only, so that any two checkouts which share them can be compared:
 
-* the ELL aggregation on the pallas backend (``ops/spmm.ell_aggregate``):
+* the ELL aggregation on the pallas backend (``ops/spmm.ell_aggregate``,
+  given the host-built transposed slot lists where the tree takes them):
   its forward, and forward plus the backward's dx, on a ring6 training
   batch (25 graphs of 6 nodes: V 150, K 5, F 3 and 50), on three ring6
   batches as channels (C 3, F 50), and on V 10⁵, K 10, F 128;
 * the tiled SDDMM (``ops/tiled_spmm.tiled_sddmm``, bf16 payload) on the GAT
   batch of ``example_config/gat.json`` (F 50) and on a uniform graph of
   10⁵ nodes and 10⁶ edges (F 128, ``choose_tiling``'s tiling);
+* the stream weight gradient (``ops/stream_spmm.stream_dw``, bf16 and f32
+  payloads) on ``chip_smoke.stream_cases``' KG largest and smallest
+  relation channels (of the WN18RR-shaped KG it generates), its uniform
+  graph of 10⁵ nodes and 10⁶ edges and its hub graph (50 000 in-edges into
+  one receiver), at F 128, and its rectangular (5 000 → 3 000 nodes) and
+  macro-budget-padded (2 000 nodes) graphs at F 40, 64, 133 and 200, each
+  tree building the structures from the same edges and macro count (the
+  KG's channels are padded to one macro budget);
 * training steps of GIN (pallas, ring6 data) and GAT (tiled,
   ``example_config/gat.json``): two trainers of BASE (A and B) and one of
   this tree (N) from one seed, stepped in rotation on the same host batches,
@@ -26,10 +35,12 @@ only, so that any two checkouts which share them can be compared:
 
 Device times are ``chip_smoke.device_ms`` (torch.profiler, every CUDA
 kernel of the call) taken in the order base, new, new, base.  Prints one
-line per measure and writes every number to ``--out`` as JSON.  Needs one
+line per measure and writes every number to ``--out`` as JSON;
+``--parts`` takes a subset of the measures.  Needs one
 CUDA device; exits non-zero without one.
 """
 import argparse
+import inspect
 import json
 import os
 import pickle
@@ -45,6 +56,8 @@ GAT_CONFIG = os.path.join(ROOT, "example_config", "gat.json")
 DEVICE = "cuda"
 SCALE = (100_000, 1_000_000)  # the SDDMM's uniform graph: nodes, edges
 V_ELL = 100_000               # the ELL case at scale: V rows of K 10
+SMALL_WIDTHS = (40, 64, 133, 200)  # the stream weight gradient's small structures
+PARTS = ("ell", "sddmm", "stream_dw", "steps")
 
 
 def say(msg):
@@ -76,7 +89,8 @@ def packages(base):
     out = {}
     for tag, name in (("base", "kgcn_tpu_torch_base"), ("new", "kgcn_tpu_torch")):
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
-            "ops._build", "ops.spmm", "ops.tiled_spmm", "data.batcher", "data.dataset",
+            "ops._build", "ops.spmm", "ops.tiled_spmm", "ops.stream_spmm",
+            "data.batcher", "data.dataset",
             "data.synthetic", "runtime.backend", "runtime.config", "runtime.train",
             "models.registry")}
         if DEVICE == "cuda":  # every kernel, one compiler process a source
@@ -153,16 +167,17 @@ def ell_kernels(P, rows):
     for label, idx_h, w_h, widths in cases:
         C, V, K = idx_h.shape
         idx, w = idx_h.to(DEVICE), w_h.to(DEVICE)
+        transpose = tuple(torch.from_numpy(a).to(DEVICE) for a in
+                          ell_transpose(idx_h.numpy(), w_h.numpy(), V))
         for F in widths:
             x = torch.randn((V, F), device=DEVICE, generator=gen)
             g = torch.randn((V, F), device=DEVICE, generator=gen)
             fns_f, fns_b = {}, {}
             for tag in ("base", "new"):
                 agg = P[tag]["ops.spmm"].ell_aggregate
-                kw = {}
-                if tag == "new":
-                    kw["transpose"] = tuple(torch.from_numpy(a).to(DEVICE) for a in
-                                            ell_transpose(idx_h.numpy(), w_h.numpy(), V))
+                # the host-built transposed lists, to each tree that takes them
+                takes = "transpose" in inspect.signature(agg).parameters
+                kw = {"transpose": transpose} if takes else {}
                 xg = x.clone().requires_grad_(True)
                 fns_f[tag] = (lambda agg=agg, kw=kw: agg(idx, w, x, "pallas", **kw))
                 fns_b[tag] = (lambda agg=agg, kw=kw, xg=xg: torch.autograd.grad(
@@ -200,6 +215,42 @@ def sddmm_kernels(P, rows):
         if not torch.allclose(got["base"], got["new"], rtol=1e-4, atol=1e-4):
             raise AssertionError(f"tiled_sddmm {label}: base and new differ")
         report(rows, f"tiled_sddmm {label} F {F}", in_turns(fns, 10 if F == 128 else 50))
+
+
+def stream_dw_kernels(P, rows):
+    import numpy as np
+    import torch
+
+    from chip_smoke import stream_cases
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    for label, ss_new, widths, _ in stream_cases(WORK):
+        if "order-1" in label:
+            continue
+        if label.startswith(("rectangular", "budget")):
+            widths = SMALL_WIDTHS
+        _, row, send = ss_new.plan.entries.long().numpy()
+        m = ss_new.meta
+        structs = {}
+        for tag in ("base", "new"):
+            st = P[tag]["ops.stream_spmm"]
+            structs[tag] = st.build_stream(  # the forward direction, macros padded alike
+                send, row, m.num_receivers, weights=np.ones(len(row), np.float32),
+                num_sender_nodes=m.num_senders, with_transpose=False,
+                macro_budget=m.n_macros, materialize=False,
+                **st.choose_stream(send, row, m.num_receivers, widths[0])).to(DEVICE)
+        for F in widths:
+            x = torch.randn((m.num_senders, F), device=DEVICE, generator=gen)
+            g = torch.randn((m.num_receivers, F), device=DEVICE, generator=gen)
+            for bf16 in (True, False):
+                fns = {tag: (lambda tag=tag, bf16=bf16, x=x, g=g: P[tag][
+                    "ops.stream_spmm"].stream_dw(structs[tag], x, g, bf16))
+                    for tag in ("base", "new")}
+                got = {tag: fn() for tag, fn in fns.items()}
+                if not torch.allclose(got["base"], got["new"], rtol=1e-4, atol=1e-4):
+                    raise AssertionError(f"stream_dw {label} F {F}: base and new differ")
+                report(rows, f"stream_dw {label} F {F} {'bf16' if bf16 else 'f32'}",
+                       in_turns(fns, 10 if len(row) > 500_000 else 50))
 
 
 def step_walls(P, rows, runs=3):
@@ -267,6 +318,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", help="directory holding the other checkout's kgcn_tpu_torch")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "tree_compare.json"))
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated measures to take, of {', '.join(PARTS)}")
     args = ap.parse_args()
     import torch
 
@@ -281,10 +334,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     say(f"nvidia-smi: {smi}")
+    parts = args.parts.split(",")
+    if set(parts) - set(PARTS):
+        ap.error(f"--parts: unknown {sorted(set(parts) - set(PARTS))}")
     rows = []
-    ell_kernels(P, rows)
-    sddmm_kernels(P, rows)
-    step_walls(P, rows)
+    for name, fn in zip(PARTS, (ell_kernels, sddmm_kernels, stream_dw_kernels, step_walls)):
+        if name in parts:
+            fn(P, rows)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": smi, "rows": rows}, f, indent=1)
