@@ -35,7 +35,9 @@ non-zero exit and no result line:
    version's per-edge form; two launches of the SpMM and of the SDDMM
    bitwise equal; device times as in phase 3, the library calls being
    torch.sparse.mm and torch.sparse.sampled_addmm;
-5. train — ``python -m kgcn_tpu_torch.cli.main train`` in this process:
+5. train — ``python -m kgcn_tpu_torch.cli.main train`` in this process,
+   the streaming loop (the dense runs with ``device_resident`` false; phase
+   11 runs the resident default):
    the tiled solubility GCN and the tiled GAT for 2 epochs (finite, falling
    training cost, the [SAVE] and [restore] lines, every file written, and
    kernel launches = 6 SpMM per GCN step, 6 SpMM + 3 SDDMM per GAT step,
@@ -97,9 +99,13 @@ non-zero exit and no result line:
    ``cli.main train`` (KG GCN encoder, width 128, label batch 1024, 2 epochs,
    spmm_backend auto → stream, bf16 payload) and ``cli.main infer`` in this
    process: finite falling cost, the checkpoint, finite ranking metrics, and
-   exact launch counts (4·C one-hot scatters per step, 2·C per infer, no
-   weight gradient); the same with the float32 payload for 1 epoch (4·C
-   iota-route scatters per step); the first 3 steps of the float32 run on
+   exact launch counts (training runs the scanned epoch, each step replayed
+   from a captured CUDA graph: the wrappers count the warm-up and the
+   capture, 4·C × 3 one-hot scatters, and torch.profiler records 4·C a
+   step over the steps and the 2 warm-up steps, one graph launch a step;
+   2·C per infer; no weight gradient); the same with the float32 payload
+   for 1 epoch (4·C iota-route scatters per step); the first 3 steps of
+   the float32 run on
    the GPU and on the CPU from one seed (costs within 1e-3 relative); and a
    step breakdown (the graph batch's host build and its stream structures,
    host ms per step, step wall time, device busy time and idle share);
@@ -122,7 +128,8 @@ non-zero exit and no result line:
    on a CSR of the same slots (its transpose for dx);
 10. ell — a ring dataset of 6-node graphs (``make_ring_dataset(num_pairs=
    1000, num_nodes=6, seed=0)``, which the ELL gate admits) written as a
-   pickle, then ``cli.main train`` for gin (example_config/gin.json's
+   pickle, then ``cli.main train`` (the streaming loop, ``device_resident``
+   false) for gin (example_config/gin.json's
    settings, spmm_backend pallas, 2 epochs) and ``cli.main infer``, and gcn
    for 1 epoch: exact launch counts (one forward launch per aggregation,
    whatever C: 2 per GIN forward, 3 per GCN forward; one dx launch per
@@ -132,13 +139,39 @@ non-zero exit and no result line:
    breakdown with the idle share; then gin on example_config/gin.json
    itself with pallas and with xla, where the gate refuses ELL: 0 ELL
    launches and, on pallas, the JAX package's fallback message;
-11. summary — one JSON line of kernel numbers, then the result line.
+11. runners — the whole-epoch runners (``runtime/resident.py``,
+   ``runtime/runner.py``) at full width: for the dense solubility GCN, the
+   dense GAT (example_config/gat.json) and GIN with pallas on ring6 (the
+   training split of each), 2 epochs of the resident runner eager
+   (``Trainer(capture=False)``) and captured from seed 0 with dropout 0:
+   per-step costs and every parameter bitwise equal; the captured epochs,
+   capture and replays, under ``torch.cuda.set_sync_debug_mode("error")``;
+   the kernels torch.profiler records in them equal to the eager runner's
+   per-step launches (the wrappers' counts) over the replayed steps and the
+   2 warm-up steps, and one CUDA graph launch a step; GPU (captured) vs CPU
+   per-epoch costs within 1e-3; for the GCN with dropout 0.2, two captured
+   epochs from one state differ at every step (fresh masks each replay)
+   and the captured epoch against the eager one; one epoch's step wall,
+   device busy and idle share of the streaming loop, the resident runner
+   eager and captured, in turns; then ``cli.main train`` (2 epochs) and
+   ``infer`` with ``device_resident`` at its default: one graph launch a
+   training step and evaluated batch, the profiler's kernel launches as
+   predicted.  The KG (bf16, WN18RR-shaped): 2 scanned epochs eager and
+   captured, bitwise equal, the same launch and sync checks; one f32
+   epoch of 3 label slices GPU vs CPU (1e-3); the per-batch loop, the
+   scanned epoch eager and captured timed in turns;
+12. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases 5,
-6, 8 and 10) and read just after; the summary's ``launches`` add up the
+6, 8, 10 and 11) and read just after; the summary's ``launches`` add up the
 tiled GCN, tiled GAT and dense GCN training runs and the serve run, the KG
-runs (train and infer) for the stream kernels, and the ring runs (train and
-infer) for the ELL kernel.
+runs (train and infer) for the stream kernels, the ring runs (train and
+infer) for the ELL kernel, and phase 11's resident ``train`` and ``infer``
+runs.  A step replayed from a captured CUDA graph launches its kernels
+from the graph, where no wrapper counts: for those runs (the KG training,
+phase 11's) the launches are torch.profiler's records, and the wrappers'
+counts (the warm-up and the capture) only show that the kernels are in
+the graph.
 Exits non-zero without a CUDA device and outside a checkout of the repo.
 ``SCALE`` and ``KG_SHRINK`` cut the scale case and the KG for a rehearsal
 on the CPU, with ``DEVICE = "cpu"`` and the kernels' launch functions
@@ -259,14 +292,19 @@ def device_ms(fn, iters, attempts=3, cold=False):
 
     flush = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE) if cold else None
     skip = set()
-    if cold:
+    # the flush's kernel names; an empty window (they come in runs on the
+    # H100, see kernels_in) is taken again after a growing pause
+    for attempt in range(10 if cold else 0):
+        time.sleep(0.1 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 flush.zero_()
             torch.cuda.synchronize()
         skip = {ev.key for ev in kernels(prof)}
-        if not skip:
-            raise AssertionError("torch.profiler recorded no kernel of the L2 flush")
+        if skip:
+            break
+    if cold and not skip:
+        raise AssertionError("torch.profiler recorded no kernel of the L2 flush")
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -835,15 +873,17 @@ def phase_train(workdir):
     _expect("train gat_tiled", counts, {"tiled_spmm": 6 * steps + 3 * evals,
                                         "tiled_sddmm": 3 * steps})
     add(counts)
+    # the streaming loop (device_resident false); phase 11 runs the default,
+    # the resident runners
     _, counts, steps, evals, _ = train_run(workdir, "gcn_dense", CONFIG, 1,
-                                           falling=False)
+                                           falling=False, device_resident=False)
     _expect("train gcn_dense", counts, {"gconv": 3 * steps + 3 * evals})
     add(counts)
     ring = dict(dataset=ring700_file(workdir), spmm_backend="dense")
     per_forward = gconv_kernels_a_forward(_load_config(GCN_RING_CONFIG, **ring))
     _, counts, steps, evals, _ = train_run(
         workdir, "gcn_dense_ring700", GCN_RING_CONFIG, 1, falling=False,
-        make_plot=False, **ring)
+        make_plot=False, device_resident=False, **ring)
     _expect("train gcn_dense_ring700", counts, {"gconv": per_forward * (steps + evals)})
     add(counts)
 
@@ -1814,8 +1854,13 @@ def kg_run(workdir, name, **over):
     say(f"-- kg {name}: {info.all_node_num} entities, {C} relations, {n_train} "
         f"training triples, label batch {L}, {epochs} epoch(s) = {steps} steps, "
         f"payload {payload}")
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
+
     launches = {k: 0 for k in _counted()}
-    out, _, counts, wall = _cli(["train", "--config", path])
+    # the scanned epoch, each step replayed from a captured graph: the
+    # wrappers count the warm-up and the capture, the profiler the launches
+    (out, _, counts, wall), kernels, graphs, busy, pwall = profiled(
+        lambda: _cli(["train", "--config", path]))
     if "[spmm] backend: stream" not in out:
         raise AssertionError(f"kg {name}: the run did not take the stream backend")
     costs = [float(line.split("training cost ")[1].split()[0])
@@ -1828,8 +1873,18 @@ def kg_run(workdir, name, **over):
     if os.listdir(model) != ["model.last.ckpt"] or not os.path.exists(cfg["save_info_train"]):
         raise AssertionError(f"kg {name}: files {os.listdir(model)}")
     say(f"-- kg {name} train: {wall:.2f} s, training costs {costs}")
-    _expect(f"kg {name} train", counts, {kernel: 4 * C * steps})
-    for k, v in counts.items():
+    _expect(f"kg {name} train (warm-up and capture)", counts,
+            {kernel: 4 * C * (WARMUP_STEPS + 1)})
+    kernels = _profiler_launches(kernels, counts)
+    want = {k: 0 for k in counts}
+    want[kernel] = 4 * C * (steps + WARMUP_STEPS)
+    if kernels != want or graphs != steps:
+        raise AssertionError(f"kg {name} train: profiler launches {kernels}, {graphs} graph "
+                             f"launches; want {want}, {steps}")
+    say(f"-- kg {name} train: {graphs} graph launches (one a step), {want[kernel]} "
+        f"{kernel} launches in the profiler = 4·C x ({steps} steps + {WARMUP_STEPS} "
+        f"warm-up); device busy {busy:.3f} s of {pwall:.3f} s")
+    for k, v in kernels.items():
         launches[k] += v
     out, result, counts, wall = _cli(["infer", "--config", path])
     n_test = int(WN18RR_TRIPLES // KG_SHRINK * KG_TEST_RATE)
@@ -2274,7 +2329,10 @@ def phase_ell(workdir):
         for k, v in counts.items():
             launches[k] += v
 
-    outputs = dict(dataset=data, spmm_backend="pallas", make_plot=False)
+    # the streaming loop (device_resident false); phase 11 runs the default,
+    # the resident runners
+    outputs = dict(dataset=data, spmm_backend="pallas", make_plot=False,
+                   device_resident=False)
     # one forward launch per ell_aggregate, whatever C; one dx launch per
     # aggregation whose input needs a gradient (GIN's first aggregates the
     # features, which need none; GCN's aggregate X W_c + b_c)
@@ -2302,7 +2360,8 @@ def phase_ell(workdir):
     for backend in ("pallas", "xla"):
         tspmm._PALLAS_FALLBACK_WARNED[0] = False
         _, counts, _, _, out = train_run(workdir, f"gin_synthetic_{backend}", GIN_CONFIG,
-                                         1, falling=False, spmm_backend=backend)
+                                         1, falling=False, spmm_backend=backend,
+                                         device_resident=False)
         said = out.count("[spmm] pallas backend requested")
         if said != (backend == "pallas"):
             raise AssertionError(f"gin on synthetic.jbl ({backend}): the fallback "
@@ -2310,6 +2369,394 @@ def phase_ell(workdir):
         _expect(f"train gin_synthetic_{backend}", counts, {})
         say(f"-- gin on synthetic.jbl ({backend}): the ELL gate refused the dataset; "
             f"0 ELL launches, fallback message printed {said} time(s)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the whole-epoch runners
+
+# (name, config, overrides): the resident paths, training split at full width
+RUNNER_CASES = (("gcn dense", CONFIG, {}), ("gat dense", GAT_CONFIG, {}),
+                ("gin pallas (ring6)", GIN_CONFIG, {"spmm_backend": "pallas"}))
+# the kernels of kgcn_tpu_torch/ops/csrc by their names in torch.profiler's
+# records, demangled ("(anonymous namespace)::ell_kernel<float, 4, 1, true,
+# true>(...)") or mangled ("_ZN12_GLOBAL__N_110ell_kernelIfLi4ELi1ELb1ELb1E..."),
+# and the wrapper counts
+# that count them (the stream scatter kernel runs both stream routes;
+# _profiler_launches gives it to the route that ran)
+_START = r"(?:^|void |\d|namespace\)::)"
+KERNEL_COUNTERS = (
+    (_START + r"(?:gemm_kernel|small_graph_kernel|sum_splits)", "gconv"),
+    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*, *false|I\w*?Li\d+ELi\d+ELb0E)",
+     "ell_spmm"),
+    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*, *true|I\w*?Li\d+ELi\d+ELb1E)",
+     "ell_spmm_dx"),
+    (_START + r"stream_scatter_kernel", "stream_scatter"),
+    (_START + r"stream_dw_kernel", "stream_dw"),
+    (_START + r"tiled_spmm_kernel", "tiled_spmm"),
+    (_START + r"tiled_sddmm_kernel", "tiled_sddmm"),
+)
+
+
+def profiled(fn, cpu=True):
+    """Run ``fn`` under torch.profiler: (its result, the launches of the
+    port's kernels by wrapper count name, the CUDA graph launches, device
+    busy seconds, wall seconds).  ``cpu``: record the CUDA runtime calls
+    too (the graph launches)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {k: 0 for k in _counted()}
+    graphs, busy = 0, 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            busy += getattr(ev, "device_time_total", 0.0)
+            for pattern, counter in KERNEL_COUNTERS:
+                if re.search(pattern, ev.key):
+                    kernels[counter] += ev.count
+                    break
+        elif ev.key == "cudaGraphLaunch":
+            graphs += ev.count
+    return out, kernels, graphs, busy / 1e6, wall
+
+
+def _profiler_launches(kernels, python_counts):
+    """The profiler's counts with the stream scatter kernel's launches given
+    to the route whose wrapper counted (the one-hot or the iota route)."""
+    kernels = dict(kernels)
+    if python_counts.get("stream_scatter_mat", 0):
+        if python_counts.get("stream_scatter", 0):
+            raise AssertionError("both stream routes ran in one run")
+        kernels["stream_scatter_mat"] = kernels.pop("stream_scatter")
+        kernels["stream_scatter"] = 0
+    return kernels
+
+
+def _per_step(counts, steps, what):
+    """{kernel: launches a step} from counts over ``steps`` steps."""
+    per = {}
+    for k, v in counts.items():
+        if v % max(steps, 1):
+            raise AssertionError(f"{what}: {k} launched {v} times in {steps} steps")
+        per[k] = v // max(steps, 1)
+    return per
+
+
+def _resident_setup(cfg, device):
+    """(info, resident batcher of the training split on ``device``, the
+    streaming Batcher of the same split, its backend) of a config."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.resident import ResidentBatcher
+
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    train, _, _, _ = split_dataset(ds, cfg["validation_data_rate"], seed=int(cfg["seed"]),
+                                   shuffle=bool(cfg["shuffle_data"]))
+    bs = int(cfg["batch_size"])
+    return (info, ResidentBatcher(train, info, bs, seed=0, backend=be, device=device),
+            Batcher(train, info, bs, seed=0, backend=be), be)
+
+
+def _trainer(cfg, info, device=None, capture=True):
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    return Trainer(build_model(cfg["model.py"], info, cfg), cfg, info,
+                   device=device or DEVICE, capture=capture)
+
+
+def captured_vs_eager(label, cfg, info, make_batcher, epochs=2):
+    """``epochs`` epochs of the whole-epoch runner from seed 0, eager
+    (``capture=False``) and captured, each on a batcher from
+    ``make_batcher()``: per-step costs and every parameter bitwise equal;
+    the captured epochs under ``torch.cuda.set_sync_debug_mode("error")``
+    (capture and replays: a host sync raises); the kernels the profiler
+    records in the captured epochs equal the eager runner's per-step
+    launches (the wrappers' counts) over the replayed steps and the
+    warm-up steps; one CUDA graph launch a step.  Returns (captured
+    per-epoch mean costs, launches a step, steps an epoch)."""
+    import torch
+
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
+
+    t0 = time.time()
+    runs = {}
+    for capture in (False, True):
+        batcher = make_batcher()
+        trainer = _trainer(cfg, info, capture=capture)
+        holder = [trainer.init_state(seed=0)]
+        _zero_counts()
+
+        def epochs_():
+            costs = []
+            for ep in range(epochs):
+                if capture:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    holder[0], c, _ = trainer.epoch_on_device(holder[0], batcher, epoch=ep)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                costs.append(c)
+            return costs
+
+        # the eager runner's launches are its wrappers' counts; the captured
+        # runner's, the profiler's
+        costs, kernels, graphs = (profiled(epochs_)[:3] if capture
+                                  else (epochs_(), None, None))
+        runs[capture] = (costs, holder[0].params, _counts(), kernels, graphs,
+                         batcher.valid_per_epoch)
+    (ce, pe, eager_counts, _, _, n_valid), (cc, pc, capture_counts, kernels, graphs, _) = \
+        runs[False], runs[True]
+    S = len(cc[0])
+    differ = [k for k in pe if not torch.equal(pe[k], pc[k])]
+    if differ or not all(torch.equal(a, b) for a, b in zip(ce, cc)):
+        raise AssertionError(f"{label}: captured and eager runners differ: costs "
+                             f"{[c.tolist() for c in cc]} vs {[c.tolist() for c in ce]}, "
+                             f"parameters {differ}")
+    per = _per_step(eager_counts, epochs * S, f"{label} eager")
+    got = _profiler_launches(kernels, capture_counts)
+    want = {k: v * (epochs * S + WARMUP_STEPS) for k, v in per.items()}
+    at_capture = {k: v * (WARMUP_STEPS + 1) for k, v in per.items()}
+    if got != want or capture_counts != at_capture or graphs != epochs * S:
+        raise AssertionError(
+            f"{label}: the profiler recorded {got} kernel launches and {graphs} graph "
+            f"launches, want {want} and {epochs * S}; the wrappers counted "
+            f"{capture_counts} at warm-up and capture, want {at_capture}")
+    means = [float(c.sum()) / n_valid for c in cc]
+    say(f"{label}: captured runner bitwise equal to the eager runner over {epochs} "
+        f"epochs of {S} steps (per-epoch costs {means}, {len(pc)} parameters); no host "
+        f"sync in capture and replays; profiler: {graphs} graph launches, kernel "
+        f"launches {dict((k, v) for k, v in got.items() if v)} = per step "
+        f"{dict((k, v) for k, v in per.items() if v)} x ({epochs * S} steps + "
+        f"{WARMUP_STEPS} warm-up); {time.time() - t0:.1f} s")
+    return means, per, S
+
+
+def dropout_replays(cfg, info, make_batcher):
+    """With dropout, two captured epochs from the same parameters and
+    schedule draw different masks (costs differ: a mask frozen into the
+    graph would repeat them), and the captured epoch equals the eager one
+    drawn from the same generator (printed, bitwise or by how much)."""
+    import dataclasses
+
+    import torch
+
+    batcher = make_batcher()
+    cap = _trainer(cfg, info)
+    s0 = cap.init_state(seed=0)
+    _, c1, _ = cap.epoch_on_device(s0, batcher, epoch=0)
+    _, c2, _ = cap.epoch_on_device(dataclasses.replace(s0), batcher, epoch=0)
+    same = int((c1 == c2).sum())
+    if same:
+        raise AssertionError(f"dropout: {same} of {len(c1)} steps repeat their cost "
+                             "in a second captured epoch (a mask frozen in the graph)")
+    eager = _trainer(cfg, info, capture=False)
+    _, ce, _ = eager.epoch_on_device(eager.init_state(seed=0), make_batcher(), epoch=0)
+    gap = float((ce - c1).abs().max())
+    say(f"dropout {cfg['dropout_rate']}: two captured epochs from one state differ at "
+        f"every step ({len(c1)} steps, fresh masks each replay); captured vs eager "
+        f"epoch from one seed: {'bitwise equal' if gap == 0 else f'max |diff| {gap}'}")
+
+
+def runner_gpu_vs_cpu(label, cfg, gpu_means, make_cpu):
+    """The runner's per-epoch mean costs on the CPU (eager) against the
+    card's (captured), within TRAJECTORY_RTOL."""
+    info, batcher = make_cpu()
+    trainer = _trainer(cfg, info, device="cpu")
+    state = trainer.init_state(seed=0)
+    cpu = []
+    for ep in range(len(gpu_means)):
+        state, cost, _, _ = trainer.run_epoch(state, batcher, epoch=ep)
+        cpu.append(cost)
+    rel = [abs(a - b) / abs(b) for a, b in zip(gpu_means, cpu)]
+    say(f"GPU (captured) vs CPU {label} runner costs: GPU {gpu_means} CPU {cpu} "
+        f"relative difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"GPU and CPU {label} runner costs differ by {max(rel)}")
+
+
+def epoch_numbers(run, steps):
+    """(wall ms a step unprofiled, wall ms and device busy ms a step
+    profiled, idle share) of ``run()``, one epoch of ``steps`` steps, after
+    a warm-up epoch."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, _, _, busy, pwall = profiled(run, cpu=False)
+    return (wall / steps * 1e3, pwall / steps * 1e3, busy / steps * 1e3,
+            1 - busy / pwall)
+
+
+def runner_timing(label, cfg, info, rb, sb):
+    """One epoch's step wall, device busy and idle share, old and new in one
+    process: the streaming loop (host assembly, prefetched; one move to the
+    card a step), the resident runner eager and captured."""
+    S = rb.num_batches
+    rows = []
+    for name, batcher, capture in (("streaming loop", sb, False),
+                                   ("resident eager", rb, False),
+                                   ("resident captured", rb, True)):
+        trainer = _trainer(cfg, info, capture=capture)
+        holder = [trainer.init_state(seed=0)]
+
+        def run():
+            holder[0] = trainer.run_epoch(holder[0], batcher, epoch=0)[0]
+        rows.append((name, *epoch_numbers(run, S)))
+    for name, wall, pwall, busy, idle in rows:
+        say(f"runner time {label} ({S} steps): {name}: step wall ms {wall:.4f} "
+            f"(profiled {pwall:.4f}), device busy ms/step {busy:.4f}, idle share "
+            f"{idle:.4f}")
+    return rows
+
+
+def resident_cli(workdir, name, src, epochs, per_step, per_eval, **over):
+    """``cli.main train`` with ``device_resident`` at its default (``auto``)
+    under torch.profiler, then ``infer``: the resident runners, each step
+    replayed (one graph launch per training step and evaluated batch), the
+    kernels the profiler records equal to ``per_step``/``per_eval`` over
+    the replays and warm-ups.  Returns the profiler's launches."""
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
+
+    d = os.path.join(workdir, name)
+    (_, counts, steps, evals, _), kernels, graphs, busy, wall = profiled(
+        lambda: train_run(workdir, name, src, epochs, falling=epochs > 1,
+                          save_info_test=os.path.join(d, "info_test.json"),
+                          save_result_test=os.path.join(d, "result_test.csv"), **over))
+    # one training runner and one evaluation runner, each warmed up once
+    want = {k: per_step.get(k, 0) * (steps + WARMUP_STEPS)
+            + per_eval.get(k, 0) * (evals + WARMUP_STEPS) for k in counts}
+    kernels = _profiler_launches(kernels, counts)
+    if kernels != want or graphs != steps + evals:
+        raise AssertionError(f"train {name}: profiler launches {kernels}, {graphs} graph "
+                             f"launches; want {want}, {steps + evals}")
+    say(f"-- train {name} (resident, captured): {graphs} graph launches = {steps} "
+        f"steps + {evals} evaluated batches; kernel launches "
+        f"{dict((k, v) for k, v in kernels.items() if v)} as predicted; device busy "
+        f"{busy:.3f} s of {wall:.3f} s")
+    launches = dict(kernels)
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = json.load(f)
+    n = -(-load_jbl(cfg["dataset"], cfg)[0].num // int(cfg["batch_size"]))  # infer's batches
+    (_, result, counts, _), kernels, graphs, _, _ = profiled(
+        lambda: _cli(["infer", "--config", os.path.join(d, "config.json")]))
+    kernels = _profiler_launches(kernels, counts)
+    want = {k: per_eval.get(k, 0) * (n + WARMUP_STEPS) for k in counts}
+    if kernels != want or graphs != n or not math.isfinite(result["test_cost"]):
+        raise AssertionError(f"infer {name}: {result}, launches {kernels}, {graphs} "
+                             f"graph launches; want {want}, {n}")
+    say(f"-- infer {name} (resident, captured): {graphs} graph launches, test cost "
+        f"{result['test_cost']:.6g}")
+    for k, v in kernels.items():
+        launches[k] += v
+    return launches
+
+
+def kg_runner(workdir):
+    """The scanned KG epoch (bf16, the main path's KG): captured against
+    eager over 2 epochs; GPU vs CPU with the f32 payload over one epoch of
+    3 label slices (phase 8's 3 steps; Adam's normalisation turns the
+    sums' last-bit differences on near-zero gradient components into
+    larger ones in later steps); old (the per-batch loop) and new step
+    times."""
+    cfg, _ = kg_config(workdir, "kg_runner")
+    kb, info, _ = kg_batcher(cfg, device=DEVICE)
+    captured_vs_eager("kg bf16 (scanned)", cfg, info,
+                      lambda: kg_batcher(cfg, device=DEVICE)[0])
+    # the scanned epoch (captured) against the per-batch loop of train_step
+    # from one seed: the replayed step is the eager step, bit for bit
+    import torch
+
+    loop_tr, scan_tr = _trainer(cfg, info, capture=False), _trainer(cfg, info)
+    st = loop_tr.init_state(seed=0)
+    loop = []
+    for batch in kg_batcher(cfg, device=DEVICE)[0].batches():
+        st, c, _ = loop_tr.train_step(st, batch)
+        loop.append(c)
+    loop = torch.stack(loop)
+    _, scan, _ = scan_tr.epoch_on_device(scan_tr.init_state(seed=0),
+                                         kg_batcher(cfg, device=DEVICE)[0])
+    rel = float(((scan - loop).abs() / loop.abs()).max())
+    say(f"kg bf16: the scanned epoch (captured) against the per-batch loop, "
+        f"{len(loop)} steps from seed 0: "
+        f"{'bitwise equal' if torch.equal(scan, loop) else f'max relative diff {rel}'}"
+        f" (epoch mean {float(scan.sum()) / len(scan)})")
+    if not rel <= TRAJECTORY_RTOL:
+        raise AssertionError(f"kg: the scanned epoch and the per-batch loop differ by {rel}")
+    # GPU vs CPU, the f32 payload, the first 3 label slices of an epoch
+    f32 = dict(cfg, tiled_compute_dtype="float32")
+
+    def cut(device):
+        kb, inf, _ = kg_batcher(f32, device=device)
+        kb.label_list = kb.label_list[:3 * int(cfg["label_batch_size"])]
+        return inf, kb
+    inf, kb3 = cut(DEVICE)
+    gpu = _trainer(f32, inf)
+    state, cost, _, _ = gpu.run_epoch(gpu.init_state(seed=0), kb3)
+    runner_gpu_vs_cpu("kg f32 (one epoch of 3 slices)", f32, [cost], lambda: cut("cpu"))
+    # old: the per-batch loop (slices and negatives on the host, one copy a
+    # step); new: the scanned epoch, captured
+    S = kb.valid_per_epoch
+    rows = []
+    for name, capture in (("per-batch loop", None), ("scanned eager", False),
+                          ("scanned captured", True)):
+        trainer = _trainer(cfg, info, capture=bool(capture))
+        st = [trainer.init_state(seed=0)]
+
+        def run():
+            if capture is None:
+                for batch in kb.batches():
+                    st[0] = trainer.train_step(st[0], batch)[0]
+            else:
+                st[0] = trainer.run_epoch(st[0], kb)[0]
+        rows.append((name, *epoch_numbers(run, S)))
+    for name, wall, pwall, busy, idle in rows:
+        say(f"runner time kg bf16 ({S} steps): {name}: step wall ms {wall:.4f} "
+            f"(profiled {pwall:.4f}), device busy ms/step {busy:.4f}, idle share "
+            f"{idle:.4f}")
+
+
+def phase_runners(workdir):
+    phase(11, "runners: the resident and scanned whole-epoch runners, captured")
+    t_phase = time.time()
+    launches = {k: 0 for k in _counted()}
+    ring6 = ring6_file(workdir)
+    for name, src, over in RUNNER_CASES:
+        over = dict(over, **({"dataset": ring6} if "ring6" in name else {}))
+        cfg = _load_config(src, dropout_rate=0.0, **over)
+        info, rb, sb, be = _resident_setup(cfg, DEVICE)
+        means, per, S = captured_vs_eager(f"{name} (resident)", cfg, info,
+                                          lambda: _resident_setup(cfg, DEVICE)[1])
+        runner_gpu_vs_cpu(name, cfg, means, lambda: _resident_setup(cfg, "cpu")[:2])
+        if name == "gcn dense":
+            dropout_replays(_load_config(src, **over), info,
+                            lambda: _resident_setup(cfg, DEVICE)[1])
+        runner_timing(name, cfg, info, rb, sb)
+        per_eval = {"gconv": 3} if name == "gcn dense" else (
+            {"ell_spmm": 2} if "pallas" in name else {})
+        cli_name = name.split()[0] + "_resident"
+        for k, v in resident_cli(workdir, cli_name, src, 2, per, per_eval,
+                                 **over).items():
+            launches[k] += v
+        say(f"runners {name} done at {time.time() - t_phase:.1f} s of the phase")
+    kg_runner(workdir)
+    say(f"runners kg done at {time.time() - t_phase:.1f} s of the phase")
     return launches
 
 
@@ -2449,10 +2896,13 @@ def main():
         say(f"ell check done at {time.time() - t_start:.1f} s")
         for k, v in phase_ell(workdir).items():
             launches[k] += v
+        say(f"ell done at {time.time() - t_start:.1f} s")
+        for k, v in phase_runners(workdir).items():
+            launches[k] += v
 
     import torch
 
-    phase(11, "summary")
+    phase(12, "summary")
     for k, v in launches.items():
         if k in NO_MAIN_PATH_LAUNCH:
             if v != 0:

@@ -30,7 +30,15 @@ once), ``"xla"`` the same routes without a kernel; the tiled and stream
 payload dtype is ``tiled_compute_dtype`` (``"bfloat16"`` default, or
 ``"float32"``).
 
-Not ported yet, each raising "not yet ported" (ROADMAP.md A.2): the
+``device_resident`` (``"auto"`` by default, ``true``/``"force"``,
+``false``) keeps a dense or ELL dataset on the device and runs whole
+epochs of training and evaluation through the resident runners
+(``runtime/resident.py``, ``runtime/runner.py``: on the GPU each step
+replayed from a captured CUDA graph), as ``kgcn_tpu`` does; the tiled and
+stream backends decline it (said when it was forced).  KG training runs
+the scanned epoch.
+
+Not ported yet, each raising "not yet ported" (ROADMAP.md A.5): the
 ``train_cv`` and ``visualize`` subcommands, ``mesh`` (data parallel; KG:
 the sharded and resident training), ``make_plot``, ``export_model`` and
 ``"precision": "bfloat16"``.  The offline scikit-learn battery
@@ -55,6 +63,7 @@ from kgcn_tpu_torch.models.kg import KGBatcher
 from kgcn_tpu_torch.models.registry import build_model
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime import checkpoint as ckpt
+from kgcn_tpu_torch.runtime import resident
 from kgcn_tpu_torch.runtime.config import load_config
 from kgcn_tpu_torch.runtime.device import device_from_arg
 from kgcn_tpu_torch.runtime.train import Trainer
@@ -99,9 +108,9 @@ def _metric_name(task: str) -> str:
             else "gmfe" if task == "regression_gmfe" else "accuracy")
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str = "A.5"):
     raise NotImplementedError(f"{what} is not yet ported to kgcn_tpu_torch "
-                              "(ROADMAP.md A.2)")
+                              f"(ROADMAP.md {item})")
 
 
 def _prepare(config, dataset_key="dataset", test_mode=False):
@@ -127,7 +136,7 @@ def cmd_train_kg(config, ds, info, backend, device) -> Dict[str, Any]:
     ``last`` checkpoint, ``save_info_train``."""
     if config.get("mesh"):
         _not_ported("sharded KG training (config 'mesh': kgcn_tpu's "
-                    "_train_kg_sharded and its resident fit)")
+                    "_train_kg_sharded and its resident fit)", "A.11")
     model = build_model(_kg_model_name(config), info, config)
     trainer = Trainer(model, config, info, device=device)
     seed = int(config.get("seed", 0))
@@ -217,7 +226,9 @@ def cmd_infer(config, device=None) -> Dict[str, Any]:
         return cmd_infer_kg(config, ds, info, backend, device)
     model = build_model(config["model.py"], info, config)
     trainer = Trainer(model, config, info, device=device)
-    batcher = Batcher(ds, info, int(config["batch_size"]), backend=backend)
+    bs = int(config["batch_size"])
+    batcher = (_maybe_resident(config, ds, info, bs, backend, trainer.device)
+               or Batcher(ds, info, bs, backend=backend))
     model_dir = config.get("save_model_path", "model")
     load_path = config.get("load_model") or os.path.join(model_dir, "model.best.ckpt")
     if not os.path.exists(load_path):
@@ -254,18 +265,31 @@ def cmd_infer(config, device=None) -> Dict[str, Any]:
     return result
 
 
+def _maybe_resident(config, ds, info, bs, backend, device, seed=0):
+    """A device-resident batcher (whole epochs through the resident runners)
+    where the gate admits the dataset (``resident.resident_enabled``), else
+    None.  A failure to build it raises: there is no quiet fallback to the
+    streaming batcher."""
+    if not resident.resident_enabled(config, ds, info, backend):
+        return None
+    return resident.ResidentBatcher(ds, info, bs, seed=seed, backend=backend,
+                                    device=device)
+
+
 def _fit_once(config, train_ds, valid_ds, info, backend, device):
     """The single-device streaming branch of ``kgcn_tpu``'s ``_fit_once``
     (its ``fold``/``seed`` arguments come with ``train_cv``)."""
     if config.get("mesh"):
-        _not_ported("data-parallel training (config 'mesh')")
+        _not_ported("data-parallel training (config 'mesh')", "A.11")
     bs = int(config["batch_size"])
     model = build_model(config["model.py"], info, config)
     trainer = Trainer(model, config, info, device=device)
-    tb = Batcher(train_ds, info, bs, seed=0, backend=backend)
+    tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device)
+          or Batcher(train_ds, info, bs, seed=0, backend=backend))
     vb = None
     if valid_ds is not None and valid_ds.num > 0:
-        vb = Batcher(valid_ds, info, bs, backend=backend)
+        vb = (_maybe_resident(config, valid_ds, info, bs, backend, trainer.device)
+              or Batcher(valid_ds, info, bs, backend=backend))
     state = trainer.init_state(int(config.get("seed", 0)))
     if config.get("retrain"):
         state = trainer.restore(config["retrain"])
@@ -303,7 +327,7 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
         if config.get(key):
             _not_ported(f"config {key!r}")
     if str(config.get("precision", "float32")) != "float32":
-        _not_ported(f"config precision {config['precision']!r} (ROADMAP.md A.4)")
+        _not_ported(f"config precision {config['precision']!r}", "A.6")
     preloaded = None
     if _is_kg(config):
         preloaded = _prepare(config)

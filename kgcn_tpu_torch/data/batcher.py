@@ -1,11 +1,15 @@
 """Mini-batch assembly: Dataset → fixed-shape batches of torch tensors.
 
-The counterpart of ``kgcn_tpu/data/batcher.py`` (NumPy assembly path only):
-every batch of a dataset has the same shapes (node padding ``B*N``,
-lane-rounded edge budget), and the last partial batch is padded with empty
-graphs and reported through ``pad_mask`` (the reference's ``mask`` vector,
-kgcn/feed.py:148-151).  Batches are built on the CPU; ``Batch.to(device)``
-moves them.
+The counterpart of ``kgcn_tpu/data/batcher.py``: every batch of a dataset
+has the same shapes (node padding ``B*N``, lane-rounded edge budget), and
+the last partial batch is padded with empty graphs and reported through
+``pad_mask`` (the reference's ``mask`` vector, kgcn/feed.py:148-151).
+Batches are built on the CPU; ``Batch.to(device)`` moves them.  The edge
+lists and node features of a batch are packed by one call each of the host
+library ``ops/csrc/batch_host.cc`` (the port's copy of
+``kgcn_tpu/native/batcher.cpp``), over COO blocks laid out once per
+dataset; ``graph/batch.batch_graphs`` gives the same arrays in NumPy.  The
+library is built at first use and required: there is no NumPy fallback.
 
 The batcher carries the resolved backend (``runtime/backend.Backend``) and
 stamps it on every batch; with ``tiled`` it attaches the tiled edge
@@ -22,8 +26,8 @@ The JAX package attaches the ELL arrays on every backend, but its layers
 read them only on these two, so no value differs.  ``host_seconds``
 accumulates the host time spent assembling batches, and ``tiled_seconds``
 / ``stream_seconds`` / ``ell_seconds`` the part of it spent building tiled
-/ stream structures / ELL arrays.  The JAX package's native C++ packer is
-not ported (ROADMAP.md queue A).
+/ stream structures / ELL arrays.  Datasets that fit the device take
+``runtime/resident.ResidentBatcher`` instead, which gathers batches there.
 """
 from __future__ import annotations
 
@@ -36,9 +40,9 @@ import numpy as np
 import torch
 
 from kgcn_tpu_torch.data.dataset import Dataset, DatasetInfo
-from kgcn_tpu_torch.graph.batch import GraphBatch, batch_graphs, pad_edge_budget
+from kgcn_tpu_torch.graph.batch import GraphBatch, pad_edge_budget
 from kgcn_tpu_torch.ops import _build
-from kgcn_tpu_torch.ops.ell import coo_to_ell, ell_layout_ok, ell_transpose, scan_ell_stats
+from kgcn_tpu_torch.ops.ell import per_graph_ell
 from kgcn_tpu_torch.runtime.backend import Backend
 
 
@@ -52,6 +56,18 @@ def _ell_host():
     return lib
 
 
+def _batch_host():
+    """The edge and feature packer (``ops/csrc/batch_host.cc``)."""
+    lib = _build.load("batch_host")
+    if lib.kgcn_pack_edges.argtypes is None:
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.kgcn_pack_edges.argtypes = [ptr] * 5 + [i64] * 4 + [ptr] * 4
+        lib.kgcn_pack_edges.restype = ctypes.c_int
+        lib.kgcn_gather_pad_features.argtypes = [ptr, ptr] + [i64] * 4 + [ptr]
+        lib.kgcn_gather_pad_features.restype = None
+    return lib
+
+
 def as_tensor(x: np.ndarray) -> torch.Tensor:
     """numpy → torch with JAX's default 32-bit types (float64 → float32,
     int64 → int32), so both packages see the same dtypes."""
@@ -61,6 +77,27 @@ def as_tensor(x: np.ndarray) -> torch.Tensor:
     elif x.dtype == np.int64:
         x = x.astype(np.int32)
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def aligned_max_nodes(ds: Dataset, info: DatasetInfo) -> int:
+    """The node padding of a dataset's batches: its node count, beyond one
+    128-row tile rounded up to a multiple of 128, as kgcn_tpu does (its
+    batches and ours keep one shape)."""
+    n = int(ds.max_node_num or info.graph_node_num)
+    return ((n + 127) // 128) * 128 if n > 128 else n
+
+
+def pad_node_axis(x, n: int):
+    """Pad a [G, N_ds, ...] per-node array's node axis up to ``n`` (the
+    dataset's node count diverges from the batch padding once it is
+    rounded above 128)."""
+    x = np.asarray(x)
+    pad = n - x.shape[1]
+    if pad <= 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[1] = (0, pad)
+    return np.pad(x, widths)
 
 
 @dataclasses.dataclass
@@ -110,11 +147,7 @@ class Batcher:
         self.ds = ds
         self.info = info
         self.batch_size = int(batch_size)
-        self.max_nodes = int(ds.max_node_num or info.graph_node_num)
-        # beyond one 128-row tile, round the node padding up to a multiple
-        # of 128, as kgcn_tpu does (its batches and ours keep one shape)
-        if self.max_nodes > 128:
-            self.max_nodes = ((self.max_nodes + 127) // 128) * 128
+        self.max_nodes = aligned_max_nodes(ds, info)
         per_graph = info.edge_budget_per_graph or self._scan_edge_budget()
         self.edge_budget = edge_budget or pad_edge_budget(per_graph * self.batch_size)
         self.seed = int(seed)
@@ -131,6 +164,8 @@ class Batcher:
         # gate refuses the dataset)
         self._ell = None
         self._ell_ready = False
+        # the packer's per-dataset COO blocks and node arrays, at the first batch
+        self._coo = None
         self.host_seconds = 0.0
         self.tiled_seconds = 0.0
         self.stream_seconds = 0.0
@@ -173,29 +208,8 @@ class Batcher:
             raise ValueError(f"{G} graphs do not fit a batch of {B}")
         self.last_valid = G
 
-        if ds.adjs is not None:
-            adjs = [
-                [
-                    (np.stack([r, c], axis=1), v, (self.max_nodes, self.max_nodes))
-                    for (r, c, v) in ds.adjs[i]
-                ]
-                for i in idx
-            ]
-        else:
-            adjs = [[(np.zeros((0, 2), np.int32), np.zeros(0, np.float32),
-                      (self.max_nodes, self.max_nodes))]] * G
-        graph = batch_graphs(
-            adjs,
-            ds.features[idx] if ds.features is not None else None,
-            self.max_nodes,
-            node_ids=[ds.nodes[i] for i in idx] if ds.nodes is not None else None,
-            n_nodes=(
-                ds.enabled_node_nums[idx] if ds.enabled_node_nums is not None else None
-            ),
-            edge_budget=self.edge_budget,
-            n_graph=B,
-        ).replace(backend=self.backend.name,
-                  compute_dtype=self.backend.compute_dtype)
+        graph = self._pack_graph(idx, B).replace(
+            backend=self.backend.name, compute_dtype=self.backend.compute_dtype)
         if self.backend.name == "tiled":
             t0 = time.perf_counter()
             graph = self._attach_tiled(graph)
@@ -223,7 +237,7 @@ class Batcher:
             if x is None:
                 return None
             x = x[idx]
-            return pad_rows(self._pad_node_axis(x) if per_node else x)
+            return pad_rows(pad_node_axis(x, self.max_nodes) if per_node else x)
 
         pad_mask = np.zeros((B,), np.float32)
         pad_mask[:G] = 1.0
@@ -235,6 +249,92 @@ class Batcher:
             mask_node_label=take(ds.mask_node_label, per_node=True),
             pad_mask=torch.from_numpy(pad_mask),
         )
+
+    def _prepare_coo(self) -> None:
+        """The packer's per-dataset operands, laid out once: every graph's
+        edges per channel concatenated (``rows``/``cols``/``vals``) with each
+        block's offset and length ``[G, C]``, the features as float32, each
+        graph's node count (``batch_graphs``'s rule) and node ids."""
+        ds, N = self.ds, self.max_nodes
+        if ds.adjs is None:  # no adjacency: one channel without edges
+            C, blocks = 1, [[(np.zeros(0, np.int32),) * 2 + (np.zeros(0, np.float32),)]
+                            ] * ds.num
+        else:
+            C, blocks = len(ds.adjs[0]), ds.adjs
+        length = np.array([[len(ch[0]) for ch in gs] for gs in blocks],
+                          np.int64).reshape(ds.num, C)
+        off = (np.cumsum(length.reshape(-1)) - length.reshape(-1)).reshape(ds.num, C)
+
+        def flat(j, dtype):
+            parts = [np.asarray(ch[j], dtype) for gs in blocks for ch in gs]
+            return np.concatenate(parts) if parts else np.zeros(0, dtype)
+
+        coo = {"rows": flat(0, np.int32), "cols": flat(1, np.int32),
+               "vals": flat(2, np.float32), "off": off, "len": length, "C": C}
+        if ds.enabled_node_nums is not None:
+            coo["n_nodes"] = np.asarray(ds.enabled_node_nums, np.int32)
+        elif ds.features is not None:
+            coo["n_nodes"] = np.maximum(
+                (np.abs(ds.features).sum(axis=-1) > 0).sum(axis=-1), 1).astype(np.int32)
+        else:
+            coo["n_nodes"] = np.full((ds.num,), N, np.int32)
+        if ds.features is not None:
+            coo["features"] = np.ascontiguousarray(ds.features, np.float32)
+        if ds.nodes is not None:
+            ids = np.zeros((ds.num, N), np.int32)
+            for g, row in enumerate(ds.nodes):
+                row = np.asarray(row, np.int32)
+                ids[g, : len(row)] = row
+            coo["node_ids"] = ids
+        self._coo = coo
+
+    def _pack_graph(self, idx: np.ndarray, B: int) -> GraphBatch:
+        """The batch's ``GraphBatch`` (as ``batch_graphs`` builds it) from
+        one call of the edge packer and one of the feature packer."""
+        if self._coo is None:
+            self._prepare_coo()
+        coo, N, E = self._coo, self.max_nodes, self.edge_budget
+        graphs = np.ascontiguousarray(idx, np.int64)
+        G, C = len(graphs), coo["C"]
+        lib = _batch_host()
+        senders = np.empty((C, E), np.int32)
+        receivers = np.empty((C, E), np.int32)
+        weights = np.empty((C, E), np.float32)
+        n_edge = np.zeros(C, np.int32)
+        off = np.ascontiguousarray(coo["off"][graphs].reshape(-1))
+        length = np.ascontiguousarray(coo["len"][graphs].reshape(-1))
+        rc = lib.kgcn_pack_edges(
+            coo["rows"].ctypes.data, coo["cols"].ctypes.data, coo["vals"].ctypes.data,
+            off.ctypes.data, length.ctypes.data, G, C, N, E, senders.ctypes.data,
+            receivers.ctypes.data, weights.ctypes.data, n_edge.ctypes.data)
+        if rc != 0:
+            raise RuntimeError("edge budget exceeded in native pack_edges" if rc == -1
+                               else "node index out of range in native pack_edges")
+        nn = np.zeros(B, np.int32)
+        nn[:G] = coo["n_nodes"][graphs]
+        mask = (np.arange(N)[None, :] < nn[:, None]).astype(np.float32).reshape(-1)
+        nodes = None
+        if "features" in coo:
+            feats = coo["features"]
+            rows, F = feats.shape[1:]
+            padded = np.empty((B, rows, F), np.float32)
+            lib.kgcn_gather_pad_features(feats.ctypes.data, graphs.ctypes.data, G, B,
+                                         rows, F, padded.ctypes.data)
+            if rows != N:
+                out = np.zeros((B, N, F), np.float32)
+                out[:, :rows] = padded[:, :N]
+                padded = out
+            nodes = torch.from_numpy(padded.reshape(B * N, F))
+        ids = None
+        if "node_ids" in coo:
+            ids_np = np.zeros((B, N), np.int32)
+            ids_np[:G] = coo["node_ids"][graphs]
+            ids = torch.from_numpy(ids_np.reshape(-1))
+        return GraphBatch(
+            senders=torch.from_numpy(senders), receivers=torch.from_numpy(receivers),
+            edge_weights=torch.from_numpy(weights), n_edge=torch.from_numpy(n_edge),
+            n_node=torch.from_numpy(nn), node_mask=torch.from_numpy(mask),
+            nodes=nodes, node_ids=ids, n_graph=B, max_nodes=N)
 
     def _attach_tiled(self, graph: GraphBatch) -> GraphBatch:
         """Per-channel tiled structures.  The first batch is a probe: its
@@ -279,45 +379,16 @@ class Batcher:
                 self._stream_budget *= 2
 
     def _prepare_ell(self) -> None:
-        """Per-graph ELL arrays ``[G, C, N, K]``, built once when
-        ``ell_layout_ok`` admits the dataset (max in-degree ≤ 32, padded
-        slots within 2× the real edges); batches assemble them by
-        concatenation and a node offset.  With them each graph's transpose
-        (``ell_transpose``): per channel its real slots ``v*K + k`` grouped
-        by sender, padded to ``N*K`` (``t_slots``), their count
-        (``t_count``) and each sender's list end (``t_end``)."""
+        """Per-graph ELL arrays ``[G, C, N, K]`` and their transposes
+        (``ops/ell.per_graph_ell``), built once when ``ell_layout_ok`` admits
+        the dataset (max in-degree ≤ 32, padded slots within 2× the real
+        edges); batches assemble them by concatenation and a node offset."""
         self._ell_ready = True
-        ds = self.ds
-        if ds.adjs is None:
-            return
-        C = len(ds.adjs[0])
-        N = self.max_nodes
-        max_deg, total_edges = scan_ell_stats(ds.adjs)
-        if not ell_layout_ok(max_deg, len(ds.adjs) * C * N, total_edges):
-            return
-        K = max_deg
-        G = len(ds.adjs)
-        per_graph = np.zeros((G, C, N, K), np.int32)
-        per_graph_w = np.zeros((G, C, N, K), np.float32)
-        for g, gs in enumerate(ds.adjs):
-            for c, (r, cc, v) in enumerate(gs):
-                per_graph[g, c], per_graph_w[g, c] = coo_to_ell(cc, r, v, N,
-                                                                max_degree=K)
-        # every (graph, channel) as one channel of the transpose
-        offsets, slots = ell_transpose(per_graph.reshape(G * C, N, K),
-                                       per_graph_w.reshape(G * C, N, K), N)
-        count = offsets[:, -1] - offsets[:, 0]
-        t_slots = np.zeros((G * C, N * K), np.int32)
-        t_slots[np.arange(N * K)[None, :] < count[:, None]] = slots
-        self._ell = {"idx": per_graph, "w": per_graph_w, "K": K,
-                     "t_slots": t_slots.reshape(G, C, N * K),
-                     # each sender's list end, counted from its graph's list start
-                     "t_end": np.ascontiguousarray(
-                         (offsets[:, 1:] - offsets[:, :1]).reshape(G, C, N)),
-                     "t_count": np.ascontiguousarray(count.reshape(G, C))}
-        # the packer's per-dataset operands, their addresses taken once
-        self._ell["ptrs"] = tuple(self._ell[k].ctypes.data for k in (
-            "idx", "w", "t_slots", "t_end", "t_count"))
+        self._ell = per_graph_ell(self.ds.adjs, self.max_nodes)
+        if self._ell is not None:
+            # the packer's per-dataset operands, their addresses taken once
+            self._ell["ptrs"] = tuple(self._ell[k].ctypes.data for k in (
+                "idx", "w", "t_slots", "t_end", "t_count"))
 
     def _ell_arrays(self, idx: np.ndarray, B: int):
         """The batch's ``[C, B*N, K]`` ELL arrays for graph indices ``idx``
@@ -350,17 +421,6 @@ class Batcher:
                 torch.from_numpy(pack[n:2 * n].view(np.float32).reshape(shape)),
                 torch.from_numpy(pack))
 
-    def _pad_node_axis(self, x):
-        """Pad a [G, N_ds, ...] per-node array to ``self.max_nodes`` (the
-        dataset's node count diverges from the batch padding once it is
-        rounded above 128)."""
-        x = np.asarray(x)
-        pad = self.max_nodes - x.shape[1]
-        if pad <= 0:
-            return x
-        widths = [(0, 0)] * x.ndim
-        widths[1] = (0, pad)
-        return np.pad(x, widths)
 
     def batches(self, shuffle: bool = True,
                 epoch: Optional[int] = None) -> Iterator[Batch]:

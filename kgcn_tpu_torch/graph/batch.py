@@ -27,7 +27,11 @@ rules —
   ``[V]`` vocabulary ids into an embedding table;
 * ``host_receivers`` keeps the receivers' host array on a batch moved to
   the card, so that the segment sums' sort (``receiver_segments``) runs on
-  the host without reading the card.
+  the host without reading the card;
+* a batch that the device-resident path gathered on the card
+  (``runtime/resident.gather_batch``) has no host arrays: it carries its
+  receivers' stable sort (``segments``) and its ELL arrays' transpose
+  (``ell_transposed``), gathered there from per-graph arrays built once.
 
 Where the JAX package reads process globals (the dense-path switch, the
 spmm backend, the tiled/stream compute dtype), a batch here carries
@@ -83,6 +87,12 @@ class GraphBatch:
     compute_dtype: the tiled and stream kernels' payload dtype.
     host_receivers: ``[C, E]`` NumPy receivers of a batch that moved from
         the host (``to``), or None.
+    segments: the receivers' stable sort, gathered on the device:
+        ``(order [C, E], offsets [C, V + 1])`` per channel and ``(order
+        [C*E], offsets [V + 1])`` of all channels as one list, int64; or
+        None.
+    ell_transposed: ``(offsets [C, V + 1], slots)`` of the ELL arrays,
+        gathered on the device (``ell_pack``'s layout), or None.
     """
 
     senders: torch.Tensor
@@ -105,24 +115,29 @@ class GraphBatch:
     backend: str = "dense"
     compute_dtype: str = "bfloat16"
     host_receivers: Optional[np.ndarray] = None
+    segments: Optional[tuple] = None
+    ell_transposed: Optional[tuple] = None
 
     @property
     def total_nodes(self) -> int:
         return self.n_graph * self.max_nodes
 
     def replace(self, **changes) -> "GraphBatch":
-        if "receivers" in changes and "host_receivers" not in changes:
-            changes["host_receivers"] = None  # no longer these receivers
-        if ({"ell_senders", "ell_weights"} & set(changes)) and "ell_pack" not in changes:
-            changes["ell_pack"] = None  # no longer these arrays' pack
+        if "receivers" in changes:  # no longer these receivers
+            changes.setdefault("host_receivers", None)
+            changes.setdefault("segments", None)
+        if {"ell_senders", "ell_weights"} & set(changes):  # nor these arrays
+            changes.setdefault("ell_pack", None)
+            changes.setdefault("ell_transposed", None)
         return dataclasses.replace(self, **changes)
 
     def ell_transpose(self):
         """``(offsets [C, V + 1], slots)``: the ELL arrays' transpose that
         the ``Batcher`` laid into ``ell_pack`` (views of it, made once per
-        batch object: the layers share them), or None."""
+        batch object: the layers share them), or the transpose gathered on
+        the device (``ell_transposed``), or None."""
         if self.ell_pack is None:
-            return None
+            return self.ell_transposed
         cached = self.__dict__.get("_ell_transpose")
         if cached is None or cached[0] is not self.ell_pack:
             C, V, _ = self.ell_senders.shape
@@ -141,8 +156,15 @@ class GraphBatch:
         host array, all channels at once, and sent to the batch's device in
         one copy (as the batch's own arrays are), once per batch object:
         GAT's layers and channels share it, and nothing is sorted or read
-        back on the card."""
+        back on the card.  A batch gathered on the device takes its
+        gathered ``segments`` instead."""
         cache = self.__dict__.setdefault("_receiver_segments", {})
+        if c not in cache and self.segments is not None:
+            (order, offsets), (order_all, offsets_all) = self.segments
+            if c is None:
+                cache[None] = (self.receivers.reshape(-1).long(), order_all, offsets_all)
+            else:
+                cache[c] = (self.receivers[c].long(), order[c], offsets[c])
         if c not in cache:
             r = self.host_receivers
             if r is None:

@@ -12,7 +12,11 @@ gradient-stable form).  Triples are ``label_list`` rows
 on the stream backend it carries one ``StreamCOO`` per relation channel)
 and yields it with per-step label slices and fresh negatives, drawn from
 ``np.random.RandomState(seed)`` in ``kgcn_tpu``'s order, so one seed gives
-both packages the same slices and negatives.
+both packages the same slices and negatives.  Training takes the scanned
+epoch (``epoch_scan_inputs`` / ``make_scan_batch``, as
+``kgcn_tpu/models/kg.py:218-231``): the graph stays on the device and only
+the epoch's label slices move there, in one copy; on the card each step is
+replayed from one captured CUDA graph (``runtime/runner.py``).
 """
 from __future__ import annotations
 
@@ -203,3 +207,17 @@ class KGBatcher:
         lls, lvs = self._epoch_label_lists(shuffle)
         for ll, lv in zip(lls, lvs):
             yield self._with_labels(ll, lv)
+
+    # --- the scanned epoch (Trainer.epoch_on_device) ----------------------
+    def epoch_scan_inputs(self, shuffle: bool = True, epoch: Optional[int] = None):
+        """(constant batch, per-step inputs): the graph batch, which stays
+        on the device, and the epoch's ``[S, 1, L, 6]`` int32 label slices
+        and ``[S, 1, L]`` float32 validity (NumPy; the runner moves them in
+        one copy), drawn as ``batches`` draws them."""
+        lls, lvs = self._epoch_label_lists(shuffle)
+        return self.graph_batch, (lls[:, None].astype(np.int32), lvs[:, None])
+
+    @staticmethod
+    def make_scan_batch(const_batch: Batch, x) -> Batch:
+        ll, lv = x
+        return const_batch.replace(label_list=ll, label_valid=lv)

@@ -250,6 +250,16 @@ class GCNMultitask(nn.Module):
         self.Dense_0 = nn.Linear(hidden, label_dim)
         self.reset_parameters()
 
+    def _pos_weight_on(self, device) -> torch.Tensor:
+        """``pos_weight`` as a tensor on ``device``, copied there once (the
+        first, eager call of a captured step makes it; the capture may not
+        copy from the host)."""
+        cache = self.__dict__.setdefault("_pos_weight_cache", {})
+        if device not in cache:
+            cache[device] = torch.tensor(self.pos_weight, dtype=torch.float32,
+                                         device=device)
+        return cache[device]
+
     def reset_parameters(self, generator=None) -> None:
         _reset((self.GraphConv_0, self.GraphConv_1,
                 self.GraphDense_0, self.GraphConv_2,
@@ -274,7 +284,7 @@ class GCNMultitask(nn.Module):
         pad = batch.pad_mask
         if self.pos_weight is not None:
             # tf.nn.weighted_cross_entropy_with_logits, stable form
-            pw = torch.tensor(self.pos_weight, dtype=torch.float32, device=logits.device)
+            pw = self._pos_weight_on(logits.device)
             ce = ((1 - labels) * (logits + F.softplus(-logits))
                   + labels * pw * F.softplus(-logits))
         else:

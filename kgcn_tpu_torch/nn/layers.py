@@ -232,7 +232,9 @@ class GAT(nn.Module):
         Fx = x.shape[-1]
         B, N = graph.n_graph, graph.max_nodes
         xb = x.reshape(B, N, Fx)
-        neg = torch.tensor(-1e30, dtype=torch.float32, device=x.device)
+        # a fill on the device, not a copy from the host (a captured step
+        # may not copy)
+        neg = torch.full((), -1e30, dtype=torch.float32, device=x.device)
         out = torch.zeros((B, N, Fx), dtype=x.dtype, device=x.device)
         for c in range(a.shape[0]):
             mask = graph.dense_adj[c] != 0                    # [B, r, s]

@@ -10,8 +10,9 @@ includes PyTorch's headers, which keeps a build to seconds.
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/libgconv-<hash>.so csrc/gconv.cu
 
 A ``csrc/<name>.cc`` is host code (the tiled backend's structure and plan
-builders, the ELL backends' batch packer): the host C++ compiler builds it
-the same way, on a machine with or without a card.
+builders, the ELL backends' batch packer, the Batcher's edge and feature
+packer): the host C++ compiler builds it the same way, on a machine with
+or without a card.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ NVCC_FLAGS = [
 ]
 CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 SOURCES = ("gconv", "tiled", "stream", "ell")  # every kernel source of the port, by stem
-HOST_SOURCES = ("tiled_host", "ell_host")  # host code of the backends, by stem
+HOST_SOURCES = ("tiled_host", "ell_host", "batch_host")  # host code, by stem
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -10,8 +10,9 @@ the padding waste is small.
   ``coo_to_ell`` are NumPy, equal to the JAX package's array for array (the
   ``Batcher`` builds its ELL arrays with them, under the same gate).
 * ``ell_transpose`` (NumPy) lists each sender's slots, the transpose that
-  the GPU's dx kernel walks; the ``Batcher`` builds it per graph once per
-  dataset, beside the forward arrays.
+  the GPU's dx kernel walks; ``per_graph_ell`` builds the forward arrays
+  and it per graph, once per dataset, for the ``Batcher`` and the
+  device-resident dataset (``runtime/resident.py``).
 * ``spmm_ell`` and ``spmm_ell_multichannel`` are the plain PyTorch
   versions: gather, then einsum.  On the CPU they are the path itself; on
   the GPU ``ops/ell_spmm.py`` launches the hand-written kernel
@@ -109,6 +110,36 @@ def ell_transpose(idx, w, num_rows: int):
     if num_rows:
         offsets[1:, 0] = cum[:-1, -1]
     return offsets, slots
+
+
+def per_graph_ell(adjs, num_nodes: int):
+    """Per-graph ELL arrays of a dataset, or None where ``ell_layout_ok``
+    refuses it: ``{"idx", "w"}`` ``[G, C, N, K]`` (``coo_to_ell`` of each
+    graph and channel, K the max in-degree) and each graph's transpose
+    (``ell_transpose``): per channel its real slots ``v*K + k`` grouped by
+    sender, padded to ``N*K`` (``t_slots [G, C, N*K]``), their count
+    (``t_count [G, C]``) and each sender's list end counted from the
+    graph's list start (``t_end [G, C, N]``); and ``"K"``."""
+    if adjs is None:
+        return None
+    G, C, N = len(adjs), len(adjs[0]), num_nodes
+    max_deg, total_edges = scan_ell_stats(adjs)
+    if not ell_layout_ok(max_deg, G * C * N, total_edges):
+        return None
+    K = max_deg
+    idx = np.zeros((G, C, N, K), np.int32)
+    w = np.zeros((G, C, N, K), np.float32)
+    for g, gs in enumerate(adjs):
+        for c, (r, cc, v) in enumerate(gs):
+            idx[g, c], w[g, c] = coo_to_ell(cc, r, v, N, max_degree=K)
+    # every (graph, channel) as one channel of the transpose
+    offsets, slots = ell_transpose(idx.reshape(G * C, N, K), w.reshape(G * C, N, K), N)
+    count = offsets[:, -1] - offsets[:, 0]
+    t_slots = np.zeros((G * C, N * K), np.int32)
+    t_slots[np.arange(N * K)[None, :] < count[:, None]] = slots
+    return {"idx": idx, "w": w, "K": K, "t_slots": t_slots.reshape(G, C, N * K),
+            "t_end": np.ascontiguousarray((offsets[:, 1:] - offsets[:, :1]).reshape(G, C, N)),
+            "t_count": np.ascontiguousarray(count.reshape(G, C))}
 
 
 def spmm_ell(idx, w, x):

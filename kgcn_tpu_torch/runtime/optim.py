@@ -16,21 +16,44 @@ added to the parameters.  Config keys as in ``kgcn_tpu``:
   ``grad_accum_steps`` (optax.MultiSteps, mean of the micro-batch grads)
 
 The chain order is clip → decay → optimizer, as there.
+
+A run whose steps are replayed from one captured CUDA graph
+(``runtime/runner.py``) cannot read the host step counts: a Python number
+is frozen into the graph at capture.  So each transform also says which of
+its numbers come from its counts (``width`` of them a step): ``table(state,
+n)`` computes them on the host for the next ``n`` steps, with the same
+float32 arithmetic as ``update`` (``[n, width]``); ``update_row`` is the
+update with them read from a row of that table (tensors on the device), the
+counts left as they are; ``advance(state, n)`` moves the counts on by ``n``
+steps afterwards.  ``update`` itself is unchanged.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, Dict, List
 
+import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
 
 
 class Transform:
-    def __init__(self, init: Callable, update: Callable):
+    """``init``/``update`` as optax's; ``width``, ``table``, ``update_row``
+    and ``advance`` for replayed steps (module docstring).  A transform
+    whose update reads no count needs none of them: its ``update_row`` is
+    its ``update``."""
+
+    def __init__(self, init: Callable, update: Callable, *, width: int = 0,
+                 table: Callable = None, update_row: Callable = None,
+                 advance: Callable = None):
         self.init = init
         self.update = update
+        self.width = width
+        self.table = table or (lambda state, n: np.zeros((n, 0), np.float32))
+        self.update_row = update_row or (
+            lambda grads, state, params, row: update(grads, state, params))
+        self.advance = advance or (lambda state, n: state)
 
 
 def _zeros_like(params: Tensors) -> Tensors:
@@ -40,6 +63,16 @@ def _zeros_like(params: Tensors) -> Tensors:
 def _count(params: Tensors) -> torch.Tensor:
     """Step counters live on the host, so no step waits on the device."""
     return torch.zeros((), dtype=torch.int32)
+
+
+def _div(x: torch.Tensor, c) -> torch.Tensor:
+    """``x / c`` as the eager update computes it with a Python number ``c``:
+    on the card PyTorch multiplies by the float32 reciprocal of a host
+    scalar, so a ``c`` from a table on the card does the same (a replayed
+    step then gives the eager step's bits); elsewhere a true division."""
+    if isinstance(c, torch.Tensor) and c.is_cuda:
+        return x * torch.reciprocal(c)
+    return x / c
 
 
 def _bias_correction(decay: float, count: torch.Tensor) -> float:
@@ -108,16 +141,36 @@ def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> Transform:
         return {"count": _count(params), "mu": _zeros_like(params),
                 "nu": _zeros_like(params)}
 
-    def update(grads, state, params):
-        count = state["count"] + 1
-        c1, c2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    def moments(grads, state, c1, c2):
         mu, nu, out = {}, {}, {}
         for k, g in grads.items():
             mu[k] = (1 - b1) * g + b1 * state["mu"][k]
             nu[k] = (1 - b2) * g * g + b2 * state["nu"][k]
-            out[k] = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps)
+            out[k] = _div(mu[k], c1) / (torch.sqrt(_div(nu[k], c2)) + eps)
+        return out, mu, nu
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        out, mu, nu = moments(grads, state, _bias_correction(b1, count),
+                              _bias_correction(b2, count))
         return out, {"count": count, "mu": mu, "nu": nu}
-    return Transform(init, update)
+
+    def table(state, n):
+        c0 = int(state["count"])
+        rows = []
+        for c in range(c0 + 1, c0 + n + 1):
+            count = torch.tensor(c, dtype=torch.int32)
+            rows.append((_bias_correction(b1, count), _bias_correction(b2, count)))
+        return np.array(rows, np.float32).reshape(n, 2)
+
+    def update_row(grads, state, params, row):
+        out, mu, nu = moments(grads, state, row[0], row[1])
+        return out, {"count": state["count"], "mu": mu, "nu": nu}
+
+    def advance(state, n):
+        return dict(state, count=state["count"] + n)
+    return Transform(init, update, width=2, table=table, update_row=update_row,
+                     advance=advance)
 
 
 def scale_by_rms(decay=0.9, eps=1e-8) -> Transform:
@@ -176,7 +229,19 @@ def scale_by_learning_rate(lr) -> Transform:
         step = -float(lr(int(state["count"])))
         return ({k: step * g for k, g in grads.items()},
                 {"count": state["count"] + 1})
-    return Transform(init, update)
+
+    def table(state, n):
+        c0 = int(state["count"])
+        return np.array([-float(lr(c)) for c in range(c0, c0 + n)],
+                        np.float32).reshape(n, 1)
+
+    def update_row(grads, state, params, row):
+        return {k: row[0] * g for k, g in grads.items()}, state
+
+    def advance(state, n):
+        return {"count": state["count"] + n}
+    return Transform(init, update, width=1, table=table, update_row=update_row,
+                     advance=advance)
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
@@ -197,12 +262,38 @@ def chain(*parts: Transform) -> Transform:
         for i, p in enumerate(parts):
             grads, new[str(i)] = p.update(grads, state[str(i)], params)
         return grads, new
-    return Transform(init, update)
+
+    def table(state, n):
+        return np.concatenate([np.zeros((n, 0), np.float32)] + [
+            p.table(state[str(i)], n) for i, p in enumerate(parts)], axis=1)
+
+    def update_row(grads, state, params, row):
+        new, at = {}, 0
+        for i, p in enumerate(parts):
+            grads, new[str(i)] = p.update_row(grads, state[str(i)], params,
+                                              row[at:at + p.width])
+            at += p.width
+        return grads, new
+
+    def advance(state, n):
+        return {str(i): p.advance(state[str(i)], n) for i, p in enumerate(parts)}
+    return Transform(init, update, width=sum(p.width for p in parts), table=table,
+                     update_row=update_row, advance=advance)
+
+
+def _select(keep: torch.Tensor, new, old):
+    """``new`` where ``keep`` else ``old``, leaf by leaf (leaves that are
+    the same object, the host counts, stay as they are)."""
+    if isinstance(new, dict):
+        return {k: _select(keep, new[k], old[k]) for k in new}
+    return old if new is old else torch.where(keep, new, old)
 
 
 def multi_steps(inner: Transform, every_k: int) -> Transform:
     """optax.MultiSteps: average ``every_k`` micro-batch gradients, apply the
-    inner transform on the last, emit zero updates on the others."""
+    inner transform on the last, emit zero updates on the others.  A
+    replayed step computes the inner update every time and keeps it on the
+    last micro-step only (its table's second column)."""
     def init(params):
         return {"mini_step": _count(params), "gradient_step": _count(params),
                 "inner": inner.init(params), "acc": _zeros_like(params)}
@@ -220,7 +311,40 @@ def multi_steps(inner: Transform, every_k: int) -> Transform:
                 {"mini_step": state["mini_step"] + 1,
                  "gradient_step": state["gradient_step"],
                  "inner": state["inner"], "acc": acc})
-    return Transform(init, update)
+
+    def minis(state, n):
+        m0 = int(state["mini_step"])
+        return [(m0 + s) % every_k for s in range(n)]
+
+    def table(state, n):
+        ms = minis(state, n)
+        inner_tab = inner.table(state["inner"], sum(m == every_k - 1 for m in ms) + 1)
+        rows, done = [], 0  # done: the inner updates before step s
+        for m in ms:
+            rows.append(np.concatenate([[m + 1, float(m == every_k - 1)],
+                                        inner_tab[done]]))
+            done += m == every_k - 1
+        return np.array(rows, np.float32).reshape(n, 2 + inner.width)
+
+    def update_row(grads, state, params, row):
+        acc = {k: state["acc"][k] + _div(g - state["acc"][k], row[0])
+               for k, g in grads.items()}
+        updates, inner_state = inner.update_row(acc, state["inner"], params, row[2:])
+        keep = row[1] > 0
+        return ({k: torch.where(keep, u, torch.zeros_like(u)) for k, u in updates.items()},
+                dict(state, inner=_select(keep, inner_state, state["inner"]),
+                     acc={k: torch.where(keep, torch.zeros_like(a), a)
+                          for k, a in acc.items()}))
+
+    def advance(state, n):
+        ms = minis(state, n)
+        done = sum(m == every_k - 1 for m in ms)
+        return {"mini_step": torch.tensor((ms[-1] + 1) % every_k if n else int(
+                    state["mini_step"]), dtype=torch.int32),
+                "gradient_step": state["gradient_step"] + done,
+                "inner": inner.advance(state["inner"], done), "acc": state["acc"]}
+    return Transform(init, update, width=2 + inner.width, table=table,
+                     update_row=update_row, advance=advance)
 
 
 def make_optimizer(config: Dict[str, Any]) -> Transform:

@@ -1,6 +1,6 @@
 """Training runtime — the counterpart of ``kgcn_tpu/runtime/train.py``:
-train and eval steps, the streaming epoch loop, early stopping, the
-checkpoint policy and the non-finite abort.
+train and eval steps, the epoch runners, early stopping, the checkpoint
+policy and the non-finite abort.
 
 As in the JAX package, the state is data (``TrainState``: flat dicts of
 parameters and BN statistics, the optimizer state, the step count, the
@@ -9,11 +9,18 @@ of it: each step runs the module through ``torch.func.functional_call`` on
 the state's tensors, ``torch.autograd.grad`` gives the gradients, and the
 optimizer (``runtime/optim.py``, optax's update rules) the new parameters.
 
-Only the streaming path is ported: the JAX package's device-resident epoch
-(``runtime/resident.py``) is off for the tiled backend there too
-(``resident.py:102-108``), and on the dense path it is later work
-(ROADMAP.md A.11).  Validation batches are built once and replayed
-(``CachedBatches``).
+``run_epoch`` dispatches as the JAX trainer does (``train.py:358-363``): a
+batcher with ``epoch_schedule`` (``runtime/resident.ResidentBatcher``)
+runs the whole-epoch resident runner, one with ``epoch_scan_inputs``
+(``models/kg.KGBatcher``) the scanned epoch, and any other the streaming
+loop, its batches assembled ahead in a thread (``data/prefetch.py``) and
+moved to the device one by one.  ``evaluate`` runs the resident evaluation
+runner for a resident batcher (``Trainer`` itself, not a subclass, as
+there).  The runners (``runtime/runner.py``) replay each step from one
+captured CUDA graph on the card, unless the trainer was made with
+``capture=False``; on the CPU they run eagerly.  Validation batches of the
+streaming path are built once and replayed (``CachedBatches``), where the
+resident memory budget admits them.
 """
 from __future__ import annotations
 
@@ -26,10 +33,15 @@ import torch
 from torch.func import functional_call
 
 from kgcn_tpu_torch.data.batcher import Batch
+from kgcn_tpu_torch.data.prefetch import prefetch
 from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime.device import device_from_arg
 from kgcn_tpu_torch.runtime.metrics import aggregate_metrics
 from kgcn_tpu_torch.runtime.optim import make_optimizer
+from kgcn_tpu_torch.runtime.resident import (
+    DEFAULT_RESIDENT_BUDGET, estimate_bytes, gather_batch,
+)
+from kgcn_tpu_torch.runtime.runner import EvalRunner, TrainRunner, read_back
 
 
 @dataclasses.dataclass
@@ -97,22 +109,59 @@ class CachedBatches:
         return iter(self._cache)
 
 
+def _cache_fits(batcher) -> bool:
+    """Gate ``CachedBatches`` on the resident memory budget: pinning a large
+    validation split's device batches for the whole fit would take memory
+    on datasets the resident path itself declines."""
+    ds = getattr(batcher, "ds", None)
+    if ds is None or getattr(ds, "adjs", None) is None:
+        return True  # batchers without a graph dataset: small by construction
+    max_nodes = int(getattr(batcher, "max_nodes", 0) or 0) or 1
+    return estimate_bytes(ds, max_nodes) <= DEFAULT_RESIDENT_BUDGET
+
+
+def _scan_batch(batcher, const_batch):
+    """A scanned epoch's step batch: the batcher type's ``make_scan_batch``
+    of the constant batch and step ``i``'s row of each per-step input."""
+    def make(i, xs):
+        return type(batcher).make_scan_batch(
+            const_batch, tuple(x.index_select(0, i)[0] for x in xs))
+    return make
+
+
+def _schedule_batch(device_data):
+    """A resident epoch's step batch: schedule row ``i`` gathered from the
+    device dataset (``resident.gather_batch``)."""
+    def make(i, xs):
+        return gather_batch(device_data, xs[0].index_select(0, i)[0],
+                            xs[1].index_select(0, i)[0])
+    return make
+
+
+def _metric_list(metrics: Dict[str, np.ndarray], n_steps: int):
+    return [{k: v[s] for k, v in metrics.items()} for s in range(n_steps)]
+
+
 def _generator_state(gen: Optional[torch.Generator]) -> torch.Tensor:
     return gen.get_state() if gen is not None else torch.zeros(0, dtype=torch.uint8)
 
 
 class Trainer:
     """Runs a model of the :class:`ModelOutput` protocol on ``device``
-    (CUDA unless the caller passes ``device="cpu"``)."""
+    (CUDA unless the caller passes ``device="cpu"``).  ``capture``: on CUDA
+    the epoch runners replay each step from a captured CUDA graph; False
+    runs the same steps eagerly (the yardstick of the captured ones)."""
 
     def __init__(self, model: torch.nn.Module, config: Dict[str, Any],
-                 info=None, device=None, tx=None):
+                 info=None, device=None, tx=None, capture: bool = True):
         self.device = device_from_arg(device)
         self.model = model.to(self.device).eval()
         self.config = config
         self.info = info
         self.tx = tx if tx is not None else make_optimizer(config)
+        self.capture = bool(capture) and self.device.type == "cuda"
         self._restored_best_cost = np.inf
+        self._runners: Dict[tuple, Any] = {}
 
     # ---- state ---------------------------------------------------------
     def _generator(self, seed: int) -> torch.Generator:
@@ -219,13 +268,73 @@ class Trainer:
         )
         return out.prediction, out.cost_sum, out.metrics
 
+    # ---- whole-epoch runners -------------------------------------------
+    def _runner(self, kind, key, n_steps, make, xs, keep_alive):
+        """The runner of ``kind`` for one batcher's data (``key``) and epoch
+        length, made (and on the card captured) at its first epoch."""
+        full = (kind, key, n_steps)
+        runner = self._runners.get(full)
+        if runner is None:
+            cls = TrainRunner if kind != "eval" else EvalRunner
+            runner = self._runners[full] = cls(self, n_steps, make, xs, keep_alive)
+        return runner
+
+    def epoch_on_device(self, state: TrainState, batcher, shuffle=True,
+                        epoch: Optional[int] = None):
+        """One epoch through a whole-epoch runner: a resident batcher's
+        schedule (``epoch_schedule``) or a scanned batcher's per-step inputs
+        (``epoch_scan_inputs``) → (state, costs ``[S]``, metrics ``{name:
+        [S, ...]}``), the outputs left on the device and nothing read
+        back."""
+        if hasattr(batcher, "epoch_schedule"):
+            xs = batcher.epoch_schedule(shuffle=shuffle, epoch=epoch)
+            dd = batcher.device_data
+            runner = self._runner("train", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
+        else:
+            const, xs = batcher.epoch_scan_inputs(shuffle=shuffle, epoch=epoch)
+            runner = self._runner("scan", id(const), len(xs[0]), _scan_batch(batcher, const),
+                                  xs, const)
+        return runner.run(state, xs)
+
+    def _run_epoch_runner(self, state, batcher, shuffle, epoch):
+        state, costs, metrics = self.epoch_on_device(state, batcher, shuffle, epoch)
+        names = list(metrics)
+        costs, *values = read_back(costs, *(metrics[k] for k in names))
+        n_total = batcher.valid_per_epoch
+        return (state, float(np.sum(costs)) / max(n_total, 1),
+                _metric_list(dict(zip(names, values)), len(costs)), n_total)
+
+    def _evaluate_resident(self, state: TrainState, batcher, key_prefix=""):
+        """The whole evaluation through the resident evaluation runner;
+        padding rows trimmed by ``batch_valid_counts``."""
+        xs = batcher.epoch_schedule(shuffle=False)
+        dd = batcher.device_data
+        runner = self._runner("eval", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
+        preds, costs, metrics = runner.run(state.params, state.batch_stats, xs)
+        names = list(metrics)
+        preds, costs, *values = read_back(preds, costs, *(metrics[k] for k in names))
+        counts = batcher.batch_valid_counts()
+        n_total = sum(counts)
+        agg = aggregate_metrics(_metric_list(dict(zip(names, values)), len(costs)),
+                                n_total, self.config.get("task", ""), key_prefix)
+        return {
+            "cost": float(np.sum(costs)) / max(n_total, 1),
+            "metrics": agg or {},
+            "prediction": np.concatenate([preds[s][:n] for s, n in enumerate(counts)]),
+            "num": n_total,
+        }
+
     # ---- loops ---------------------------------------------------------
     def run_epoch(self, state: TrainState, batcher, shuffle=True,
                   epoch: Optional[int] = None):
         """One pass over ``batcher`` → (state, mean cost, per-step metric
-        dicts, examples); device outputs are read once at the end."""
+        dicts, examples); device outputs are read once at the end.  A
+        resident or scanned batcher takes its whole-epoch runner; any other
+        the streaming loop, with its batches prefetched."""
+        if hasattr(batcher, "epoch_schedule") or hasattr(batcher, "epoch_scan_inputs"):
+            return self._run_epoch_runner(state, batcher, shuffle, epoch)
         costs, metric_list = [], []
-        for batch in batcher.batches(shuffle=shuffle, epoch=epoch):
+        for batch in prefetch(batcher.batches(shuffle=shuffle, epoch=epoch)):
             state, cost_sum, metrics = self.train_step(state, batch)
             costs.append(cost_sum)
             metric_list.append(metrics)
@@ -236,10 +345,15 @@ class Trainer:
 
     def evaluate(self, state: TrainState, batcher, key_prefix: str = ""):
         """Every batch of ``batcher`` in order; device outputs are copied to
-        the host once at the end.  Padding rows are trimmed."""
+        the host once at the end.  Padding rows are trimmed.  A resident
+        batcher (also inside ``CachedBatches``) takes the evaluation
+        runner."""
+        inner = getattr(batcher, "_batcher", batcher)
+        if hasattr(inner, "epoch_schedule") and type(self) is Trainer:
+            return self._evaluate_resident(state, inner, key_prefix)
         counts = batcher.batch_valid_counts()
         preds, costs, metric_list = [], [], []
-        for batch in batcher.batches(shuffle=False):
+        for batch in prefetch(batcher.batches(shuffle=False)):
             pred, cost_sum, metrics = self.eval_step(
                 state.params, state.batch_stats, batch
             )
@@ -279,7 +393,8 @@ class Trainer:
             es = EarlyStoppingMultiTask(patience, task)
         else:
             es = EarlyStopping(patience, task)
-        if valid_batcher is not None and hasattr(valid_batcher, "batch_valid_counts"):
+        if (valid_batcher is not None and hasattr(valid_batcher, "batch_valid_counts")
+                and _cache_fits(valid_batcher)):
             valid_batcher = CachedBatches(valid_batcher, self.device)
         # a resumed run keeps the checkpointed best validation cost, so it
         # cannot overwrite a better best checkpoint with a worse model
