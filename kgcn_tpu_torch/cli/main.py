@@ -1,15 +1,28 @@
 """Command-line entry point of the port — the counterpart of
-``kgcn_tpu/cli/main.py`` for the ``train`` and ``infer`` subcommands.
+``kgcn_tpu/cli/main.py``: the ``train``, ``train_cv``, ``infer`` and
+``visualize`` subcommands.
 
     python -m kgcn_tpu_torch.cli.main train --config example_config/gat.json [--cpu]
     python -m kgcn_tpu_torch.cli.main infer --config example_config/gat.json [--cpu]
+    python -m kgcn_tpu_torch.cli.main train_cv --config example_config/solubility_reg.json [--cpu]
+    python -m kgcn_tpu_torch.cli.main visualize --config example_config/synth.json [--cpu]
     python -m kgcn_tpu_torch.cli.main train --config kg.json [--cpu]
     python -m kgcn_tpu_torch.cli.main infer --config kg.json [--cpu]
 
 Same JSON configs and the same outputs as ``kgcn-tpu``: per-epoch lines,
 best / interval / last checkpoints under ``save_model_path`` (the port's
 own format, ``runtime/checkpoint.py``), ``serve_info.json`` beside them, and
-``save_info_train`` / ``save_info_valid`` / ``save_result_valid``.  A
+``save_info_train`` / ``save_info_valid`` (with the metric battery,
+``valid_metrics``) / ``save_result_valid``; with ``make_plot`` the cost
+curve and, for classification, the ROC curves under ``plot_path``
+(``tools/plots.py``; matplotlib).  ``train_cv`` trains ``k-fold_num``
+folds (``kfold_indices``; ``stratified_kfold``), fold ``f`` from seed
+``seed + f`` with its checkpoints named by fold, and writes each fold's
+test cost and battery to ``save_info_cv`` / ``save_result_cv`` (and
+``save_result_test`` per fold); ``fold_parallel`` ``"auto"`` trains the
+folds one after another on the one card, as ``kgcn_tpu``'s gate does on
+one device.  ``visualize`` writes the integrated gradients of each
+molecule (``explain/ig.py``) under ``visualize_path``.  A
 ``task: link_prediction`` dataset with a ``label_list`` trains the KG link
 predictor (``cmd_train_kg``: preference pairs, the ``last`` checkpoint,
 ``save_info_train``), and ``infer`` ranks its held-out triples
@@ -17,9 +30,9 @@ predictor (``cmd_train_kg``: preference pairs, the ``last`` checkpoint,
 ``save_result_test``, ``save_info_test``).  On any other dataset ``infer``
 evaluates the whole dataset with the ``best`` checkpoint (``last`` when
 there is no best): ``infer_time``, ``test_cost`` and
-``test_metrics_protocol``, ``save_result_test``, ``save_info_test`` and
-``prediction_data`` (a plain pickle).  Runs on the GPU unless ``--cpu`` is
-given.
+``test_metrics_protocol`` and the battery (``test_metrics``),
+``save_result_test``, ``save_info_test`` and ``prediction_data`` (a plain
+pickle).  Runs on the GPU unless ``--cpu`` is given.
 
 The config's ``spmm_backend`` picks the path: ``"auto"`` resolves as in
 ``kgcn_tpu`` (dense up to 256 padded nodes, the CUDA gconv kernel; stream
@@ -38,12 +51,11 @@ replayed from a captured CUDA graph), as ``kgcn_tpu`` does; the tiled and
 stream backends decline it (said when it was forced).  KG training runs
 the scanned epoch.
 
-Not ported yet, each raising "not yet ported" (ROADMAP.md A.5): the
-``train_cv`` and ``visualize`` subcommands, ``mesh`` (data parallel; KG:
-the sharded and resident training), ``make_plot``, ``export_model`` and
-``"precision": "bfloat16"``.  The offline scikit-learn battery
-(``valid_metrics`` in ``save_info_valid``, ``test_metrics`` in
-``infer``'s result) is left out: the GPU machine has no scikit-learn.
+Not ported yet, each raising "not yet ported" with its ROADMAP.md item:
+``mesh`` (data parallel; KG: the sharded and resident training, A.11),
+``fold_parallel`` ``"force"`` (A.11), ``export_model`` and
+``export_savedmodel`` (A.4), ``"precision": "bfloat16"`` (A.6), and the KG
+route of ``visualize`` (A.10).
 """
 from __future__ import annotations
 
@@ -52,13 +64,16 @@ import json
 import os
 import pickle
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from kgcn_tpu_torch.data import jbl
 from kgcn_tpu_torch.data.batcher import Batcher
-from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
+from kgcn_tpu_torch.data.dataset import (MODAL_NAMES, kfold_indices, load_jbl,
+                                         split_dataset)
+from kgcn_tpu_torch.explain.ig import run_visualization
 from kgcn_tpu_torch.models.kg import KGBatcher
 from kgcn_tpu_torch.models.registry import build_model
 from kgcn_tpu_torch.runtime import backend as backend_mod
@@ -66,7 +81,20 @@ from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime import resident
 from kgcn_tpu_torch.runtime.config import load_config
 from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.metrics import compute_metrics
 from kgcn_tpu_torch.runtime.train import Trainer
+from kgcn_tpu_torch.tools import plots
+
+
+def fold_parallel_flag(config) -> str:
+    """Config ``fold_parallel`` as 'off' | 'force' | 'auto' (``kgcn_tpu``'s
+    ``parallel/cv.fold_parallel_flag``)."""
+    flag = config.get("fold_parallel", "auto")
+    if flag in (False, "false", "off", 0, "0"):
+        return "off"
+    if flag in (True, "true", "force", 1, "1"):
+        return "force"
+    return "auto"
 
 
 class NumpyEncoder(json.JSONEncoder):
@@ -108,7 +136,7 @@ def _metric_name(task: str) -> str:
             else "gmfe" if task == "regression_gmfe" else "accuracy")
 
 
-def _not_ported(what: str, item: str = "A.5"):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not yet ported to kgcn_tpu_torch "
                               f"(ROADMAP.md {item})")
 
@@ -246,10 +274,9 @@ def cmd_infer(config, device=None) -> Dict[str, Any]:
     result["test_metrics_protocol"] = {
         k: np.asarray(v).tolist() for k, v in ev["metrics"].items()
     }
-    if (ds.labels is not None and config.get("task") != "link_prediction"
-            and ds.node_label is None):
-        print("[metrics] test_metrics (the scikit-learn battery) is not yet "
-              "ported; left out")
+    if _battery_applies(config, ds):
+        result["test_metrics"] = compute_metrics(config, ds.labels, ev["prediction"],
+                                                 ds.mask_label)
     if config.get("save_result_test"):
         save_prediction(config["save_result_test"], ev["prediction"])
     if config.get("save_info_test"):
@@ -265,6 +292,18 @@ def cmd_infer(config, device=None) -> Dict[str, Any]:
     return result
 
 
+def _battery_applies(config, ds) -> bool:
+    """The offline battery scores graph-level labels (not KG ranking, not
+    per-node predictions)."""
+    return (config.get("task") != "link_prediction" and ds.labels is not None
+            and ds.node_label is None)
+
+
+def _refuse_bf16(config) -> None:
+    if str(config.get("precision", "float32")) != "float32":
+        _not_ported(f"config precision {config['precision']!r}", "A.6")
+
+
 def _maybe_resident(config, ds, info, bs, backend, device, seed=0):
     """A device-resident batcher (whole epochs through the resident runners)
     where the gate admits the dataset (``resident.resident_enabled``), else
@@ -276,25 +315,28 @@ def _maybe_resident(config, ds, info, bs, backend, device, seed=0):
                                     device=device)
 
 
-def _fit_once(config, train_ds, valid_ds, info, backend, device):
-    """The single-device streaming branch of ``kgcn_tpu``'s ``_fit_once``
-    (its ``fold``/``seed`` arguments come with ``train_cv``)."""
+def _fit_once(config, train_ds, valid_ds, info, backend, device,
+              fold: Optional[int] = None, seed: Optional[int] = None):
+    """The single-device branch of ``kgcn_tpu``'s ``_fit_once``: the batches
+    shuffled from ``seed`` (0 when None), the parameters drawn from it (the
+    config's seed when None), the checkpoints named by ``fold``."""
     if config.get("mesh"):
         _not_ported("data-parallel training (config 'mesh')", "A.11")
     bs = int(config["batch_size"])
     model = build_model(config["model.py"], info, config)
     trainer = Trainer(model, config, info, device=device)
-    tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device)
-          or Batcher(train_ds, info, bs, seed=0, backend=backend))
+    tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,
+                          seed=seed or 0)
+          or Batcher(train_ds, info, bs, seed=seed or 0, backend=backend))
     vb = None
     if valid_ds is not None and valid_ds.num > 0:
         vb = (_maybe_resident(config, valid_ds, info, bs, backend, trainer.device)
               or Batcher(valid_ds, info, bs, backend=backend))
-    state = trainer.init_state(int(config.get("seed", 0)))
+    state = trainer.init_state(seed if seed is not None else int(config.get("seed", 0)))
     if config.get("retrain"):
         state = trainer.restore(config["retrain"])
         print(f"[LOAD] {config['retrain']}")
-    state, fit_info = trainer.fit(state, tb, vb)
+    state, fit_info = trainer.fit(state, tb, vb, fold=fold)
     return trainer, state, fit_info, vb
 
 
@@ -323,11 +365,10 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
     for the GPU (raises without one) or "cpu"."""
     device = device_from_arg(device)
     task = config.get("task", "")
-    for key in ("make_plot", "export_model", "export_savedmodel"):
+    for key in ("export_model", "export_savedmodel"):
         if config.get(key):
-            _not_ported(f"config {key!r}")
-    if str(config.get("precision", "float32")) != "float32":
-        _not_ported(f"config precision {config['precision']!r}", "A.6")
+            _not_ported(f"config {key!r}", "A.4")
+    _refuse_bf16(config)
     preloaded = None
     if _is_kg(config):
         preloaded = _prepare(config)
@@ -366,9 +407,9 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
               f"validation time: {infer_time}[sec]")
         result.update(validation_cost=ev["cost"], validation_accuracy=valid_metrics,
                       infer_time=infer_time)
-        if valid_ds.labels is not None and valid_ds.node_label is None:
-            print("[metrics] valid_metrics (the scikit-learn battery) is not "
-                  "yet ported; left out")
+        if _battery_applies(config, valid_ds):
+            result["valid_metrics"] = compute_metrics(
+                config, valid_ds.labels, ev["prediction"], valid_ds.mask_label)
         if config.get("save_result_valid"):
             save_prediction(config["save_result_valid"], ev["prediction"])
         if config.get("save_info_valid"):
@@ -383,7 +424,88 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
             "validation_acc": [h.get("validation_accuracy") for h in hist],
             "train_time": train_time,
         })
+    if config.get("make_plot"):
+        plots.plot_cost(config, fit_info["history"])
+        if vb is not None and valid_ds.labels is not None and task not in (
+                "regression", "regression_gmfe", "link_prediction"):
+            plots.plot_auc(config, valid_ds.labels, np.asarray(ev["prediction"]),
+                           mask_label=valid_ds.mask_label)
     return result
+
+
+def cmd_train_cv(config, device=None) -> Dict[str, Any]:
+    """K-fold cross-validation (``kgcn_tpu``'s ``cmd_train_cv``; reference
+    gcn.py:355-524): fold ``f`` trains on the other folds from seed
+    ``seed + f``, validating on its own test fold (the best checkpoint is
+    restored), then evaluates that fold: its cost, the task metric and the
+    battery, and the summary's mean and spread of the task metric."""
+    device = device_from_arg(device)
+    _refuse_bf16(config)
+    if fold_parallel_flag(config) == "force":
+        _not_ported("fold_parallel 'force' (the folds trained at once across "
+                    "devices, kgcn_tpu/parallel/cv.py)", "A.11")
+    ds, info, backend = _prepare(config)
+    k = int(config.get("k-fold_num", 2))
+    strat = None
+    if config.get("stratified_kfold") and ds.labels is not None:
+        strat = np.argmax(ds.labels, axis=1)
+    seed = int(config.get("seed", 0))
+    folds = kfold_indices(ds.num, k, seed=seed, stratify=strat)
+    metric_name = _metric_name(config.get("task", ""))
+    fold_results = []
+    for fold, (train_idx, test_idx) in enumerate(folds):
+        print(f"[fold {fold}] train={len(train_idx)} test={len(test_idx)}")
+        train_ds, test_ds = ds.subset(train_idx), ds.subset(test_idx)
+        trainer, state, _, _ = _fit_once(config, train_ds, test_ds, info, backend,
+                                         device, fold=fold, seed=seed + fold)
+        ev = trainer.evaluate(state, Batcher(test_ds, info, int(config["batch_size"]),
+                                             backend=backend), "test_")
+        entry = {
+            "fold": fold,
+            "test_cost": ev["cost"],
+            f"test_{metric_name}": float(
+                np.asarray(ev["metrics"].get(f"test_{metric_name}", np.nan)).mean()),
+        }
+        if _battery_applies(config, test_ds):
+            entry["test_metrics"] = compute_metrics(
+                config, test_ds.labels, ev["prediction"], test_ds.mask_label)
+        fold_results.append(entry)
+        if config.get("save_result_test"):
+            base, ext = os.path.splitext(config["save_result_test"])
+            save_prediction(f"{base}.fold{fold}{ext}", ev["prediction"])
+
+    values = [r.get(f"test_{metric_name}", np.nan) for r in fold_results]
+    summary = {
+        "folds": fold_results,
+        f"mean_{metric_name}": float(np.nanmean(values)),
+        f"std_{metric_name}": float(np.nanstd(values)),
+    }
+    print(f"cv {metric_name}: mean={summary[f'mean_{metric_name}']:.4f} "
+          f"std={summary[f'std_{metric_name}']:.4f}")
+    for key in ("save_info_cv", "save_result_cv"):
+        if config.get(key):
+            _save_json(config[key], summary)
+    return summary
+
+
+def cmd_visualize(config, device=None) -> list:
+    """Integrated-gradients visualisation of a graph dataset (``kgcn_tpu``'s
+    ``cmd_visualize``, reference gcn.py:637-657): ``explain/ig.
+    run_visualization``.  Not ported yet: the KG route (``task:
+    link_prediction``, an ``edge*`` ``visualize_type``, or a node-embedding
+    dataset with KG triples) and the IG of sequence and vector-modal
+    inputs."""
+    device = device_from_arg(device)
+    vt = str(config.get("visualize_type", "graph") or "graph")
+    if config.get("task") == "link_prediction" or vt.startswith("edge"):
+        _not_ported("the KG route of visualize (explain/kg_ig.py)", "A.10")
+    raw = jbl.load(config["dataset"])
+    if config.get("with_node_embedding") and raw.get("label_list") is not None:
+        _not_ported("the KG route of visualize (explain/kg_ig.py)", "A.10")
+    if "sequence" in raw or any(k in raw for k in MODAL_NAMES):
+        _not_ported("IG of sequence and vector-modal inputs (embedded_layer_ig)",
+                    "A.8")
+    return run_visualization(config, device=device, raw=raw)
 
 
 def build_argparser():
@@ -415,9 +537,11 @@ def main(argv=None):
     device = "cpu" if args.cpu else None
     if args.mode == "train":
         return cmd_train(config, device=device)
+    if args.mode == "train_cv":
+        return cmd_train_cv(config, device=device)
     if args.mode in ("infer", "predict"):
         return cmd_infer(config, device=device)
-    _not_ported(f"the {args.mode!r} subcommand")
+    return cmd_visualize(config, device=device)
 
 
 if __name__ == "__main__":

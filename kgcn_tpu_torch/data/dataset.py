@@ -10,7 +10,8 @@ the node-embedding mode of KG datasets (``node`` / ``node_num`` with
 ``with_node_embedding``, ``label_list`` / ``test_label_list``).
 
 Not read yet, because no ported model uses them (ROADMAP.md queue A):
-``sequence*``, the vector modals and ``graph_index_list``.
+``sequence*``, the vector modals (``MODAL_NAMES``) and ``graph_index_list``.
+``kfold_indices`` is the port's copy of the k-fold split.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ import numpy as np
 from kgcn_tpu_torch.data import jbl
 from kgcn_tpu_torch.graph import transforms
 from kgcn_tpu_torch.graph.batch import pad_edge_budget
+
+# the vector-modal keys of a .jbl (kgcn_tpu/data/dataset.py:26)
+MODAL_NAMES = ("vector_modal", "profeat", "dragon", "chemical_fp")
 
 
 @dataclasses.dataclass
@@ -96,6 +100,55 @@ def split_dataset(ds: Dataset, valid_rate: float, seed: int = 0,
     n_valid = int(ds.num * valid_rate)
     valid_idx, train_idx = idx[:n_valid], idx[n_valid:]
     return ds.subset(train_idx), ds.subset(valid_idx), train_idx, valid_idx
+
+
+def kfold_indices(n: int, k: int, seed: int = 0,
+                  stratify: Optional[np.ndarray] = None):
+    """[(train_idx, test_idx)] of a shuffled k-fold split, index for index
+    the folds of scikit-learn 1.9.0's ``KFold(k, shuffle=True,
+    random_state=seed)``, or with ``stratify`` (one class label per
+    example) of its ``StratifiedKFold`` (``kgcn_tpu``'s ``kfold_indices``,
+    ``kgcn_tpu/data/dataset.py:378``; reference gcn.py:360-365).  Both
+    index lists of a fold are ascending."""
+    n, k = int(n), int(k)
+    if k < 2:
+        raise ValueError(f"k-fold cross-validation requires at least one "
+                         f"train/test split by setting n_splits=2 or more, got {k}")
+    if k > n:
+        raise ValueError(f"Cannot have number of splits n_splits={k} greater "
+                         f"than the number of samples: n_samples={n}.")
+    rng = np.random.RandomState(seed)
+    test_fold = np.empty(n, dtype=np.int64)
+    if stratify is None:
+        # the shuffled indices cut into k runs, the n % k larger ones first
+        order = np.arange(n)
+        rng.shuffle(order)
+        sizes = np.full(k, n // k, dtype=np.int64)
+        sizes[: n % k] += 1
+        test_fold[order] = np.repeat(np.arange(k), sizes)
+    else:
+        y = np.asarray(stratify).ravel()
+        if len(y) != n:
+            raise ValueError(f"stratify has {len(y)} labels for {n} examples")
+        # classes numbered by first appearance; each class's fold numbers
+        # come from a round robin over the sorted labels, shuffled per class
+        _, first, inv = np.unique(y, return_index=True, return_inverse=True)
+        _, class_perm = np.unique(first, return_inverse=True)
+        y_enc = class_perm[inv.ravel()]
+        n_classes = len(first)
+        counts = np.bincount(y_enc)
+        if np.all(k > counts):
+            raise ValueError(f"n_splits={k} cannot be greater than the number "
+                             "of members in each class.")
+        y_order = np.sort(y_enc)
+        allocation = np.asarray([np.bincount(y_order[i::k], minlength=n_classes)
+                                 for i in range(k)])
+        for c in range(n_classes):
+            folds_for_class = np.arange(k).repeat(allocation[:, c])
+            rng.shuffle(folds_for_class)
+            test_fold[y_enc == c] = folds_for_class
+    idx = np.arange(n)
+    return [(idx[test_fold != f], idx[test_fold == f]) for f in range(k)]
 
 
 def _dense_to_coo(dense: np.ndarray):

@@ -16,7 +16,9 @@ rules —
   ``with_tiled``;
 * ``stream_adj`` optionally carries the per-channel ``StreamCOO``
   structures of the stream kernels (``ops/stream_spmm.py``), adjacency
-  weights baked in, built on the host by ``with_stream``;
+  weights baked in, built on the host by ``with_stream``; the layers take
+  the baked weights unless ``live_weights`` asks them to read
+  ``edge_weights`` (integrated gradients scales and differentiates them);
 * ``ell_senders`` / ``ell_weights`` optionally carry the per-channel ELL
   arrays (padded per-row neighbour lists, ``ops/ell.py``) that the ``xla``
   and ``pallas`` backends aggregate over, built by the ``Batcher``, which
@@ -74,6 +76,8 @@ class GraphBatch:
     edge_valid: optional explicit ``[C, E]`` edge-validity mask.
     tiled_adj: tuple of per-channel ``TiledCOO``, or None.
     stream_adj: tuple of per-channel ``StreamCOO``, or None.
+    live_weights: the layers pass ``edge_weights`` to the stream
+        structures instead of the weights baked into them.
     ell_senders: ``[C, V, K]`` int32 sender of each ELL slot (padding slots
         0), or None.
     ell_weights: ``[C, V, K]`` float32 weight of each ELL slot (padding
@@ -107,6 +111,7 @@ class GraphBatch:
     edge_valid: Optional[torch.Tensor] = None
     tiled_adj: Optional[tuple] = None
     stream_adj: Optional[tuple] = None
+    live_weights: bool = False
     ell_senders: Optional[torch.Tensor] = None
     ell_weights: Optional[torch.Tensor] = None
     ell_pack: Optional[torch.Tensor] = None

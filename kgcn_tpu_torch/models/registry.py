@@ -2,9 +2,14 @@
 
 Resolves the ``model.py`` config key (registry name or the reference's
 dotted path) to a constructor.  ``gcn``, ``gin``, ``gat``,
-``gcn_rxn_3layer``, ``gcn_multitask`` and ``kg_distmult`` are ported so far;
-every other name the JAX package knows raises ``NotImplementedError``
-pointing at ROADMAP.md.
+``gcn_rxn_3layer``, ``gcn_multitask``, ``gcn_regression``,
+``gcn_node_label`` and ``kg_distmult`` are ported so far; every other name
+the JAX package knows raises ``NotImplementedError`` pointing at
+ROADMAP.md.  On a featureless dataset (``with_node_embedding``) ``gcn``,
+``gcn_rxn_3layer``, ``gcn_multitask`` and ``gcn_node_label`` take their
+node-embedding mode (``all_node_num`` rows of ``embedding_dim``, as
+``kgcn_tpu`` passes them); ``gin``, ``gat`` and ``gcn_regression`` have
+none.
 """
 from __future__ import annotations
 
@@ -28,24 +33,35 @@ _REFERENCE_ALIASES = {
 }
 
 
+def _featured(info) -> bool:
+    return bool(info.feature_enabled and info.feature_dim)
+
+
 def _features(info, name):
-    """The node feature width; featureless (node-embedding) datasets are
-    not ported for the graph-classification models."""
-    if not info.feature_enabled or not info.feature_dim:
-        raise NotImplementedError(
-            f"{name} in node-embedding mode is not ported yet (ROADMAP.md queue A)"
-        )
+    """The node feature width of a model without a node-embedding mode."""
+    if not _featured(info):
+        raise ValueError(f"{name} needs node features; it has no node-embedding "
+                         "mode (in kgcn_tpu neither)")
     return info.feature_dim
+
+
+def _inputs(info, config):
+    """The input arguments of a model with a node-embedding mode: the
+    feature width, or in embedding mode none, with the table's size."""
+    if _featured(info):
+        return dict(in_features=info.feature_dim)
+    return dict(in_features=None, all_node_num=info.all_node_num,
+                embedding_dim=int(config.get("embedding_dim", 10)))
 
 
 def _gcn(info, config):
     from kgcn_tpu_torch.models.standard import GCN
 
     return GCN(
-        in_features=_features(info, "gcn"),
         channels=info.adj_channel_num,
         label_dim=info.label_dim or 2,
         dropout_rate=float(config.get("dropout_rate", 0.2)),
+        **_inputs(info, config),
     )
 
 
@@ -62,14 +78,31 @@ def _gin(info, config):
 def _gcn_rxn_3layer(info, config):
     from kgcn_tpu_torch.models.standard import RxnGCN
 
-    return RxnGCN(_features(info, "gcn_rxn_3layer"), **_common(info))
+    return RxnGCN(**_inputs(info, config), **_common(info))
 
 
 def _gcn_multitask(info, config):
     from kgcn_tpu_torch.models.standard import GCNMultitask
 
-    return GCNMultitask(_features(info, "gcn_multitask"), pos_weight=info.pos_weight,
+    return GCNMultitask(pos_weight=info.pos_weight, **_inputs(info, config),
                         **_common(info))
+
+
+def _gcn_node_label(info, config):
+    from kgcn_tpu_torch.models.standard import GCNNodeLabel
+
+    return GCNNodeLabel(**_inputs(info, config), **_common(info))
+
+
+def _gcn_regression(info, config):
+    from kgcn_tpu_torch.models.multimodal import GCNRegression
+
+    return GCNRegression(
+        in_features=_features(info, "gcn_regression"),
+        channels=info.adj_channel_num,
+        label_dim=info.label_dim or 1,
+        dropout_rate=float(config.get("dropout_rate", 0.2)),
+    )
 
 
 def _gat(info, config):
@@ -96,6 +129,7 @@ def _kg_distmult(info, config):
 
 _REGISTRY = {"gcn": _gcn, "gin": _gin, "gat": _gat,
              "gcn_rxn_3layer": _gcn_rxn_3layer, "gcn_multitask": _gcn_multitask,
+             "gcn_node_label": _gcn_node_label, "gcn_regression": _gcn_regression,
              "kg_distmult": _kg_distmult}
 
 

@@ -1,13 +1,21 @@
 """Standard graph-classification models — the counterparts of
-``kgcn_tpu/models/standard.py:21-251`` (GCN, RxnGCN, GIN, GATModel and
-GCNMultitask).  The node-label model of that file is still to be ported
-(ROADMAP.md queue A).
+``kgcn_tpu/models/standard.py`` (GCN, RxnGCN, GIN, GATModel, GCNMultitask
+and GCNNodeLabel).
+
+``GCN``, ``RxnGCN``, ``GCNMultitask`` and ``GCNNodeLabel`` have the
+node-embedding mode of ``kgcn_tpu``'s ``_maybe_embed`` (``standard.py:
+39-44``): built with ``in_features=None`` they look the batch's
+``node_ids`` up in a ``NodeEmbedding_0`` table of ``all_node_num`` rows and
+``embedding_dim`` columns instead of reading node features.  GIN and GAT
+have no such mode there, nor here.
 
 Dropout draws from the ``torch.Generator`` the trainer passes in
 (``forward(batch, train, generator)``), as the JAX models draw from the
 ``dropout`` rng stream; the two give different masks from one seed.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +47,36 @@ def _reset(layers, generator):
         layer.reset_parameters(generator)
 
 
+def _embedding(in_features, all_node_num, embedding_dim):
+    """(the first layer's input width, the ``NodeEmbedding`` of
+    node-embedding mode or None): features of ``in_features`` columns, or
+    with ``in_features`` None an ``all_node_num × embedding_dim`` table."""
+    if in_features is not None:
+        return in_features, None
+    if not all_node_num:
+        raise ValueError("node-embedding mode needs all_node_num (the dataset's "
+                         "node_num)")
+    return embedding_dim, knn.NodeEmbedding(int(all_node_num), int(embedding_dim))
+
+
+def _inputs(model, g):
+    """Node features, or in node-embedding mode the embedded node ids
+    (``kgcn_tpu``'s ``_maybe_embed``)."""
+    emb = getattr(model, "NodeEmbedding_0", None)
+    if emb is None:
+        if g.nodes is None:
+            raise ValueError(f"{type(model).__name__} was built for node features, "
+                             "and the batch has none")
+        return g.nodes
+    return emb(g)
+
+
+def _reset_embedding(model, generator):
+    emb = getattr(model, "NodeEmbedding_0", None)
+    if emb is not None:
+        emb.reset_parameters(generator)
+
+
 def dropout(x, rate: float, train: bool, generator=None):
     """flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale by
     its inverse; the identity when not training or ``rate == 0``."""
@@ -57,10 +95,14 @@ class GCN(nn.Module):
     (``GraphConv_0`` …), so a JAX parameter tree converts by rule
     (``kgcn_tpu_torch/convert.py``)."""
 
-    def __init__(self, in_features: int, channels: int = 1, label_dim: int = 2,
-                 hidden: int = 50, dropout_rate: float = 0.2):
+    def __init__(self, in_features: Optional[int], channels: int = 1,
+                 label_dim: int = 2, hidden: int = 50, dropout_rate: float = 0.2,
+                 all_node_num: Optional[int] = None, embedding_dim: int = 10):
         super().__init__()
         self.dropout_rate = dropout_rate
+        in_features, emb = _embedding(in_features, all_node_num, embedding_dim)
+        if emb is not None:
+            self.NodeEmbedding_0 = emb
         self.GraphConv_0 = knn.GraphConv(in_features, hidden, channels)
         self.GraphConv_1 = knn.GraphConv(hidden, hidden, channels)
         self.GraphConv_2 = knn.GraphConv(hidden, hidden, channels)
@@ -72,6 +114,7 @@ class GCN(nn.Module):
 
     def reset_parameters(self, generator=None) -> None:
         """Draw every parameter from ``generator`` (layer order fixed)."""
+        _reset_embedding(self, generator)
         for layer in (self.GraphConv_0, self.GraphConv_1, self.GraphConv_2,
                       self.GraphBatchNormalization_0, self.GraphDense_0):
             layer.reset_parameters(generator)
@@ -80,12 +123,7 @@ class GCN(nn.Module):
     def forward(self, batch: Batch, train: bool = False,
                 generator=None) -> ModelOutput:
         g = batch.graph.with_dense_adj()
-        if g.nodes is None:
-            raise NotImplementedError(
-                "GCN without node features (node-embedding mode) is not "
-                "ported yet (ROADMAP.md queue A)"
-            )
-        x = torch.sigmoid(self.GraphConv_0(g.nodes, g))
+        x = torch.sigmoid(self.GraphConv_0(_inputs(self, g), g))
         x = torch.sigmoid(self.GraphConv_1(x, g))
         x = self.GraphConv_2(x, g)
         x = self.GraphBatchNormalization_0(x, g, use_running_average=not train)
@@ -146,9 +184,13 @@ class RxnGCN(nn.Module):
     GraphDense(128) + relu → GraphGather → Dense (reference:
     example_model/model_rxn_3layer.py, whose declared dropout is unused)."""
 
-    def __init__(self, in_features: int, channels: int = 1, label_dim: int = 2,
-                 hidden: int = 128):
+    def __init__(self, in_features: Optional[int], channels: int = 1,
+                 label_dim: int = 2, hidden: int = 128,
+                 all_node_num: Optional[int] = None, embedding_dim: int = 10):
         super().__init__()
+        in_features, emb = _embedding(in_features, all_node_num, embedding_dim)
+        if emb is not None:
+            self.NodeEmbedding_0 = emb
         self.GraphConv_0 = knn.GraphConv(in_features, hidden, channels)
         self.GraphConv_1 = knn.GraphConv(hidden, hidden, channels)
         self.GraphConv_2 = knn.GraphConv(hidden, hidden, channels)
@@ -161,6 +203,7 @@ class RxnGCN(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
+        _reset_embedding(self, generator)
         _reset((self.GraphConv_0, self.GraphConv_1,
                 self.GraphConv_2, self.GraphBatchNormalization_0,
                 self.GraphBatchNormalization_1, self.GraphBatchNormalization_2,
@@ -170,7 +213,7 @@ class RxnGCN(nn.Module):
     def forward(self, batch: Batch, train: bool = False,
                 generator=None) -> ModelOutput:
         g = batch.graph.with_dense_adj()
-        x = g.nodes
+        x = _inputs(self, g)
         for conv, bn in ((self.GraphConv_0, self.GraphBatchNormalization_0),
                          (self.GraphConv_1, self.GraphBatchNormalization_1),
                          (self.GraphConv_2, self.GraphBatchNormalization_2)):
@@ -235,11 +278,16 @@ class GCNMultitask(nn.Module):
     only, as ``kgcn_tpu`` does.  The declared dropout is not applied (nor is
     it in ``kgcn_tpu``)."""
 
-    def __init__(self, in_features: int, channels: int = 1, label_dim: int = 12,
-                 hidden: int = 50, wide_hidden: int = 256, pos_weight=None):
+    def __init__(self, in_features: Optional[int], channels: int = 1,
+                 label_dim: int = 12, hidden: int = 50, wide_hidden: int = 256,
+                 pos_weight=None, all_node_num: Optional[int] = None,
+                 embedding_dim: int = 10):
         super().__init__()
         self.pos_weight = None if pos_weight is None else tuple(
             float(p) for p in pos_weight)
+        in_features, emb = _embedding(in_features, all_node_num, embedding_dim)
+        if emb is not None:
+            self.NodeEmbedding_0 = emb
         self.GraphConv_0 = knn.GraphConv(in_features, wide_hidden, channels)
         self.GraphConv_1 = knn.GraphConv(wide_hidden, wide_hidden, channels)
         self.GraphDense_0 = knn.GraphDense(wide_hidden, wide_hidden)
@@ -261,6 +309,7 @@ class GCNMultitask(nn.Module):
         return cache[device]
 
     def reset_parameters(self, generator=None) -> None:
+        _reset_embedding(self, generator)
         _reset((self.GraphConv_0, self.GraphConv_1,
                 self.GraphDense_0, self.GraphConv_2,
                 self.GraphBatchNormalization_0, self.GraphDense_1), generator)
@@ -269,7 +318,7 @@ class GCNMultitask(nn.Module):
     def forward(self, batch: Batch, train: bool = False,
                 generator=None) -> ModelOutput:
         g = batch.graph.with_dense_adj()
-        x = torch.sigmoid(self.GraphConv_0(g.nodes, g))
+        x = torch.sigmoid(self.GraphConv_0(_inputs(self, g), g))
         x = torch.sigmoid(self.GraphConv_1(x, g))
         x = torch.sigmoid(self.GraphDense_0(x, g))
         x = self.GraphConv_2(x, g)
@@ -304,3 +353,62 @@ class GCNMultitask(nn.Module):
         }
         pred2 = torch.stack([1.0 - prediction, prediction], dim=-1)  # [B, T, 2]
         return ModelOutput(pred2, torch.mean(cost), torch.sum(cost), metrics)
+
+
+class GCNNodeLabel(nn.Module):
+    """Node-centric classification: 2 × (GraphConv + GraphBN + relu) →
+    GraphConv(label_dim) → a softmax per node (reference: example_model/
+    model_node_label.py:30-76, as ``kgcn_tpu``'s ``GCNNodeLabel``,
+    ``standard.py:253-302``).  The cost and the accuracy average over each
+    graph's valid nodes (``iota < n_node``, made on the device, times
+    ``mask_node_label`` where the dataset has one): ``kgcn_tpu``'s fix over
+    the reference, which averaged over every padded slot."""
+
+    def __init__(self, in_features: Optional[int], channels: int = 1,
+                 label_dim: int = 2, hidden: int = 64,
+                 all_node_num: Optional[int] = None, embedding_dim: int = 10):
+        super().__init__()
+        self.label_dim = label_dim
+        in_features, emb = _embedding(in_features, all_node_num, embedding_dim)
+        if emb is not None:
+            self.NodeEmbedding_0 = emb
+        self.GraphConv_0 = knn.GraphConv(in_features, hidden, channels)
+        self.GraphBatchNormalization_0 = knn.GraphBatchNormalization(hidden)
+        self.GraphConv_1 = knn.GraphConv(hidden, hidden, channels)
+        self.GraphBatchNormalization_1 = knn.GraphBatchNormalization(hidden)
+        self.GraphConv_2 = knn.GraphConv(hidden, label_dim, channels)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        _reset_embedding(self, generator)
+        _reset((self.GraphConv_0, self.GraphBatchNormalization_0, self.GraphConv_1,
+                self.GraphBatchNormalization_1, self.GraphConv_2), generator)
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator=None) -> ModelOutput:
+        g = batch.graph.with_dense_adj()
+        x = _inputs(self, g)
+        for conv, bn in ((self.GraphConv_0, self.GraphBatchNormalization_0),
+                         (self.GraphConv_1, self.GraphBatchNormalization_1)):
+            x = torch.relu(bn(conv(x, g), g, use_running_average=not train))
+        B, N = g.n_graph, g.max_nodes
+        logits = self.GraphConv_2(x, g).reshape(B, N, self.label_dim).to(torch.float32)
+        labels = batch.node_label.to(torch.float32)
+        pad = batch.pad_mask
+        iota = torch.arange(N, device=logits.device)
+        node_valid = (iota[None, :] < g.n_node[:, None]).to(torch.float32)
+        if batch.mask_node_label is not None:
+            m = batch.mask_node_label.to(torch.float32)
+            if m.dim() == 3:
+                m = torch.amax(m, dim=-1)
+            node_valid = node_valid * m
+        denom = torch.clamp(torch.sum(node_valid, dim=1), min=1.0)  # [B]
+        logp = F.log_softmax(logits, dim=-1)
+        ce = -torch.sum(labels * logp, dim=-1)  # [B, N]
+        cost = pad * (torch.sum(node_valid * ce, dim=1) / denom)
+        prediction = F.softmax(logits, dim=-1)
+        node_correct = (torch.argmax(prediction, -1)
+                        == torch.argmax(labels, -1)).to(torch.float32)
+        correct = pad * (torch.sum(node_valid * node_correct, dim=1) / denom)
+        metrics = {"correct_count": torch.sum(correct), "count": torch.sum(pad)}
+        return ModelOutput(prediction, torch.mean(cost), torch.sum(cost), metrics)

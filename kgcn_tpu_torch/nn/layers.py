@@ -61,6 +61,13 @@ def _coo_backend(graph: GraphBatch) -> str:
     return "pallas" if graph.backend == "pallas" else "xla"
 
 
+def _stream_weights(graph: GraphBatch):
+    """The weights the stream route aggregates with: None takes those
+    baked into the structures; a batch with ``live_weights`` passes its
+    ``edge_weights`` (differentiable, the weight-gradient kernel)."""
+    return graph.edge_weights if graph.live_weights else None
+
+
 def _flat(x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
     """Accept [V, F] or [B, N, F]; return [V, F]."""
     if x.dim() == 3:
@@ -115,11 +122,9 @@ class GraphConv(nn.Module):
             return gconv(graph.dense_adj, xb, w, b).reshape(graph.total_nodes, -1)
         hw = torch.einsum("vf,cfo->cvo", x, w) + b[:, None, :]
         if graph.stream_adj is not None:
-            # the adjacency weights are baked into the structures: weights
-            # None takes them (the static route)
             return spmm_multichannel(
-                graph.senders, graph.receivers, None, hw, graph.total_nodes,
-                backend="stream", stream=graph.stream_adj,
+                graph.senders, graph.receivers, _stream_weights(graph), hw,
+                graph.total_nodes, backend="stream", stream=graph.stream_adj,
                 compute_dtype=graph.compute_dtype,
             )
         if graph.tiled_adj is not None:
@@ -155,8 +160,8 @@ class GINAggregate(nn.Module):
             agg = spmm_dense(graph.dense_adj, xb).reshape(x.shape)
         elif graph.stream_adj is not None:
             agg = spmm_multichannel(
-                graph.senders, graph.receivers, None, x, graph.total_nodes,
-                backend="stream", stream=graph.stream_adj,
+                graph.senders, graph.receivers, _stream_weights(graph), x,
+                graph.total_nodes, backend="stream", stream=graph.stream_adj,
                 compute_dtype=graph.compute_dtype,
             )
         elif graph.tiled_adj is not None:

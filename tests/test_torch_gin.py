@@ -235,8 +235,11 @@ def test_infer_matches_jax(tmp_path, model, backend):
                     params_from_jax(jax.device_get(jstate.params),
                                     jax.device_get(jstate.batch_stats)))
     got = t_main(["infer", "--config", tpath, "--cpu"])
-    assert set(got) == set(want) - {"test_metrics"}
+    assert set(got) == set(want)
     np.testing.assert_allclose(got["test_cost"], want["test_cost"], **TOL)
+    assert set(got["test_metrics"]) == set(want["test_metrics"])
+    for k, v in want["test_metrics"].items():
+        np.testing.assert_allclose(got["test_metrics"][k], v, err_msg=k, **TOL)
     assert set(got["test_metrics_protocol"]) == set(want["test_metrics_protocol"])
     for k, v in want["test_metrics_protocol"].items():
         np.testing.assert_allclose(got["test_metrics_protocol"][k], v, err_msg=k, **TOL)

@@ -1,8 +1,9 @@
 """Import hygiene of the port: every module of kgcn_tpu_torch (and
-chip_smoke.py) imports with JAX, flax, optax, joblib and kgcn_tpu made
-unimportable, and the entry points (serving, training, KG training and
-inference, graph inference) refuse to run without a GPU unless the CPU is
-asked for."""
+chip_smoke.py) imports with JAX, flax, optax, joblib, scikit-learn and
+kgcn_tpu made unimportable (the GPU machine has none of them), and the
+entry points (serving, training, KG training and inference, graph
+inference, cross-validation, IG visualisation) refuse to run without a GPU
+unless the CPU is asked for."""
 import os
 import subprocess
 import sys
@@ -14,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "joblib", "kgcn_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "joblib", "sklearn", "kgcn_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -71,7 +72,11 @@ def test_entry_points_refuse_to_run_without_a_gpu():
                    lambda: train_main(["infer", "--config",
                                        "example_config/kg.json"]),
                    lambda: train_main(["infer", "--config",
-                                       "example_config/gin.json"])):
+                                       "example_config/gin.json"]),
+                   lambda: train_main(["train_cv", "--config",
+                                       "example_config/solubility_reg.json"]),
+                   lambda: train_main(["visualize", "--config",
+                                       "example_config/synth.json"])):
             try:
                 fn()
             except RuntimeError as e:

@@ -292,7 +292,7 @@ def _write_config(tmp, name, **over):
 
 def test_cli_train_writes_the_jax_runs_files(tmp_path, capsys):
     """``train --cpu`` on the GAT config writes the JAX CLI's files with its
-    keys (less the scikit-learn ``valid_metrics``, not ported)."""
+    keys, the metric battery (``valid_metrics``) included."""
     from kgcn_tpu.cli.main import cmd_train as j_cmd_train
     from kgcn_tpu.runtime.config import load_config as j_config
     from kgcn_tpu_torch.cli.main import main as t_main
@@ -311,8 +311,9 @@ def test_cli_train_writes_the_jax_runs_files(tmp_path, capsys):
             return json.load(f)
 
     jv, tv = load("jax", "info_valid.json"), load("port", "info_valid.json")
-    assert set(tv) == set(jv) - {"valid_metrics"}
+    assert set(tv) == set(jv)
     assert set(tv["validation_accuracy"]) == set(jv["validation_accuracy"])
+    assert set(tv["valid_metrics"]) == set(jv["valid_metrics"])
     assert set(load("port", "info_train.json")) == set(load("jax", "info_train.json"))
     jrows = np.loadtxt(tmp_path / "jax" / "result_valid.csv", delimiter=",")
     trows = np.loadtxt(tmp_path / "port" / "result_valid.csv", delimiter=",")
@@ -337,11 +338,13 @@ def test_cli_train_writes_the_jax_runs_files(tmp_path, capsys):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     from kgcn_tpu_torch.cli.main import main as t_main
 
-    cfg = _write_config(tmp_path, "gat.json", epoch=1)
-    for argv in (["train_cv"], ["visualize"]):
+    for argv, over in ((["train_cv"], {"fold_parallel": "force"}),
+                       (["visualize"], {"task": "link_prediction"})):
+        cfg = _write_config(tmp_path, "gat.json", epoch=1, **over)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_main(argv + ["--config", cfg, "--cpu"])
-    for over in ({"make_plot": True}, {"mesh": {"data": 2}}, {"precision": "bfloat16"}):
+    for over in ({"export_model": str(tmp_path / "m")}, {"mesh": {"data": 2}},
+                 {"precision": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
             t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
                     "--cpu"])
