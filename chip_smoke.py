@@ -185,15 +185,36 @@ non-zero exit and no result line:
    same tolerance of the dense run's); gcn in node-embedding mode on
    featureless ring graphs (1 epoch captured, a finite embedding
    gradient); the phase's wall;
-13. summary — one JSON line of kernel numbers, then the result line.
+13. launches — every kernel launched on the main path of phases 5-12;
+14. serving and interop, at full width: the checkpoint that kgcn_tpu's
+   ``train`` wrote (tests/fixtures/jax_gcn_solubility, a flax-msgpack
+   file) through ``cli.main infer`` (``load_model``) and the HTTP server
+   over its directory, both against kgcn_tpu's recorded answers to 32
+   molecules (TOL), and ``retrain`` from it for one epoch (its step
+   resumed); dynamic batching (``--dynamic-batching``) over that model
+   against the plain server, 64 concurrent clients of 1 molecule and 16 of
+   4: replies equal (1e-5), each device call 3 gconv launches a batch of
+   32, p50/p99 latency and graphs/s of both, a malformed request among
+   good ones answered 400 alone; ``train`` with ``export_model`` (2
+   epochs) and ``--export`` over HTTP against the Predictor on the same
+   weights (1e-5), with torch.profiler recording the 3 gconv kernels of
+   the exported program's batch; example_config/multimodal.json ``train``
+   (2 epochs, captured: one graph launch a step, 1 gconv kernel a forward)
+   and ``infer``, GPU vs CPU per-epoch costs (1e-3), and dynamic batching
+   of 16 clients of one compound–protein pair against solo replies
+   (1e-5); the phase's wall;
+15. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
-5, 6, 8, 10, 11 and 12) and read just after; the summary's ``launches``
-add up the tiled GCN, tiled GAT and dense GCN training runs and the serve
-run, the KG runs (train and infer) for the stream kernels, the ring runs
-(train and infer) for the ELL kernel, phase 11's resident ``train`` and
-``infer`` runs, and phase 12's runs (with IG on the tiled and stream
-backends, the stream weight gradient's one main-path run).  A step replayed from a captured
+5, 6, 8, 10, 11, 12 and 14) and read just after; the summary's
+``launches`` add up the tiled GCN, tiled GAT and dense GCN training runs
+and the serve run, the KG runs (train and infer) for the stream kernels,
+the ring runs (train and infer) for the ELL kernel, phase 11's resident
+``train`` and ``infer`` runs, phase 12's runs (with IG on the tiled and
+stream backends, the stream weight gradient's one main-path run) and
+phase 14's (gconv: the served kgcn_tpu checkpoint, the dynamic batcher's
+device calls, the export and its program's run, multimodal training).
+A step replayed from a captured
 CUDA graph launches its kernels from the graph, where no wrapper counts:
 for those runs (the KG training, phase 11's and phase 12's resident
 runs) the launches are torch.profiler's records, and the wrappers'
@@ -3219,6 +3240,333 @@ def phase_configs(workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: serving and interop
+
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "jax_gcn_solubility")
+MULTIMODAL_CONFIG = os.path.join(ROOT, "example_config", "multimodal.json")
+DYNAMIC_CLIENTS = ((64, 1), (16, 4))  # (concurrent clients, molecules each)
+DYNAMIC_WINDOW_MS = 5.0               # kgcn-tpu-serve's default window
+MULTIMODAL_CLIENTS = 16
+SERVE_TOL = 1e-5                      # the same model on the card, other batches
+
+
+def _serve(server):
+    """``server`` answering from a thread: (its URL, a function that stops
+    it)."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("server thread did not stop")
+    return f"http://127.0.0.1:{server.server_address[1]}", stop
+
+
+def _clients(url, bodies):
+    """Every body POSTed to /predict at once, each from its own thread:
+    ([(HTTP code, reply, round-trip ms)], wall seconds)."""
+    out = [None] * len(bodies)
+
+    def run(i):
+        out[i] = _post(url + "/predict", bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(o is None for o in out):
+        raise AssertionError("a client got no answer")
+    return out, wall
+
+
+def _latency(label, results, wall, graphs, smi):
+    ms = sorted(r[2] for r in results)
+    p99 = ms[max(0, math.ceil(0.99 * len(ms)) - 1)]
+    say(f"{label}: {len(ms)} concurrent requests, {graphs} graphs in {wall * 1e3:.1f} ms: "
+        f"latency p50 {statistics.median(ms):.2f} ms, p99 {p99:.2f} ms, "
+        f"{graphs / wall:.1f} graphs/s ({smi})")
+
+
+def _device_calls(predictor):
+    """Record (graphs, gconv launches) of each ``predict_data`` call of a
+    Predictor (the DynamicBatcher's worker makes them one at a time)."""
+    from kgcn_tpu_torch.ops.gconv import gconv
+
+    calls, inner = [], predictor.predict_data
+
+    def predict_data(data):
+        before = gconv.launches
+        resp = inner(data)
+        calls.append((resp["num"], gconv.launches - before))
+        return resp
+    predictor.predict_data = predict_data
+    return calls
+
+
+def _gap(got, want):
+    import numpy as np
+
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def serving_fixture(workdir):
+    """The checkpoint that kgcn_tpu's ``train`` wrote (the committed
+    fixture): ``infer`` with ``load_model`` at it and the HTTP server over
+    its directory answer the recorded 32 molecules within TOL; ``retrain``
+    from it for one epoch resumes its step.  Returns the gconv launches."""
+    import numpy as np
+
+    from kgcn_tpu_torch.cli.serve import build_server
+    from kgcn_tpu_torch.data import jbl
+    from kgcn_tpu_torch.ops.gconv import gconv
+    from kgcn_tpu_torch.runtime import checkpoint as ckpt
+    from kgcn_tpu_torch.runtime import flax_msgpack
+
+    recorded = _json(os.path.join(FIXTURE, "predictions.json"))
+    want = np.asarray(recorded["prediction"])
+    body = _payload(jbl.load(DATASET), recorded["molecules"])
+    path = os.path.join(FIXTURE, "model.best.ckpt")
+    raw = flax_msgpack.load(path)
+    say(f"-- kgcn_tpu checkpoint {os.path.relpath(path, ROOT)}: "
+        f"{os.path.getsize(path)} bytes, step {int(raw['step'])}, epoch {int(raw['epoch'])}")
+
+    d = os.path.join(workdir, "fixture_infer")
+    cfg, cpath = _write_config(workdir, "fixture_infer", CONFIG, load_model=path,
+                               device_resident=False,
+                               prediction_data=os.path.join(d, "prediction.pkl"))
+    _, result, counts, wall = _cli(["infer", "--config", cpath])
+    with open(cfg["prediction_data"], "rb") as f:
+        pred = np.asarray(pickle.load(f))
+    batches = -(-len(pred) // int(cfg["batch_size"]))
+    _expect("infer of the kgcn_tpu checkpoint", counts, {"gconv": 3 * batches})
+    gap_infer = _gap(pred[:len(want)], want)
+    launches = counts["gconv"]
+
+    server, predictor = build_server(_load_config(CONFIG, save_model_path=FIXTURE),
+                                     host="127.0.0.1", port=0)
+    url, stop = _serve(server)
+    before = gconv.launches
+    try:
+        code, resp, ms = _post(url + "/predict", body)
+    finally:
+        stop()
+    launches += gconv.launches - before
+    if code != 200:
+        raise AssertionError(f"/predict over the kgcn_tpu model directory: {code} {resp}")
+    gap_serve = _gap(resp["prediction"], want)
+    say(f"-- kgcn_tpu's answers to {len(want)} molecules vs the card's: infer "
+        f"(load_model, {wall:.2f} s) max |diff| {gap_infer:.3g}, HTTP server over "
+        f"the model directory ({ms:.2f} ms) max |diff| {gap_serve:.3g} (limit {TOL})")
+    if max(gap_infer, gap_serve) > TOL or predictor.health()["checkpoint"] != path:
+        raise AssertionError("the card's answers from the kgcn_tpu checkpoint differ")
+
+    epoch = int(raw["epoch"]) + 2  # one epoch after the checkpoint's
+    cfg, cpath = _write_config(workdir, "fixture_retrain", CONFIG, retrain=path,
+                               epoch=epoch, save_interval=0)
+    out, _, _, wall = _cli(["train", "--config", cpath])
+    steps = _schedule(cfg, 1)[0]
+    tree = ckpt.load_checkpoint(os.path.join(cfg["save_model_path"], "model.last.ckpt"))
+    costs = _json(cfg["save_info_train"])["training_cost"]
+    if (int(tree["step"]) != int(raw["step"]) + steps or len(costs) != 1
+            or not math.isfinite(costs[0]) or f"[LOAD] {path}" not in out):
+        raise AssertionError(f"retrain: step {int(tree['step'])}, want {int(raw['step'])} "
+                             f"+ {steps}; costs {costs}")
+    say(f"-- retrain from the kgcn_tpu checkpoint: epoch {epoch - 1}, training cost "
+        f"{costs[0]:.6g}, step {int(raw['step'])} + {steps} = {int(tree['step'])} "
+        f"({wall:.2f} s)")
+    return launches
+
+
+def serving_dynamic(workdir, smi):
+    """Dynamic batching over the fixture's model against the plain server:
+    64 clients of 1 molecule, then 16 of 4, all at once.  Every coalesced
+    reply equals the plain server's (SERVE_TOL), each device call launches
+    3 gconv kernels a batch of 32, and a malformed request among good ones
+    gets 400 alone.  Returns the gconv launches."""
+    from kgcn_tpu_torch.cli.serve import build_server
+    from kgcn_tpu_torch.data import jbl
+
+    data = jbl.load(DATASET)
+    cfg = _load_config(CONFIG, save_model_path=FIXTURE)
+    bs = int(cfg["batch_size"])
+    solo_server, solo = build_server(cfg, host="127.0.0.1", port=0)
+    dyn_server, dyn = build_server(cfg, host="127.0.0.1", port=0, dynamic_batching=True,
+                                   window_ms=DYNAMIC_WINDOW_MS)
+    solo_url, stop_solo = _serve(solo_server)
+    dyn_url, stop_dyn = _serve(dyn_server)
+    launches = 0
+    try:
+        warm = _payload(data, [0])
+        for url in (solo_url, dyn_url):  # the models built, the kernels loaded
+            if _post(url + "/predict", warm)[0] != 200:
+                raise AssertionError("warm-up request failed")
+        calls = _device_calls(dyn.p)
+        for clients, per in DYNAMIC_CLIENTS:
+            bodies = [_payload(data, list(range(i * per, (i + 1) * per)))
+                      for i in range(clients)]
+            solo_res, solo_wall = _clients(solo_url, bodies)
+            del calls[:]
+            dyn_res, dyn_wall = _clients(dyn_url, bodies)
+            worst = 0.0
+            for (c1, r1, _), (c2, r2, _) in zip(solo_res, dyn_res):
+                if c1 != 200 or c2 != 200:
+                    raise AssertionError(f"HTTP {c1}/{c2}: {r1} {r2}")
+                worst = max(worst, _gap(r2["prediction"], r1["prediction"]))
+            merged = [r[1].get("coalesced", 1) for r in dyn_res]
+            wrong = [(g, n) for g, n in calls if n != 3 * -(-g // bs)]
+            say(f"-- {clients} clients x {per} molecule(s): {len(calls)} device calls of "
+                f"{[g for g, _ in calls]} graphs, gconv launches {[n for _, n in calls]}, "
+                f"largest merge {max(merged)} requests; dynamic vs plain replies max "
+                f"|diff| {worst:.3g} (limit {SERVE_TOL})")
+            if wrong or worst > SERVE_TOL or sum(g for g, _ in calls) != clients * per:
+                raise AssertionError(f"dynamic batching: calls {calls}, gap {worst}")
+            launches += sum(n for _, n in calls)
+            _latency(f"plain server, {clients} x {per}", solo_res, solo_wall,
+                     clients * per, smi)
+            _latency(f"dynamic batching, {clients} x {per}", dyn_res, dyn_wall,
+                     clients * per, smi)
+        bad = _payload(data, [3])
+        bad["adj"][0][0][0][0] = [0, 90]  # an edge to node 90 of a 47-node graph
+        bodies = [_payload(data, [i]) for i in range(8)]
+        n_calls = len(calls)
+        mixed, _ = _clients(dyn_url, bodies[:4] + [bad] + bodies[4:])
+        codes = [c for c, _, _ in mixed]
+        launches += sum(n for _, n in calls[n_calls:])
+        if codes != [200] * 4 + [400] + [200] * 4:
+            raise AssertionError(f"a malformed request among good ones: codes {codes}")
+        health = dyn.health()["dynamic_batching"]
+        say(f"-- a malformed request among 8 good ones: codes {codes}; "
+            f"dynamic_batching {health}")
+        if health["coalesced_calls"] < 1:
+            raise AssertionError("no call was coalesced")
+    finally:
+        stop_solo()
+        stop_dyn()
+        dyn.close()
+    return launches
+
+
+def serving_export(workdir):
+    """``train`` of solubility_cls.json for 2 epochs with ``export_model``,
+    then ``--export`` over HTTP: 32 molecules equal to the Predictor on the
+    same weights (SERVE_TOL), and torch.profiler records the gconv kernels
+    (3 a batch) in the exported program's run.  Returns the launches."""
+    from kgcn_tpu_torch.cli.serve import build_server
+    from kgcn_tpu_torch.data import jbl
+    from kgcn_tpu_torch.ops.gconv import gconv
+    from kgcn_tpu_torch.runtime.serve import Predictor
+
+    export = os.path.join(workdir, "export", "model.pt2")
+    t0 = time.time()
+    _, _, _, _, out = train_run(workdir, "export_train", CONFIG, 2, export_model=export)
+    if f"[SAVE] {export}" not in out or not os.path.exists(export + ".params"):
+        raise AssertionError("train with export_model wrote no artifact")
+    say(f"-- export: {os.path.getsize(export)} bytes at {export} "
+        f"(train + export {time.time() - t0:.2f} s)")
+    cfg = _json(os.path.join(workdir, "export_train", "config.json"))
+    body = _payload(jbl.load(DATASET), list(range(32)))
+    server, ep = build_server(cfg, host="127.0.0.1", port=0, export=export)
+    url, stop = _serve(server)
+    before = gconv.launches
+    try:
+        code, resp, ms = _post(url + "/predict", body)
+    finally:
+        stop()
+    launches = gconv.launches - before
+    want = Predictor(cfg, checkpoint=export + ".params").predict(body)["prediction"]
+    gap = _gap(resp["prediction"], want)
+    say(f"-- --export over HTTP: HTTP {code}, {ms:.2f} ms, {resp.get('num')} molecules; "
+        f"vs the Predictor on the same weights max |diff| {gap:.3g} (limit {SERVE_TOL}); "
+        f"{launches} gconv launches")
+    if code != 200 or gap > SERVE_TOL or launches != 3:
+        raise AssertionError(f"--export: HTTP {code}, gap {gap}, launches {launches}")
+    _, kernels, _, _, _ = profiled(lambda: ep.predict(body), cpu=False)
+    say(f"-- the exported program's run under torch.profiler: gconv kernels "
+        f"{kernels['gconv']} (want 3: one batch of 32)")
+    if kernels["gconv"] != 3 or sum(kernels.values()) != 3:
+        raise AssertionError(f"exported program: kernels {kernels}")
+    return launches + kernels["gconv"]
+
+
+def serving_multimodal(workdir):
+    """example_config/multimodal.json: ``train`` (CONFIG_EPOCHS, captured)
+    and ``infer`` through the resident runners (1 gconv kernel a forward),
+    the same training on the CPU (per-epoch costs within TRAJECTORY_RTOL),
+    then dynamic batching of 16 clients of one compound–protein pair
+    against the Predictor's solo replies (SERVE_TOL).  Returns the
+    launches."""
+    from kgcn_tpu_torch.cli.serve import build_server
+    from kgcn_tpu_torch.data import jbl
+    from kgcn_tpu_torch.runtime.serve import Predictor
+
+    launches = resident_cli(workdir, "multimodal", MULTIMODAL_CONFIG, CONFIG_EPOCHS,
+                            {"gconv": 1}, {"gconv": 1})
+    gpu = _json(os.path.join(workdir, "multimodal", "info_train.json"))["training_cost"]
+    cpu, _, _, _, _ = train_run(workdir, "multimodal_cpu", MULTIMODAL_CONFIG,
+                                CONFIG_EPOCHS, cpu=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
+    say(f"GPU (captured) vs CPU multimodal.json per-epoch costs: GPU {gpu} CPU {cpu} "
+        f"relative difference {rel} (limit {TRAJECTORY_RTOL})")
+    if max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError(f"multimodal: GPU and CPU costs differ by {max(rel)}")
+    cfg = _json(os.path.join(workdir, "multimodal", "config.json"))
+    data = jbl.load(cfg["dataset"])
+
+    def pair(i):
+        import numpy as np
+
+        return {"feature": np.asarray(data["feature"])[[i]].tolist(),
+                "dense_adj": np.asarray(data["dense_adj"])[[i]].tolist(),
+                "sequence": np.asarray(data["sequence"])[[i]].tolist(),
+                "sequence_length": [int(data["sequence_length"][i])],
+                "sequence_symbol_num": int(data["sequence_symbol_num"]),
+                "max_node_num": int(data["max_node_num"])}
+
+    bodies = [pair(i) for i in range(MULTIMODAL_CLIENTS)]
+    solo = Predictor(cfg)
+    want = [solo.predict(b)["prediction"] for b in bodies]
+    server, dyn = build_server(cfg, host="127.0.0.1", port=0, dynamic_batching=True,
+                               window_ms=DYNAMIC_WINDOW_MS)
+    url, stop = _serve(server)
+    try:
+        _post(url + "/predict", bodies[0])  # the model built
+        results, wall = _clients(url, bodies)
+    finally:
+        stop()
+        dyn.close()
+    worst = max(_gap(r[1]["prediction"], w) for r, w in zip(results, want))
+    say(f"-- multimodal dynamic batching: {MULTIMODAL_CLIENTS} clients of one pair, "
+        f"codes {sorted(set(r[0] for r in results))}, {dyn.coalesced_calls} coalesced "
+        f"call(s), vs solo max |diff| {worst:.3g} (limit {SERVE_TOL}), {wall * 1e3:.1f} ms")
+    if any(r[0] != 200 for r in results) or worst > SERVE_TOL or dyn.coalesced_calls < 1:
+        raise AssertionError("multimodal dynamic batching failed")
+    return launches
+
+
+def phase_serving(workdir, smi):
+    phase(14, "serving and interop: a kgcn_tpu checkpoint, dynamic batching, export, "
+              "multimodal")
+    t_phase = time.time()
+    launches = {k: 0 for k in _counted()}
+    launches["gconv"] += serving_fixture(workdir)
+    say(f"serving fixture done at {time.time() - t_phase:.1f} s of the phase")
+    launches["gconv"] += serving_dynamic(workdir, smi)
+    say(f"serving dynamic done at {time.time() - t_phase:.1f} s of the phase")
+    launches["gconv"] += serving_export(workdir)
+    say(f"serving export done at {time.time() - t_phase:.1f} s of the phase")
+    for k, v in serving_multimodal(workdir).items():
+        launches[k] += v
+    say(f"serving phase wall {time.time() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
@@ -3360,13 +3708,22 @@ def main():
         say(f"runners done at {time.time() - t_start:.1f} s")
         for k, v in phase_configs(workdir).items():
             launches[k] += v
+        say(f"configs done at {time.time() - t_start:.1f} s")
+        phase(13, "launches: every kernel launched on the main path (phases 5-12)")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"{k} was not launched on the main path")
+        say(f"launches so far: {launches}")
+        serving = phase_serving(workdir, smi)
+        for k, v in serving.items():
+            launches[k] += v
+        say(f"serving done at {time.time() - t_start:.1f} s")
 
     import torch
 
-    phase(13, "summary")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
+    phase(15, "summary")
+    if serving["gconv"] <= 0:
+        raise AssertionError("gconv was not launched on the serving path")
     kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)

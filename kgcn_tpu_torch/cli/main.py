@@ -51,11 +51,18 @@ replayed from a captured CUDA graph), as ``kgcn_tpu`` does; the tiled and
 stream backends decline it (said when it was forced).  KG training runs
 the scanned epoch.
 
+``export_model`` (a path) has ``train`` write the trained model as a
+``torch.export`` artifact traced at a batch of the training split
+(``runtime/export.py``; dense backend only), which ``kgcn_tpu_torch.cli.
+serve --export`` serves.  ``retrain``, ``load_model`` and ``infer`` take a
+checkpoint of the port or a flax-msgpack one that ``kgcn_tpu`` wrote.
+
 Not ported yet, each raising "not yet ported" with its ROADMAP.md item:
 ``mesh`` (data parallel; KG: the sharded and resident training, A.11),
-``fold_parallel`` ``"force"`` (A.11), ``export_model`` and
-``export_savedmodel`` (A.4), ``"precision": "bfloat16"`` (A.6), and the KG
-route of ``visualize`` (A.10).
+``fold_parallel`` ``"force"`` (A.11), ``"precision": "bfloat16"`` (A.6),
+the KG route of ``visualize`` (A.10) and the IG of sequence and
+vector-modal inputs (A.8).  ``export_savedmodel`` (a TensorFlow SavedModel)
+is refused: it needs TensorFlow, which the port does not use.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime import resident
 from kgcn_tpu_torch.runtime.config import load_config
 from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.export import export_model
 from kgcn_tpu_torch.runtime.metrics import compute_metrics
 from kgcn_tpu_torch.runtime.train import Trainer
 from kgcn_tpu_torch.tools import plots
@@ -365,9 +373,12 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
     for the GPU (raises without one) or "cpu"."""
     device = device_from_arg(device)
     task = config.get("task", "")
-    for key in ("export_model", "export_savedmodel"):
-        if config.get(key):
-            _not_ported(f"config {key!r}", "A.4")
+    if config.get("export_savedmodel"):
+        raise NotImplementedError(
+            "config 'export_savedmodel' (a TensorFlow SavedModel, kgcn_tpu's "
+            "jax2tf bridge) is not ported: it needs TensorFlow, which "
+            "kgcn_tpu_torch does not use; 'export_model' writes a torch.export "
+            "artifact")
     _refuse_bf16(config)
     preloaded = None
     if _is_kg(config):
@@ -414,6 +425,13 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
             save_prediction(config["save_result_valid"], ev["prediction"])
         if config.get("save_info_valid"):
             _save_json(config["save_info_valid"], result)
+
+    if config.get("export_model"):
+        bs = int(config["batch_size"])
+        sample = Batcher(train_ds, info, bs, backend=backend).make_batch(
+            np.arange(min(bs, train_ds.num)))
+        export_model(trainer.model, state.params, state.batch_stats, sample,
+                     config["export_model"])
 
     if config.get("save_info_train"):
         hist = fit_info["history"]

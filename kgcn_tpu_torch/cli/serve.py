@@ -9,8 +9,14 @@ Endpoints:
                     {"dense_adj": …}); response: {"prediction": …,
                     "num": …, "latency_ms": …}
 
-Runs on the GPU unless ``--cpu`` is given.  ``--export`` and
-``--dynamic-batching`` are not ported yet and raise.
+``--checkpoint`` (or the config's ``load_model`` / ``save_model_path``)
+may name a checkpoint of the port or a flax-msgpack one that ``kgcn_tpu``
+wrote.  ``--export PATH`` serves a ``torch.export`` artifact written by
+``train`` with ``export_model`` (``runtime/serve.ExportPredictor``);
+``--dynamic-batching`` coalesces concurrent requests into one device call
+(``runtime/serve.DynamicBatcher``; ``--batch-window-ms``,
+``--max-batch-graphs``), over a checkpoint only, not an export, as in
+``kgcn_tpu``.  Runs on the GPU unless ``--cpu`` is given.
 """
 from __future__ import annotations
 
@@ -18,7 +24,17 @@ import argparse
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from kgcn_tpu_torch.runtime.serve import Predictor
+from kgcn_tpu_torch.runtime.serve import (DynamicBatcher, ExportPredictor,
+                                          Predictor)
+
+
+class Server(ThreadingHTTPServer):
+    """A thread per connection, and a listen backlog that holds a burst of
+    concurrent clients (the standard library's 5 resets the rest, and
+    dynamic batching exists for such bursts)."""
+
+    request_queue_size = 256
+    daemon_threads = True
 
 
 def make_handler(predictor):
@@ -58,20 +74,17 @@ def make_handler(predictor):
 
 def build_server(config: dict, *, host: str = "0.0.0.0", port: int = 8901,
                  checkpoint: str | None = None, export: str | None = None,
-                 dynamic_batching: bool = False, device=None):
+                 dynamic_batching: bool = False, window_ms: float = 5.0,
+                 max_graphs: int = 256, device=None):
     """Construct (server, predictor) without blocking.  ``device`` is None
-    (the GPU) or "cpu"."""
-    if export:
-        raise NotImplementedError(
-            "--export (serving an exported artifact) is not yet ported "
-            "(ROADMAP.md queue A)"
-        )
-    if dynamic_batching:
-        raise NotImplementedError(
-            "--dynamic-batching is not yet ported (ROADMAP.md queue A)"
-        )
-    predictor = Predictor(config, checkpoint=checkpoint, device=device)
-    server = ThreadingHTTPServer((host, port), make_handler(predictor))
+    (the GPU) or "cpu".  Dynamic batching wraps a checkpoint's
+    ``Predictor``; an export is served as it is."""
+    predictor = (ExportPredictor(export, config, device=device) if export
+                 else Predictor(config, checkpoint=checkpoint, device=device))
+    if dynamic_batching and not export:
+        predictor = DynamicBatcher(predictor, window_ms=window_ms,
+                                   max_graphs=max_graphs)
+    server = Server((host, port), make_handler(predictor))
     return server, predictor
 
 
@@ -80,13 +93,12 @@ def main(argv=None) -> None:
     p.add_argument("--config", required=True, help="training config JSON")
     p.add_argument("--checkpoint", default=None, help="checkpoint override")
     p.add_argument("--export", default=None,
-                   help="serve an exported artifact (not yet ported)")
+                   help="serve a torch.export artifact instead of a checkpoint")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8901)
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--dynamic-batching", action="store_true",
-                   help="coalesce concurrent requests (not yet ported)")
-    # accepted for the JAX CLI's command lines; used with --dynamic-batching
+                   help="coalesce concurrent requests into one device call")
     p.add_argument("--batch-window-ms", type=float, default=5.0)
     p.add_argument("--max-batch-graphs", type=int, default=256)
     args = p.parse_args(argv)
@@ -96,6 +108,7 @@ def main(argv=None) -> None:
         config, host=args.host, port=args.port,
         checkpoint=args.checkpoint, export=args.export,
         dynamic_batching=args.dynamic_batching,
+        window_ms=args.batch_window_ms, max_graphs=args.max_batch_graphs,
         device="cpu" if args.cpu else None,
     )
     print(f"[serve] listening on {args.host}:{args.port} "

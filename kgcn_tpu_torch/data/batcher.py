@@ -109,6 +109,9 @@ class Batch:
     mask_label: Optional[torch.Tensor] = None
     node_label: Optional[torch.Tensor] = None
     mask_node_label: Optional[torch.Tensor] = None
+    sequences: Optional[torch.Tensor] = None  # [B, L] int32 token ids
+    sequences_len: Optional[torch.Tensor] = None  # [B] int32
+    vector_modal: Optional[tuple] = None  # one [B, D_m] float32 per modal
     pad_mask: Optional[torch.Tensor] = None  # [B] 1.0 = real example
     label_list: Optional[torch.Tensor] = None  # [B, L, 6] KG preference triples
     label_valid: Optional[torch.Tensor] = None  # [B, L] 1.0 = real pair (0 = wrap pad)
@@ -117,8 +120,10 @@ class Batch:
         moved = {
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
-            if getattr(self, f.name) is not None
+            if getattr(self, f.name) is not None and f.name != "vector_modal"
         }
+        if self.vector_modal is not None:
+            moved["vector_modal"] = tuple(v.to(device) for v in self.vector_modal)
         return dataclasses.replace(self, **moved)
 
     def replace(self, **changes) -> "Batch":
@@ -247,6 +252,10 @@ class Batcher:
             mask_label=take(ds.mask_label),
             node_label=take(ds.node_label, per_node=True),
             mask_node_label=take(ds.mask_node_label, per_node=True),
+            sequences=take(ds.sequences),
+            sequences_len=take(ds.sequences_len),
+            vector_modal=(tuple(take(v) for v in ds.vector_modal)
+                          if ds.vector_modal else None),
             pad_mask=torch.from_numpy(pad_mask),
         )
 

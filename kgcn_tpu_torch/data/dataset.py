@@ -5,12 +5,14 @@ throughout.  Covered: ``feature``, the adjacency keys ``adj`` (per-graph COO
 tuples), ``dense_adj`` and ``multi_dense_adj``, the transform flags
 ``order`` / ``split_adj_flag`` / ``normalize_adj_flag``, ``label`` /
 ``mask_label`` (and their ``*_sparse`` forms), ``node_label`` /
-``mask_node_label``, ``class_weight``, ``mol_info``, ``max_node_num``, and
-the node-embedding mode of KG datasets (``node`` / ``node_num`` with
-``with_node_embedding``, ``label_list`` / ``test_label_list``).
+``mask_node_label``, ``class_weight``, ``mol_info``, ``max_node_num``, the
+node-embedding mode of KG datasets (``node`` / ``node_num`` with
+``with_node_embedding``, ``label_list`` / ``test_label_list``), and the
+multimodal inputs: ``sequence`` / ``sequence_length`` /
+``sequence_symbol_num`` and the vector modals (``MODAL_NAMES``).
 
-Not read yet, because no ported model uses them (ROADMAP.md queue A):
-``sequence*``, the vector modals (``MODAL_NAMES``) and ``graph_index_list``.
+Not read yet, because no ported model uses it (ROADMAP.md A.8):
+``graph_index_list``, the pairs of the VAE and pair families.
 ``kfold_indices`` is the port's copy of the k-fold split.
 """
 from __future__ import annotations
@@ -40,6 +42,10 @@ class DatasetInfo:
     adj_channel_num: int = 1
     all_node_num: Optional[int] = None
     feature_enabled: bool = True
+    sequence_max_length: int = 0
+    sequence_symbol_num: int = 0
+    vector_modal_dim: List[int] = dataclasses.field(default_factory=list)
+    vector_modal_name: Dict[str, int] = dataclasses.field(default_factory=dict)
     pos_weight: Optional[np.ndarray] = None
     class_weight: Optional[np.ndarray] = None
     edge_budget_per_graph: int = 0
@@ -59,6 +65,9 @@ class Dataset:
     node_label: Optional[np.ndarray] = None
     mask_node_label: Optional[np.ndarray] = None
     label_list: Optional[Any] = None  # KG triple lists
+    sequences: Optional[np.ndarray] = None  # [G, L] int32 token ids
+    sequences_len: Optional[np.ndarray] = None  # [G] int32
+    vector_modal: List[np.ndarray] = dataclasses.field(default_factory=list)
     enabled_node_nums: Optional[np.ndarray] = None
     num: int = 0
     max_node_num: int = 0
@@ -83,6 +92,9 @@ class Dataset:
             node_label=take(self.node_label),
             mask_node_label=take(self.mask_node_label),
             label_list=self.label_list,
+            sequences=take(self.sequences),
+            sequences_len=take(self.sequences_len),
+            vector_modal=[take(v) for v in self.vector_modal],
             enabled_node_nums=take(self.enabled_node_nums),
             num=len(idx),
             max_node_num=self.max_node_num,
@@ -297,7 +309,20 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
     if "label_list" in data:
         label_list = data["test_label_list"] if test_mode else data["label_list"]
 
-    num = len(adjs) if adjs is not None else (len(labels) if labels is not None else 0)
+    sequences = data.get("sequence")
+    sequences_len = (np.array(data["sequence_length"], np.int32)
+                     if sequences is not None else None)
+    if sequences is not None:
+        sequences = np.asarray(sequences, np.int32)
+    vector_modal, vector_modal_name = [], {}
+    for name in MODAL_NAMES:
+        if name in data:
+            vector_modal_name[name] = len(vector_modal)
+            vector_modal.append(np.asarray(data[name], np.float32))
+
+    num = (len(adjs) if adjs is not None
+           else max(len(v) for v in vector_modal) if vector_modal
+           else (len(labels) if labels is not None else 0))
     ds = Dataset(
         adjs=adjs,
         features=features,
@@ -309,6 +334,9 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
             np.asarray(mask_node_label) if mask_node_label is not None else None
         ),
         label_list=label_list,
+        sequences=sequences,
+        sequences_len=sequences_len,
+        vector_modal=vector_modal,
         enabled_node_nums=enabled,
         num=num,
         max_node_num=max_node_num,
@@ -328,6 +356,11 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
         info.feature_enabled = False
     if max_node_num:
         info.graph_node_num = max(info.graph_node_num, max_node_num)
+    if sequences is not None:
+        info.sequence_max_length = sequences.shape[1]
+        info.sequence_symbol_num = int(data["sequence_symbol_num"])
+    info.vector_modal_dim = [m.shape[1] for m in vector_modal]
+    info.vector_modal_name = vector_modal_name
     if labels is not None:
         info.label_dim = int(data.get("label_dim", labels.shape[1] if labels.ndim >= 2 else 1))
     elif node_label is not None:

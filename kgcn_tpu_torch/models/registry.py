@@ -3,9 +3,11 @@
 Resolves the ``model.py`` config key (registry name or the reference's
 dotted path) to a constructor.  ``gcn``, ``gin``, ``gat``,
 ``gcn_rxn_3layer``, ``gcn_multitask``, ``gcn_regression``,
-``gcn_node_label`` and ``kg_distmult`` are ported so far; every other name
-the JAX package knows raises ``NotImplementedError`` pointing at
-ROADMAP.md.  On a featureless dataset (``with_node_embedding``) ``gcn``,
+``gcn_node_label``, ``kg_distmult`` and the multimodal family
+(``gcn_multimodal``, ``gcn_vector_modal``, ``seq_cnn``; a ``task``
+containing ``"regression"`` gives the first two the regression head) are
+ported so far; every other name the JAX package knows (the VAE and pair
+families) raises ``NotImplementedError`` pointing at ROADMAP.md A.8.  On a featureless dataset (``with_node_embedding``) ``gcn``,
 ``gcn_rxn_3layer``, ``gcn_multitask`` and ``gcn_node_label`` take their
 node-embedding mode (``all_node_num`` rows of ``embedding_dim``, as
 ``kgcn_tpu`` passes them); ``gin``, ``gat`` and ``gcn_regression`` have
@@ -116,6 +118,41 @@ def _gat(info, config):
     )
 
 
+def _multimodal_task(config) -> str:
+    return "regression" if "regression" in config.get("task", "") else "classification"
+
+
+def _gcn_multimodal(info, config):
+    from kgcn_tpu_torch.models.multimodal import GCNMultimodal
+
+    return GCNMultimodal(
+        in_features=_features(info, "gcn_multimodal"),
+        sequence_symbol_num=max(info.sequence_symbol_num, 1),
+        embedding_dim=int(config.get("embedding_dim", 10)),
+        task=_multimodal_task(config), **_common(info),
+    )
+
+
+def _gcn_vector_modal(info, config):
+    from kgcn_tpu_torch.models.multimodal import GCNVectorModal
+
+    return GCNVectorModal(
+        in_features=_features(info, "gcn_vector_modal"),
+        modal_dims=info.vector_modal_dim, task=_multimodal_task(config),
+        **_common(info),
+    )
+
+
+def _seq_cnn(info, config):
+    from kgcn_tpu_torch.models.multimodal import SequenceCNN
+
+    return SequenceCNN(
+        vocab_size=max(info.sequence_symbol_num, 2),
+        label_dim=info.label_dim or 2,
+        embedding_dim=int(config.get("embedding_dim", 10)),
+    )
+
+
 def _kg_distmult(info, config):
     from kgcn_tpu_torch.models.kg import KGLinkPredictor
 
@@ -130,7 +167,8 @@ def _kg_distmult(info, config):
 _REGISTRY = {"gcn": _gcn, "gin": _gin, "gat": _gat,
              "gcn_rxn_3layer": _gcn_rxn_3layer, "gcn_multitask": _gcn_multitask,
              "gcn_node_label": _gcn_node_label, "gcn_regression": _gcn_regression,
-             "kg_distmult": _kg_distmult}
+             "gcn_multimodal": _gcn_multimodal, "gcn_vector_modal": _gcn_vector_modal,
+             "seq_cnn": _seq_cnn, "kg_distmult": _kg_distmult}
 
 
 def available() -> list:
@@ -145,5 +183,5 @@ def build_model(name: str, info, config: Dict[str, Any]):
         return _REGISTRY[key](info, config)
     raise NotImplementedError(
         f"model '{name}' is not ported to kgcn_tpu_torch yet (available: "
-        f"{available()}); see ROADMAP.md queue A for the order of the port"
+        f"{available()}); see ROADMAP.md A.8 for the model families still to port"
     )

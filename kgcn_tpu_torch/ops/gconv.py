@@ -6,7 +6,10 @@ The counterpart of ``kgcn_tpu/ops/pallas_gconv.py`` (the Pallas kernel
 adj ``[C, B, N, N]``, x ``[B, N, Fin]``, w ``[C, Fin, Fout]``, b ``[C, Fout]``
 → ``[B, N, Fout]``.
 
-* ``gconv`` is the op the layers call.  On CUDA tensors it launches the
+* ``gconv`` is the op the layers call, registered as the custom op
+  ``kgcn_torch::gconv`` (``torch.ops.kgcn_torch.gconv``) with a fake
+  implementation for its output's shape, so that ``torch.export`` captures
+  it as one call (``runtime/export.py``).  On CUDA tensors it launches the
   hand-written Hopper kernel ``csrc/gconv.cu`` (float32, any N and B: one
   launch per call for molecule-sized graphs, else the projection
   ``X W_c + b_c`` into a scratch the wrapper allocates, then the
@@ -94,41 +97,57 @@ def _launch(adj, x, w, b):
     return out
 
 
-class _GConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, adj, x, w, b):
-        ctx.save_for_backward(adj, x, w, b)
-        if adj.is_cuda:
-            return _launch(adj, x, w, b)
-        return gconv_reference(adj, x, w, b)
+@torch.library.custom_op("kgcn_torch::gconv", mutates_args=())
+def _gconv_op(adj: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """The op: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if adj.is_cuda:
+        return _launch(adj, x, w, b)
+    return gconv_reference(adj, x, w, b)
 
-    @staticmethod
-    def backward(ctx, g):
-        """dX = Σ_c A_cᵀ g W_cᵀ; dW_c = Σ_b X_bᵀ (A_cᵀ g); db_c = Σ A_cᵀ g;
-        dA[c,b,n,m] = g[b,n,:] · (X_b W_c + b_c)[m,:].  Each only when asked
-        for: training never asks for dA, the [C,B,N,N] product."""
-        adj, x, w, b = ctx.saved_tensors
-        need_adj, need_x, need_w, need_b = ctx.needs_input_grad
-        dadj = dx = dw = db = None
-        if need_x or need_w or need_b:
-            at_g = torch.einsum("cbnm,bnf->cbmf", adj, g)
-            if need_x:
-                dx = torch.einsum("cbmf,cof->bmo", at_g, w)
-            if need_w:
-                dw = torch.einsum("bmi,cbmf->cif", x, at_g)
-            if need_b:
-                db = at_g.sum(dim=(1, 2))
-        if need_adj:
-            hw = torch.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
-            dadj = torch.einsum("bnf,cbmf->cbnm", g, hw)
-        return dadj, dx, dw, db
+
+@_gconv_op.register_fake
+def _gconv_fake(adj, x, w, b):
+    """The output's shape and type, for tracing (``torch.export``)."""
+    dtype = torch.promote_types(torch.promote_types(adj.dtype, x.dtype),
+                                torch.promote_types(w.dtype, b.dtype))
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]), dtype=dtype)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """dX = Σ_c A_cᵀ g W_cᵀ; dW_c = Σ_b X_bᵀ (A_cᵀ g); db_c = Σ A_cᵀ g;
+    dA[c,b,n,m] = g[b,n,:] · (X_b W_c + b_c)[m,:].  Each only when asked
+    for: training never asks for dA, the [C,B,N,N] product."""
+    adj, x, w, b = ctx.saved_tensors
+    need_adj, need_x, need_w, need_b = ctx.needs_input_grad
+    dadj = dx = dw = db = None
+    if need_x or need_w or need_b:
+        at_g = torch.einsum("cbnm,bnf->cbmf", adj, g)
+        if need_x:
+            dx = torch.einsum("cbmf,cof->bmo", at_g, w)
+        if need_w:
+            dw = torch.einsum("bmi,cbmf->cif", x, at_g)
+        if need_b:
+            db = at_g.sum(dim=(1, 2))
+    if need_adj:
+        hw = torch.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
+        dadj = torch.einsum("bnf,cbmf->cbnm", g, hw)
+    return dadj, dx, dw, db
+
+
+_gconv_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def gconv(adj, x, w, b):
     """``Σ_c A_c (X W_c + b_c)``: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors; differentiable in all four operands."""
     _check(adj, x, w, b)
-    return _GConv.apply(adj, x, w, b)
+    return _gconv_op(adj, x, w, b)
 
 
 gconv.launches = 0

@@ -13,7 +13,7 @@ Host side (per batch): ``build_tiled`` groups the edges by (receiver tile,
 sender tile) and packs them into fixed-size chunks that never cross a tile
 pair (in C++, ``csrc/tiled_host.cc``); ``choose_tiling`` picks ``(ts, tr, chunk)`` with the JAX
 package's TPU cost model, kept unchanged so both packages build the same
-arrays (a tiling chosen for the GPU is later work, ROADMAP.md B.3).  The
+arrays (a tiling chosen for the GPU is later work, ROADMAP.md B.4).  The
 port adds a ``TiledPlan`` per direction: the real slots in receiver order,
 stable in slot order, with their edge ids, cut into balanced pieces for the
 SpMM kernel.  It is built when a structure moves to a CUDA device

@@ -12,9 +12,12 @@ A checkpoint is ``torch.save`` of a dict of CPU tensors, loaded with
   checkpoints, and resumable.
 
 File names follow ``kgcn_tpu`` (``model.best.ckpt``, ``model.last.ckpt``,
-``model.<NNNNN>.ckpt``, ``model.<fold>.<tag>.ckpt``).  The JAX package's
-flax-msgpack checkpoints are not read yet (ROADMAP.md queue A); convert JAX
-parameters with ``kgcn_tpu_torch.convert.params_from_jax`` instead.
+``model.<NNNNN>.ckpt``, ``model.<fold>.<tag>.ckpt``).  ``load_checkpoint``
+also reads the JAX package's flax-msgpack checkpoints (``runtime/
+flax_msgpack.py``, ``convert.tree_from_jax``) and returns them as the
+port's tree, so ``Trainer.restore``, ``infer``, ``retrain`` and the
+``Predictor`` take a checkpoint that ``kgcn_tpu`` wrote wherever they take
+one of the port.  Its orbax directories (``save_sharded``) are not read.
 """
 from __future__ import annotations
 
@@ -54,20 +57,33 @@ def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
     return save_tree(path, {"params": params, "batch_stats": batch_stats})
 
 
-def load_checkpoint(path: str) -> Tree:
+def load_checkpoint(path: str, model=None, tx=None) -> Tree:
     """The tree of a checkpoint, on the CPU: ``params`` and ``batch_stats``,
-    plus the training state when the file holds it.  Raises
-    FileNotFoundError for a missing file and ValueError for a file that is
-    not a checkpoint of the port."""
+    plus the training state when the file holds it.  A zip file is the
+    port's own (``torch.save``); any other file is read as a flax-msgpack
+    checkpoint of ``kgcn_tpu`` and converted (``convert.tree_from_jax``:
+    ``model``, the port's model, decides the layouts; ``tx``, the port's
+    optimizer, brings the training state along).  Raises FileNotFoundError
+    for a missing file and ValueError for a file that is neither, or an
+    orbax directory."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory (kgcn_tpu's save_sharded "
+            "or fmt='orbax'); the port does not read those yet (ROADMAP.md A.11)")
     with open(path, "rb") as f:
         is_torch_file = zipfile.is_zipfile(f)  # torch.save writes a zip
     if not is_torch_file:
-        raise ValueError(
-            f"{path} is not a kgcn_tpu_torch checkpoint; flax-msgpack "
-            "checkpoints of kgcn_tpu are not read yet — convert their "
-            "parameters with kgcn_tpu_torch.convert.params_from_jax "
-            "(ROADMAP.md)"
-        )
+        from kgcn_tpu_torch.convert import tree_from_jax
+        from kgcn_tpu_torch.runtime import flax_msgpack
+
+        try:
+            raw = flax_msgpack.load(path)
+        except ValueError as e:
+            raise ValueError(f"{path} is neither a kgcn_tpu_torch checkpoint nor "
+                             f"a flax-msgpack checkpoint of kgcn_tpu: {e}") from None
+        if not isinstance(raw, dict):
+            raise ValueError(f"{path}: a msgpack file that holds no checkpoint tree")
+        return tree_from_jax(raw, model, tx)
     tree = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(tree, dict) or set(tree) not in (PARAM_KEYS, FULL_KEYS):
         raise ValueError(

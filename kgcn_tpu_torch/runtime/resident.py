@@ -28,7 +28,9 @@ What the port's kernels and ops read besides, gathered the same way:
   (v, k) order are the streaming Batcher's (``csrc/ell_host.cc``) bit for
   bit;
 * the dense path builds ``[C, B, N, N]`` from the gathered lists in the
-  model (``GraphBatch.with_dense_adj``), as the JAX package does.
+  model (``GraphBatch.with_dense_adj``), as the JAX package does;
+* the multimodal inputs (sequences, their lengths, the vector modals)
+  are gathered per example like the labels.
 
 The gate (``resident_enabled``) is the JAX package's, with the resolved
 backend passed in: the tiled and stream structures are packed on the host
@@ -70,6 +72,9 @@ class DeviceDataset:
     mask_label: Optional[torch.Tensor] = None
     node_label: Optional[torch.Tensor] = None
     mask_node_label: Optional[torch.Tensor] = None
+    sequences: Optional[torch.Tensor] = None  # [G, L] int32
+    sequences_len: Optional[torch.Tensor] = None  # [G] int32
+    vector_modal: Optional[tuple] = None  # one [G, D_m] per modal
     ell_idx: Optional[torch.Tensor] = None  # [G, C, N, K] graph-local
     ell_w: Optional[torch.Tensor] = None  # [G, C, N, K]
     ell_t_slots: Optional[torch.Tensor] = None  # [G, C, N*K] slot lists
@@ -278,6 +283,11 @@ def build_device_dataset(ds: Dataset, info: DatasetInfo, *,
         if getattr(ds, name) is not None:
             # per-node arrays follow the (aligned) node padding
             arrays[name] = as_tensor(pad_node_axis(getattr(ds, name), N)).numpy()
+    for name in ("sequences", "sequences_len"):
+        if getattr(ds, name) is not None:
+            arrays[name] = np.asarray(getattr(ds, name), np.int32)
+    for m, v in enumerate(ds.vector_modal or []):
+        arrays[f"vector_modal_{m}"] = np.asarray(v, np.float32)
     if backend.name in ("xla", "pallas"):
         ell = per_graph_ell(ds.adjs, N)
         if ell is not None:
@@ -285,7 +295,9 @@ def build_device_dataset(ds: Dataset, info: DatasetInfo, *,
                           ell_t_end=ell["t_end"], ell_t_count=ell["t_count"])
     if backend.name != "dense":
         arrays.update(_segment_arrays(receivers, N))
-    return DeviceDataset(**_one_copy(arrays, device), num=G, max_nodes=N,
+    moved = _one_copy(arrays, device)
+    modals = tuple(moved.pop(f"vector_modal_{m}") for m in range(len(ds.vector_modal or [])))
+    return DeviceDataset(**moved, vector_modal=modals or None, num=G, max_nodes=N,
                          backend=backend.name, compute_dtype=backend.compute_dtype)
 
 
@@ -394,6 +406,10 @@ def gather_batch(dd: DeviceDataset, idx: torch.Tensor, valid: torch.Tensor) -> B
         mask_label=take(dd.mask_label),
         node_label=take(dd.node_label),
         mask_node_label=take(dd.mask_node_label),
+        sequences=take(dd.sequences),
+        sequences_len=take(dd.sequences_len),
+        vector_modal=(None if dd.vector_modal is None
+                      else tuple(take(v) for v in dd.vector_modal)),
         pad_mask=vb,
     )
 

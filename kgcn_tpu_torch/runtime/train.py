@@ -207,8 +207,9 @@ class Trainer:
         state.opt_state = _opt_to(tree["opt_state"], self.device)
         state.step = int(tree["step"])
         # a CUDA generator's state and a CPU one's differ in size: a
-        # checkpoint written on the other device type keeps the fresh
-        # seeded generator (the dropout masks differ across devices anyway)
+        # checkpoint written on the other device type, or by kgcn_tpu (whose
+        # PRNG key comes back empty), keeps the fresh seeded generator (the
+        # dropout masks differ across devices anyway)
         if tree["rng"].numel() == state.rng.get_state().numel():
             state.rng.set_state(tree["rng"])
         # resume AFTER the saved epoch; with the (seed, epoch) shuffle this
@@ -230,11 +231,15 @@ class Trainer:
     def restore(self, path: str) -> TrainState:
         """The state of a checkpoint: parameters and BN statistics, and, for
         a training checkpoint, the optimizer state, step, generator and
-        epoch (its best validation cost carries into the next ``fit``)."""
-        tree = ckpt.load_checkpoint(path)
+        epoch (its best validation cost carries into the next ``fit``).  A
+        flax-msgpack checkpoint of ``kgcn_tpu`` is read and converted for
+        this model and optimizer; its dropout generator is the fresh one
+        seeded from the config's ``seed`` (JAX's PRNG key does not map onto
+        a ``torch.Generator``)."""
+        tree = ckpt.load_checkpoint(path, model=self.model, tx=self.tx)
         if "best_cost" in tree:
             self._restored_best_cost = float(tree["best_cost"])
-        return self.state_from_tree(tree)
+        return self.state_from_tree(tree, seed=int(self.config.get("seed", 0)))
 
     # ---- steps ---------------------------------------------------------
     def train_step(self, state: TrainState, batch: Batch):

@@ -212,3 +212,51 @@ def test_gconv_launch_has_no_size_bound(monkeypatch, shape):
                      torch.zeros(C, Fi, Fo), torch.zeros(C, Fo))
     assert fake.calls == [shape] and out.shape == (B, N, Fo)
     assert gm.gconv.launches == (2 if N > 64 else 1)  # the kernels it launched
+
+
+# ---- the custom op (torch.export captures it) ------------------------------
+
+
+def _op_inputs(C=2, B=3, N=5, Fi=4, Fo=6, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(C, B, N, N, generator=g), torch.rand(B, N, Fi, generator=g),
+            torch.rand(C, Fi, Fo, generator=g), torch.rand(C, Fo, generator=g))
+
+
+def test_gconv_is_the_custom_op_and_its_cpu_path_is_the_plain_version():
+    """``gconv`` calls ``torch.ops.kgcn_torch.gconv``; on CPU tensors it is
+    ``gconv_reference`` bit for bit, and its backward the einsum backward
+    (against autograd through the plain version, 1e-5)."""
+    adj, x, w, b = (t.requires_grad_(True) for t in _op_inputs())
+    out = gconv(adj, x, w, b)
+    assert torch.equal(out, gconv_reference(adj, x, w, b))
+    assert torch.equal(torch.ops.kgcn_torch.gconv(adj, x, w, b), out)
+    g = torch.rand(out.shape, generator=torch.Generator().manual_seed(1))
+    got = torch.autograd.grad(out, (adj, x, w, b), g)
+    want = torch.autograd.grad(gconv_reference(adj, x, w, b), (adj, x, w, b), g)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5)
+    # only the gradients asked for are computed (training never asks for dA)
+    dx, = torch.autograd.grad(gconv(adj.detach(), x, w.detach(), b.detach()), (x,), g)
+    torch.testing.assert_close(dx, want[1], rtol=1e-5, atol=1e-5)
+
+
+def test_gconv_fake_tensor_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        adj, x, w, b = _op_inputs(C=3, B=7, N=11, Fi=9, Fo=13)
+        out = gconv(adj, x, w, b)
+        assert tuple(out.shape) == (7, 11, 13) and out.dtype == torch.float32
+    meta = [t.to("meta") for t in _op_inputs()]
+    assert tuple(torch.ops.kgcn_torch.gconv(*meta).shape) == (3, 5, 6)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 4, 3, 5), (3, 1, 7, 2, 2), (2, 4, 9, 5, 1)])
+def test_gconv_opcheck(shape):
+    """``torch.library.opcheck``: the schema, the fake implementation, the
+    autograd registration and AOT dispatch."""
+    C, B, N, Fi, Fo = shape
+    inputs = tuple(t.requires_grad_(True) for t in _op_inputs(C, B, N, Fi, Fo, seed=C))
+    result = torch.library.opcheck(torch.ops.kgcn_torch.gconv.default, inputs)
+    assert set(result.values()) == {"SUCCESS"}, result

@@ -1,6 +1,6 @@
 """Import hygiene of the port: every module of kgcn_tpu_torch (and
-chip_smoke.py) imports with JAX, flax, optax, joblib, scikit-learn and
-kgcn_tpu made unimportable (the GPU machine has none of them), and the
+chip_smoke.py) imports with JAX, flax, optax, joblib, scikit-learn, msgpack
+and kgcn_tpu made unimportable (the GPU machine has none of them), and the
 entry points (serving, training, KG training and inference, graph
 inference, cross-validation, IG visualisation) refuse to run without a GPU
 unless the CPU is asked for."""
@@ -15,7 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKER = textwrap.dedent("""
     import importlib.abc, sys
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "joblib", "sklearn", "kgcn_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "joblib", "sklearn", "msgpack",
+               "kgcn_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -59,12 +60,16 @@ def test_every_module_imports_without_jax():
 def test_entry_points_refuse_to_run_without_a_gpu():
     r = _run("""
         from kgcn_tpu_torch.runtime.device import resolve_device
-        from kgcn_tpu_torch.runtime.serve import Predictor
+        from kgcn_tpu_torch.runtime.serve import ExportPredictor, Predictor
         from kgcn_tpu_torch.cli.serve import build_server
         from kgcn_tpu_torch.cli.main import main as train_main
         for fn in (lambda: resolve_device(),
                    lambda: Predictor({"model.py": "gcn"}),
+                   lambda: ExportPredictor("model.pt2"),
                    lambda: build_server({"model.py": "gcn"}, port=0),
+                   lambda: build_server({"model.py": "gcn"}, port=0,
+                                        dynamic_batching=True),
+                   lambda: build_server({}, port=0, export="model.pt2"),
                    lambda: train_main(["train", "--config",
                                        "example_config/gat.json"]),
                    lambda: train_main(["train", "--config",

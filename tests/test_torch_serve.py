@@ -191,18 +191,3 @@ def test_missing_checkpoint_is_503(tmp_path):
         server.shutdown()
         server.server_close()
         t.join(timeout=10)
-
-
-@pytest.mark.parametrize("flag", ["export", "dynamic_batching"])
-def test_unported_server_options_raise(flag):
-    from kgcn_tpu_torch.cli.serve import build_server
-
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_server({}, port=0, device="cpu", **{flag: "x" if flag == "export" else True})
-
-
-def test_jax_checkpoint_is_refused_clearly(tmp_path):
-    data, _ = _ring_payload(1)
-    jcfg, _ = _checkpoints(tmp_path, data, 2)
-    with pytest.raises(ValueError, match="params_from_jax"):
-        tckpt.load_checkpoint(str(tmp_path / "jax" / "model.best.ckpt"))

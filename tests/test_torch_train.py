@@ -343,7 +343,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         cfg = _write_config(tmp_path, "gat.json", epoch=1, **over)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             t_main(argv + ["--config", cfg, "--cpu"])
-    for over in ({"export_model": str(tmp_path / "m")}, {"mesh": {"data": 2}},
+    for over in ({"export_savedmodel": str(tmp_path / "m")}, {"mesh": {"data": 2}},
                  {"precision": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
             t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
