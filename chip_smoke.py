@@ -203,23 +203,50 @@ non-zero exit and no result line:
    and ``infer``, GPU vs CPU per-epoch costs (1e-3), and dynamic batching
    of 16 clients of one compound–protein pair against solo replies
    (1e-5); the phase's wall;
-15. summary — one JSON line of kernel numbers, then the result line.
+15. engines — the three engines beside ``cli.main``, at full width:
+   ``cli.sparse`` on the reaction workload (2 048 chain-and-ring molecules
+   of 20-203 atoms, mean degree ≈ 2.2, 81 features, 20 014 classes, batch
+   128, the SparseGCN defaults), written as 4 TFRecord shards by the
+   port's writer and read through the host parser (timed): ``train`` 2
+   epochs (the captured resident runner: one graph launch a step, gconv
+   launches as one forward's over the replays, warm-ups and eager
+   validation batches, the _report keys), one captured epoch's step
+   wall, device busy, idle share, graphs/s and device time by kernel, the
+   captured runner bitwise equal to its eager steps, ``infer`` of every graph
+   (probabilities that sum to 1), and 3 streaming steps on the card and on
+   the CPU from one seed (TRAJECTORY_RTOL); ``cli.sparse train`` (1 epoch)
+   on 256 graphs of 257-600 atoms at batch 32, which ``auto`` sends
+   through the tiled kernel (6 SpMM launches a step, 3 an evaluated
+   batch, no gconv); ``cli.pair train`` (2 epochs, captured: both towers
+   gathered on the card) and ``infer`` of example_config/pair.json with
+   dropout 0, the checkpoint's scores on the card against the CPU (1e-5),
+   two GPU runs of a pair step bitwise equal, the captured runner bitwise
+   equal to its eager steps; ``cli.gen train`` (2 epochs, captured: ε
+   drawn on the card), ``reconstruct`` and ``generate`` of
+   example_config/vae.json, the reconstruction from one checkpoint with
+   the streaming ε on the card against the CPU (1e-5), the captured
+   runner bitwise equal to its eager steps (the same ε), and the resident
+   evaluation's dict predictions captured bitwise equal to eager; the
+   phase's wall;
+16. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
-5, 6, 8, 10, 11, 12 and 14) and read just after; the summary's
+5, 6, 8, 10, 11, 12, 14 and 15) and read just after; the summary's
 ``launches`` add up the tiled GCN, tiled GAT and dense GCN training runs
 and the serve run, the KG runs (train and infer) for the stream kernels,
 the ring runs (train and infer) for the ELL kernel, phase 11's resident
 ``train`` and ``infer`` runs, phase 12's runs (with IG on the tiled and
 stream backends, the stream weight gradient's one main-path run) and
 phase 14's (gconv: the served kgcn_tpu checkpoint, the dynamic batcher's
-device calls, the export and its program's run, multimodal training).
+device calls, the export and its program's run, multimodal training) and
+phase 15's (gconv: the sparse, pair and VAE engines' training and
+inference; the tiled SpMM: the sparse engine beyond 256 nodes).
 A step replayed from a captured
 CUDA graph launches its kernels from the graph, where no wrapper counts:
 for those runs (the KG training, phase 11's and phase 12's resident
-runs) the launches are torch.profiler's records, and the wrappers'
-counts (the warm-up and the capture) only show that the kernels are in
-the graph; IG's eager launches are the wrapper's.
+runs, phase 15's engine training) the launches are torch.profiler's
+records, and the wrappers' counts (the warm-up and the capture) only show
+that the kernels are in the graph; IG's eager launches are the wrapper's.
 Exits non-zero without a CUDA device and outside a checkout of the repo.
 ``SCALE`` and ``KG_SHRINK`` cut the scale case and the KG for a rehearsal
 on the CPU, with ``DEVICE = "cpu"`` and the kernels' launch functions
@@ -693,6 +720,47 @@ def _check(what, got, want, tol=TOL):
     return err
 
 
+def _tiled_errors(label, te, te_cpu, w, w_cpu, x, g, sddmm=True):
+    """The tiled kernels on one structure (``te`` on the card, ``te_cpu``
+    its host copy) against their plain versions on CPU copies of the same
+    inputs, f32 and bf16 payload, rtol = atol = TOL: the SpMM on ``x``, its
+    transpose on ``g`` and (``sddmm``) the SDDMM; two launches of each
+    bitwise equal.  Returns {kernel and payload: max |kernel - plain|}."""
+    import torch
+
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    # The plain versions run on CPU copies of the same inputs: there
+    # index_add_ sums each row in slot order (the kernel sums a row in
+    # slot order too, a split row piece by piece).  On the card its
+    # atomics reorder the f32 sums, which moves hub rows of thousands
+    # of edges (the locality case) by up to ~2e-4.
+    xc, gc = x.cpu(), g.cpu()
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        bf16 = dt == "bfloat16"
+        errs[f"spmm {dt}"] = _check(
+            f"tiled_spmm {label} {dt}", tt._spmm_launch(te, w, x, bf16),
+            tt.tiled_spmm_reference(te_cpu, w_cpu, xc, dt).to(DEVICE))
+        errs[f"spmm^T {dt}"] = _check(
+            f"tiled_spmm (transpose) {label} {dt}", tt._spmm_launch(te.transpose, w, g, bf16),
+            tt.tiled_spmm_reference(te_cpu.transpose, w_cpu, gc, dt).to(DEVICE))
+        if sddmm:
+            errs[f"sddmm {dt}"] = _check(
+                f"tiled_sddmm {label} {dt}", tt._sddmm_launch(te, x, g, bf16),
+                tt.tiled_sddmm_edges_reference(te_cpu, xc, gc, dt).to(DEVICE))
+    for dt in ("float32", "bfloat16"):
+        bf16 = dt == "bfloat16"
+        for name, st, op in (("spmm", te, x), ("spmm^T", te.transpose, g)):
+            if not torch.equal(tt._spmm_launch(st, w, op, bf16),
+                               tt._spmm_launch(st, w, op, bf16)):
+                raise AssertionError(f"tiled {name} {label} {dt}: two launches differ")
+        if sddmm and not torch.equal(tt._sddmm_launch(te, x, g, bf16),
+                                     tt._sddmm_launch(te, x, g, bf16)):
+            raise AssertionError(f"tiled sddmm {label} {dt}: two launches differ")
+    return errs
+
+
 def phase_tiled_check():
     import torch
 
@@ -731,31 +799,7 @@ def phase_tiled_check():
             # slot order too, a split row piece by piece).  On the card its
             # atomics reorder the f32 sums, which moves hub rows of thousands
             # of edges (the locality case) by up to ~2e-4.
-            xc, gc = x.cpu(), g.cpu()
-            errs = {}
-            for dt in ("float32", "bfloat16"):
-                bf16 = dt == "bfloat16"
-                errs[f"spmm {dt}"] = _check(
-                    f"tiled_spmm {label} F={F} {dt}", tt._spmm_launch(te, w, x, bf16),
-                    tt.tiled_spmm_reference(te_cpu, w_cpu, xc, dt).to(DEVICE))
-                errs[f"spmm^T {dt}"] = _check(
-                    f"tiled_spmm (transpose) {label} F={F} {dt}",
-                    tt._spmm_launch(te.transpose, w, g, bf16),
-                    tt.tiled_spmm_reference(te_cpu.transpose, w_cpu, gc, dt).to(DEVICE))
-                errs[f"sddmm {dt}"] = _check(
-                    f"tiled_sddmm {label} F={F} {dt}", tt._sddmm_launch(te, x, g, bf16),
-                    tt.tiled_sddmm_edges_reference(te_cpu, xc, gc, dt).to(DEVICE))
-            for dt in ("float32", "bfloat16"):
-                bf16 = dt == "bfloat16"
-                for name, st, op in (("spmm", te, x), ("spmm^T", te.transpose, g)):
-                    if not torch.equal(tt._spmm_launch(st, w, op, bf16),
-                                       tt._spmm_launch(st, w, op, bf16)):
-                        raise AssertionError(f"tiled {name} {label} F={F} {dt}: "
-                                             "two launches differ")
-                if not torch.equal(tt._sddmm_launch(te, x, g, bf16),
-                                   tt._sddmm_launch(te, x, g, bf16)):
-                    raise AssertionError(f"tiled sddmm {label} F={F} {dt}: two "
-                                         "launches differ")
+            errs = _tiled_errors(f"{label} F={F}", te, te_cpu, w, w_cpu, x, g)
             lib_err = float((torch.sparse.mm(mat, x)
                              - tt.tiled_spmm_reference(te, w, x, "float32")).abs().max())
             iters = 10 if n_edges > 500_000 else 50
@@ -796,32 +840,41 @@ def phase_tiled_check():
 
 
 def _check_wrapper_gradients(cases):
+    """The public ``tiled_spmm`` of the GAT batch and the locality case on
+    the card against the same call on the CPU (``wrapper_gradients``)."""
+    for label, te_cpu, w_cpu, widths, _ in cases:
+        if label.startswith(("GAT batch", "locality")):
+            wrapper_gradients(label, te_cpu, w_cpu, widths[0])
+
+
+def wrapper_gradients(label, te_cpu, w_cpu, F, x0=None, compute_dtype="bfloat16"):
     """The public ``tiled_spmm`` (locality permutation in and out, the
     autograd Function) on the card against the same call on the CPU: value,
-    dx and d(weights), bf16 payload."""
+    dx and d(weights), on ``x0`` (else a random ``[num_senders, F]``) and a
+    random cotangent, bf16 payload unless ``compute_dtype`` says otherwise."""
     import torch
 
     from kgcn_tpu_torch.ops import tiled_spmm as tt
 
-    for label, te_cpu, w_cpu, widths, _ in cases:
-        if not label.startswith(("GAT batch", "locality")):
-            continue
-        F = widths[0]
-        gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator().manual_seed(1)
+    if x0 is None:
         x0 = torch.randn((te_cpu.meta.num_senders, F), generator=gen)
-        cot = torch.randn((te_cpu.meta.num_receivers, F), generator=gen)
-        res = []
-        for dev, te in ((DEVICE, te_cpu.to(DEVICE)), ("cpu", te_cpu)):
-            w = w_cpu.to(dev, torch.float32).requires_grad_(True)
-            x = x0.to(dev).requires_grad_(True)
-            out = tt.tiled_spmm(te, w, x)
-            (out * cot.to(dev)).sum().backward()
-            res.append([t.detach().cpu() for t in (out, x.grad, w.grad)])
-        for name, a, b in zip(("value", "dx", "dw"), *res):
-            err = float((a - b).abs().max())
-            if not torch.allclose(a, b, rtol=TOL, atol=TOL):
-                raise AssertionError(f"tiled_spmm {label} {name}: GPU vs CPU {err}")
-            say(f"tiled_spmm {label}: {name} GPU vs CPU max |diff| {err:.3g}")
+    cot = torch.randn((te_cpu.meta.num_receivers, F), generator=gen)
+    res = []
+    for dev, te in ((DEVICE, te_cpu.to(DEVICE)), ("cpu", te_cpu)):
+        w = w_cpu.to(dev, torch.float32).requires_grad_(True)
+        x = x0.to(dev).requires_grad_(True)
+        out = tt.tiled_spmm(te, w, x, compute_dtype=compute_dtype)
+        (out * cot.to(dev)).sum().backward()
+        res.append([t.detach().cpu() for t in (out, x.grad, w.grad)])
+    errs = []
+    for name, a, b in zip(("value", "dx", "dw"), *res):
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=TOL, atol=TOL):
+            raise AssertionError(f"tiled_spmm {label} {name}: GPU vs CPU {err}")
+        errs.append(f"{name} {err:.3g}")
+    say(f"tiled_spmm {label}: GPU vs CPU ({compute_dtype} payload) max |diff| "
+        + ", ".join(errs))
 
 
 # ---------------------------------------------------------------------------
@@ -1910,10 +1963,11 @@ def _check_stream_gradients(cases):
 # phase 8: knowledge-graph link prediction through the CLIs
 
 
-def _cli(argv, cpu=False):
-    """One ``cli.main`` run in this process: (stdout text, returned value,
-    launch counts, wall seconds)."""
-    from kgcn_tpu_torch.cli import main as cli
+def _cli(argv, cpu=False, cli=None):
+    """One run of ``cli.main`` (or of the module ``cli``'s ``main``) in this
+    process: (stdout text, returned value, launch counts, wall seconds)."""
+    if cli is None:
+        from kgcn_tpu_torch.cli import main as cli
 
     tee = _Tee(sys.stdout)
     _zero_counts()
@@ -2557,15 +2611,16 @@ def _resident_setup(cfg, device):
             Batcher(train, info, bs, seed=0, backend=be), be)
 
 
-def _trainer(cfg, info, device=None, capture=True):
+def _trainer(cfg, info, device=None, capture=True, build=None):
+    """A Trainer of the config's registry model, or of ``build(info, cfg)``."""
     from kgcn_tpu_torch.models.registry import build_model
     from kgcn_tpu_torch.runtime.train import Trainer
 
-    return Trainer(build_model(cfg["model.py"], info, cfg), cfg, info,
-                   device=device or DEVICE, capture=capture)
+    model = build(info, cfg) if build else build_model(cfg["model.py"], info, cfg)
+    return Trainer(model, cfg, info, device=device or DEVICE, capture=capture)
 
 
-def captured_vs_eager(label, cfg, info, make_batcher, epochs=2):
+def captured_vs_eager(label, cfg, info, make_batcher, epochs=2, build=None):
     """``epochs`` epochs of the whole-epoch runner from seed 0, eager
     (``capture=False``) and captured, each on a batcher from
     ``make_batcher()``: per-step costs and every parameter bitwise equal;
@@ -2583,7 +2638,7 @@ def captured_vs_eager(label, cfg, info, make_batcher, epochs=2):
     runs = {}
     for capture in (False, True):
         batcher = make_batcher()
-        trainer = _trainer(cfg, info, capture=capture)
+        trainer = _trainer(cfg, info, capture=capture, build=build)
         holder = [trainer.init_state(seed=0)]
         _zero_counts()
 
@@ -3567,6 +3622,607 @@ def phase_serving(workdir, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the engines — sparse (reaction scale and beyond 256 nodes), pair, VAE
+
+PAIR_CONFIG = os.path.join(ROOT, "example_config", "pair.json")
+VAE_CONFIG = os.path.join(ROOT, "example_config", "vae.json")
+# the reaction workload (SURVEY.md:140, :345): 20 014 classes at batch 128,
+# molecules of up to 203 atoms with 81 atom features
+REACTION = dict(graphs=2048, lo=20, hi=203, features=81, classes=20014, batch=128,
+                shards=4, seed=0)
+# graphs beyond the dense threshold (block-diagonal batches: the tiled kernel)
+BEYOND_256 = dict(graphs=256, lo=257, hi=600, features=81, classes=20014, batch=32,
+                  shards=1, seed=1)
+ENGINE_EPOCHS = 2
+ENGINE_TOL = 1e-5  # the same checkpoint and ε on the card and on the CPU
+# GPU vs CPU summed-CE costs of the first sparse training steps from one
+# seed (costs near 1 300 at batch 128): the NVIDIA H100 80GB HBM3 (700 W)
+# has shown 9.2e-8 at the reaction scale
+ENGINE_STEP_RTOL = 1e-6
+
+
+def molecule_graphs(n_graphs, lo, hi, features, classes, seed):
+    """Chain-and-ring molecular graphs of ``lo``-``hi`` atoms: a chain
+    closed into rings by one bond per ten atoms (mean degree ≈ 2.2), atom
+    features a one-hot type among 44, a one-hot degree and a ring bit (of
+    ``features`` columns), one class label each: (dense adjacency,
+    features, label) triples."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    for _ in range(n_graphs):
+        n = int(rng.randint(lo, hi + 1))
+        a = np.zeros((n, n), np.float32)
+        i = np.arange(n - 1)
+        a[i, i + 1] = a[i + 1, i] = 1.0
+        ring = rng.choice(n - 5, size=max(n // 10, 1), replace=False)
+        a[ring, ring + 5] = a[ring + 5, ring] = 1.0
+        f = np.zeros((n, features), np.float32)
+        f[np.arange(n), rng.randint(0, 44, n)] = 1.0
+        f[np.arange(n), 44 + a.sum(axis=1).astype(int)] = 1.0
+        f[ring, features - 1] = f[ring + 5, features - 1] = 1.0
+        yield a, f, [int(rng.randint(0, classes))]
+
+
+def write_molecules(workdir, name, spec):
+    """The spec's molecules as TFRecord shards written by the port's writer:
+    (glob pattern, seconds)."""
+    from kgcn_tpu_torch.data.tfrecord import example_from_graph, write_tfrecord
+
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, name)
+    os.makedirs(d)
+    records = [example_from_graph(a, f, y, [1]) for a, f, y in molecule_graphs(
+        spec["graphs"], spec["lo"], spec["hi"], spec["features"], spec["classes"],
+        spec["seed"])]
+    for k in range(spec["shards"]):
+        write_tfrecord(os.path.join(d, f"part-{k:02d}.tfrecords"), records[k::spec["shards"]])
+    return os.path.join(d, "part-*.tfrecords"), time.perf_counter() - t0
+
+
+def sparse_config(workdir, name, pattern, spec, **over):
+    """A ``cli.sparse`` config at the SparseGCN defaults (out_dims 256 × 3,
+    dense_dim 256): (config, path)."""
+    d = os.path.join(workdir, name)
+    cfg = {"dataset": pattern, "test_dataset": pattern, "num_classes": spec["classes"],
+           "batch_size": spec["batch"], "epoch": ENGINE_EPOCHS, "learning_rate": 0.001,
+           "num_folds": 5, "task": "classification", "save_interval": 0,
+           "shuffle_data": True, "seed": 0, "save_model_path": os.path.join(d, "model"),
+           "save_info_valid": os.path.join(d, "valid.json"),
+           "save_info_test": os.path.join(d, "test.json"),
+           "prediction_output": os.path.join(d, "prediction.jbl")}
+    cfg.update(over)
+    path = os.path.join(d, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def _forward_launches(model, batch):
+    """The kernel launches of one forward (the wrappers' counts)."""
+    import torch
+
+    _zero_counts()
+    with torch.no_grad():
+        model(batch)
+    torch.cuda.synchronize()
+    return {k: v for k, v in _counts().items() if v}
+
+
+def kernel_breakdown(run, steps, top=8):
+    """The device time of ``run()`` (``steps`` steps) by kernel name, ms a
+    step, the ``top`` largest first, with the rest summed: [(name, ms)]."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.key, getattr(ev, "device_time_total", 0.0) / 1e3 / steps)
+                   for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None) == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    rest = sum(ms for _, ms in rows[top:])
+    return [(name[:90], ms) for name, ms in rows[:top]] + [("the rest", rest)]
+
+
+def _split(n, folds=5):
+    """(training, validation) sizes of fold 0 of cli.sparse's modulo split."""
+    valid = -(-n // folds)
+    return n - valid, valid
+
+
+def _recorded(module, name, run):
+    """``run()`` with ``module.name`` replaced by a recorder that passes
+    each call on: the calls' positional and keyword arguments."""
+    calls, real = [], getattr(module, name)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def engine_gconv_check(label, model, batch):
+    """Each GraphConv's gconv call in one forward of ``model`` on ``batch``
+    (the engine's own operands: the batch's adjacency with its padded rows,
+    its features and activations, the layer's weights) launched again on
+    the card and held against the plain version (rtol = atol = TOL, as in
+    phase 3), two launches bitwise equal, and the backward against autograd
+    through the plain version.  Returns the shapes checked."""
+    import torch
+
+    from kgcn_tpu_torch.nn import layers
+    from kgcn_tpu_torch.ops.gconv import gconv, gconv_reference
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+    t0 = time.time()
+    calls = _recorded(layers, "gconv", forward)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    shapes = []
+    for i, (args, _) in enumerate(calls):
+        adj, x, w, b = (t.detach() for t in args)
+        shape = (*adj.shape[:3], x.shape[2], w.shape[2])
+        got = gconv(adj, x, w, b)
+        err = _check(f"gconv {label} layer {i} {shape}", got, gconv_reference(adj, x, w, b))
+        if not torch.equal(got, gconv(adj, x, w, b)):
+            raise AssertionError(f"gconv {label} layer {i}: two launches differ")
+        say(f"gconv {label} layer {i} C,B,N,Fin,Fout={shape}: max |kernel - plain| "
+            f"{err:.3g} (limit {TOL}); two launches bitwise equal")
+        gconv_gradients_check(f"{label} layer {i}", adj, x, w, b, gen)
+        shapes.append(shape)
+    if not calls:
+        raise AssertionError(f"{label}: the forward made no gconv call")
+    say(f"gconv {label}: {len(calls)} calls of the engine's forward checked in "
+        f"{time.time() - t0:.1f} s")
+    return shapes
+
+
+def engine_tiled_check(label, model, host_batch, extra_widths=()):
+    """Each GraphConv's tiled SpMM call in one forward of ``model`` on
+    ``host_batch`` moved to the card (the batch's own structure, edge
+    weights, projected features and payload), held against the plain
+    versions on CPU copies (``_tiled_errors``: the SpMM and its transpose,
+    f32 and bf16 payload, rtol = atol = TOL, two launches bitwise equal)
+    and the public wrapper's value and gradients against the CPU's
+    (``wrapper_gradients``); the same on random features of each of
+    ``extra_widths``.  Returns the widths checked."""
+    import torch
+
+    from kgcn_tpu_torch.ops import spmm as spmm_mod
+    from kgcn_tpu_torch.ops import tiled_spmm as tt
+
+    t0 = time.time()
+    batch = host_batch.to(DEVICE)
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+    calls = _recorded(spmm_mod, "tiled_spmm", forward)
+    if not calls:
+        raise AssertionError(f"{label}: the forward made no tiled SpMM call")
+    cases = []
+    for (te, w, x), kw in calls:
+        c = next(c for c, t in enumerate(batch.graph.tiled_adj) if t is te)
+        cases.append((c, x.detach().float().contiguous(), kw.get("compute_dtype", "bfloat16")))
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for F in extra_widths:
+        x = torch.randn((calls[0][0][0].meta.num_senders, F), device=DEVICE, generator=gen)
+        cases.append((0, x, cases[0][2]))
+    structures = {}
+    for i, (c, x, dt) in enumerate(cases):
+        if c not in structures:
+            structures[c] = tt.with_plan(host_batch.graph.tiled_adj[c])
+        te_cpu, w_cpu = structures[c], host_batch.graph.edge_weights[c].float()
+        te, w = batch.graph.tiled_adj[c], batch.graph.edge_weights[c].float()
+        F = x.shape[1]
+        what = f"{label} call {i} F={F}" if i < len(calls) else f"{label} F={F} (random x)"
+        g = torch.randn((te.meta.num_receivers, F), device=DEVICE, generator=gen)
+        errs = _tiled_errors(what, te, te_cpu, w, w_cpu, x, g, sddmm=False)
+        say(f"tiled {what}: {te.meta.num_senders} nodes, {te.meta.num_edges} edges, path "
+            f"payload {dt}; max |kernel - plain| "
+            + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (limit {TOL}); two launches of spmm and spmm^T bitwise equal")
+        wrapper_gradients(what, te_cpu, w_cpu, F, x0=x.cpu(), compute_dtype=dt)
+    say(f"tiled {label}: {len(calls)} calls of the engine's forward and "
+        f"{len(extra_widths)} more widths checked in {time.time() - t0:.1f} s")
+    return [x.shape[1] for _, x, _ in cases]
+
+
+def engine_steps_gpu_vs_cpu(label, cfg, info, batches):
+    """The first training steps of the sparse engine on ``batches``, on the
+    card and on the CPU from one seed: summed-CE costs within
+    ENGINE_STEP_RTOL."""
+    from kgcn_tpu_torch.cli import sparse as cli_sparse
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    t0, costs = time.time(), {}
+    for dev in (DEVICE, "cpu"):
+        t = Trainer(cli_sparse._model(cfg, info), cfg, info, device=dev)
+        state = t.init_state(0)
+        got = []
+        for batch in batches:
+            state, c, _ = t.train_step(state, batch)
+            got.append(float(c))
+        costs[dev] = got
+    rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
+    say(f"GPU vs CPU {label} steps ({len(batches)}, one seed): GPU {costs[DEVICE]} CPU "
+        f"{costs['cpu']} relative difference {rel} (limit {ENGINE_STEP_RTOL}); "
+        f"{time.time() - t0:.1f} s")
+    if max(rel) > ENGINE_STEP_RTOL:
+        raise AssertionError(f"{label}: GPU and CPU step costs differ by {max(rel)}")
+    return rel
+
+
+def sparse_reaction(workdir):
+    """The reaction workload through ``cli.sparse``: shards written, read
+    through the host parser (timed), ``train`` 2 epochs (the captured
+    resident runner: one graph launch a step; gconv launches as the
+    forward's over replays, warm-ups and the eager validation), a timed
+    captured epoch with its device time by kernel, the captured runner
+    against its eager steps (bitwise), ``infer`` over every graph, the
+    gconv kernel at the engine's shapes against its plain version
+    (``engine_gconv_check``), and 3 streaming steps on the card and on the
+    CPU from one seed (ENGINE_STEP_RTOL).  Returns the gconv launches and
+    the numbers for PERF.md."""
+    import glob
+
+    import numpy as np
+
+    from kgcn_tpu_torch.cli import sparse as cli_sparse
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.tfrecord import load_tfrecord_dataset
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.resident import ResidentBatcher
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    spec = REACTION
+    pattern, write_s = write_molecules(workdir, "reaction", spec)
+    cfg, path = sparse_config(workdir, "reaction", pattern, spec)
+    paths = sorted(glob.glob(pattern))
+    t0 = time.perf_counter()
+    ds, info = load_tfrecord_dataset(paths, cfg)
+    read_s = time.perf_counter() - t0
+    be = backend.resolve(dict(cfg), info, log=False)
+    nbytes = sum(os.path.getsize(p) for p in paths)
+    say(f"reaction data: {ds.num} graphs of {ds.enabled_node_nums.min()}-"
+        f"{ds.enabled_node_nums.max()} atoms (mean degree "
+        f"{sum(len(a[0][0]) for a in ds.adjs) / ds.enabled_node_nums.sum():.3f}), "
+        f"{info.feature_dim} features, {spec['classes']} classes; {len(paths)} shards, "
+        f"{nbytes} bytes, written in {write_s:.3f} s, read through the host parser in "
+        f"{read_s:.4f} s ({ds.num / read_s:.0f} graphs/s); backend {be.name}")
+    if be.name != "dense" or ds.num != spec["graphs"] or info.feature_dim != spec["features"]:
+        raise AssertionError(f"reaction data: backend {be.name}, {ds.num} graphs, "
+                             f"{info.feature_dim} features")
+    B = spec["batch"]
+    n_train, n_valid = _split(ds.num)
+    train_ds = ds.subset(np.arange(ds.num)[np.arange(ds.num) % 5 != 0])
+    sb = Batcher(train_ds, info, B, seed=0, backend=be)
+    probe = Trainer(cli_sparse._model(cfg, info), cfg, info, device=DEVICE)
+    per_fwd = _forward_launches(probe.model, sb.make_batch(np.arange(B)).to(DEVICE))
+    steps, evals = ENGINE_EPOCHS * -(-n_train // B), (ENGINE_EPOCHS + 1) * -(-n_valid // B)
+
+    out, launches = _engine_train("cli.sparse (reaction, resident)", cli_sparse, path,
+                                  per_fwd, steps, evals)
+    valid = _json(cfg["save_info_valid"])
+    if (set(valid) != {"valid_cost", "valid_accuracy", "valid_top30", "valid_top50"}
+            or not all(math.isfinite(v) for v in valid.values())):
+        raise AssertionError(f"sparse train: valid {valid}")
+    say(f"-- cli.sparse train: {evals} eager validation batches, {per_fwd} a forward; "
+        f"valid {valid}")
+
+    # one captured epoch timed step by step, in the runner the CLI ran
+    rb = ResidentBatcher(train_ds, info, B, seed=0, backend=be, device=DEVICE)
+    tr = Trainer(cli_sparse._model(cfg, info), cfg, info, device=DEVICE)
+    holder = [tr.init_state(0)]
+
+    def run():
+        holder[0] = tr.run_epoch(holder[0], rb, epoch=0)[0]
+    S = rb.num_batches
+    step_ms, pstep_ms, busy_ms, idle = epoch_numbers(run, S)
+    say(f"reaction step (captured, {S} steps of {B} graphs, NVIDIA card above): wall "
+        f"{step_ms:.4f} ms (profiled {pstep_ms:.4f}), device busy {busy_ms:.4f} ms, idle "
+        f"share {idle:.4f}, {n_train / (step_ms * S / 1e3):.1f} graphs/s")
+    breakdown = kernel_breakdown(run, S)
+    say("reaction step by kernel, device ms a step: " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in breakdown))
+    captured_vs_eager("sparse reaction (resident)", cfg, info,
+                      lambda: ResidentBatcher(train_ds, info, B, seed=0, backend=be,
+                                              device=DEVICE),
+                      build=lambda info, cfg: cli_sparse._model(cfg, info))
+
+    out, ev, counts, infer_s = _cli(["infer", "--config", path], cli=cli_sparse)
+    n_batches = -(-ds.num // B)
+    with open(cfg["prediction_output"], "rb") as f:
+        pred = pickle.load(f)
+    want = {k: per_fwd.get(k, 0) * n_batches for k in counts}
+    if (counts != want or pred.shape != (ds.num, spec["classes"])
+            or not np.isfinite(pred).all()
+            or np.abs(pred.sum(axis=1) - 1).max() > 1e-4
+            or set(_json(cfg["save_info_test"])) != {"test_cost", "test_accuracy",
+                                                     "test_top30", "test_top50"}):
+        raise AssertionError(f"sparse infer: launches {counts} (want {want}), prediction "
+                             f"{pred.shape}")
+    say(f"-- cli.sparse infer: {ds.num} graphs in {infer_s:.3f} s ({n_batches} batches, "
+        f"gconv launches {want['gconv']}), {_json(cfg['save_info_test'])}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # the kernel at the engine's shapes, and 3 streaming steps from one
+    # seed on the card and on the CPU
+    batches = [sb.make_batch(np.arange(i * B, (i + 1) * B)) for i in range(3)]
+    engine_gconv_check("reaction", probe.model, batches[0].to(DEVICE))
+    engine_steps_gpu_vs_cpu("reaction", cfg, info, batches)
+    return launches, dict(read_s=read_s, step_ms=step_ms, busy_ms=busy_ms, idle=idle)
+
+
+def sparse_beyond_256(workdir):
+    """Graphs of 257-600 atoms through ``cli.sparse train`` (1 epoch):
+    ``auto`` resolves to the tiled backend, the streaming loop builds each
+    batch's tiled structures; 6 SpMM launches a training step and 3 an
+    evaluated batch, no gconv.  Then the tiled SpMM at the engine's shapes
+    against its plain version (``engine_tiled_check``, the path's width
+    and the input width 81) and 3 training steps on the card and on the
+    CPU from one seed (ENGINE_STEP_RTOL).  Returns the launches."""
+    import glob
+
+    import numpy as np
+
+    from kgcn_tpu_torch.cli import sparse as cli_sparse
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.tfrecord import load_tfrecord_dataset
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    spec = BEYOND_256
+    pattern, write_s = write_molecules(workdir, "beyond256", spec)
+    cfg, path = sparse_config(workdir, "beyond256", pattern, spec, epoch=1)
+    n_train, n_valid = _split(spec["graphs"])
+    B = spec["batch"]
+    steps, evals = -(-n_train // B), 2 * -(-n_valid // B)
+    out, _, counts, wall = _cli(["train", "--config", path], cli=cli_sparse)
+    want = {k: 0 for k in counts}
+    want["tiled_spmm"] = 6 * steps + 3 * evals
+    if "[spmm] backend: tiled" not in out or counts != want:
+        raise AssertionError(f"sparse beyond 256: launches {counts}, want {want}")
+    valid = _json(cfg["save_info_valid"])
+    if not all(math.isfinite(v) for v in valid.values()):
+        raise AssertionError(f"sparse beyond 256: {valid}")
+    say(f"-- cli.sparse train beyond 256 nodes ({spec['graphs']} graphs of {spec['lo']}-"
+        f"{spec['hi']} atoms, batch {B}, written in {write_s:.3f} s): backend tiled, "
+        f"{steps} steps and {evals} evaluated batches in {wall:.3f} s, tiled SpMM launches "
+        f"{counts['tiled_spmm']} as predicted; valid {valid}")
+
+    ds, info = load_tfrecord_dataset(sorted(glob.glob(pattern)), cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    train_ds = ds.subset(np.arange(ds.num)[np.arange(ds.num) % 5 != 0])
+    sb = Batcher(train_ds, info, B, seed=0, backend=be)
+    batches = [sb.make_batch(np.arange(i * B, (i + 1) * B)) for i in range(3)]
+    model = Trainer(cli_sparse._model(cfg, info), cfg, info, device=DEVICE).model
+    widths = engine_tiled_check("beyond 256", model, batches[0], extra_widths=(81,))
+    engine_steps_gpu_vs_cpu("beyond 256 (tiled)", cfg, info, batches)
+    say(f"sparse beyond 256: tiled SpMM checked at widths {widths} ({be.name}, payload "
+        f"{be.compute_dtype})")
+    return counts
+
+
+def _engine_config(workdir, name, src, **over):
+    """A copy of a shipped config with its dataset in the checkout and its
+    outputs under ``workdir``: (the config as the engines load it, with
+    the defaults, path)."""
+    from kgcn_tpu_torch.runtime.config import load_config
+
+    d = os.path.join(workdir, name)
+    os.makedirs(d)
+    with open(src) as f:
+        cfg = json.load(f)
+    cfg.update(dataset=os.path.join(ROOT, cfg["dataset"]), epoch=ENGINE_EPOCHS,
+               save_model_path=os.path.join(d, "model"),
+               save_result_test=os.path.join(d, "scores.csv"),
+               reconstruction_output=os.path.join(d, "reconstruction.jbl"),
+               generation_output=os.path.join(d, "generated.jbl"))
+    cfg.update(over)
+    path = os.path.join(d, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return load_config(path), path
+
+
+def _engine_train(label, cli, path, per_fwd, steps, evals):
+    """``train`` of an engine under torch.profiler, its epochs through a
+    captured runner and ``evals`` eager forwards: one graph launch a step;
+    the profiler records ``per_fwd`` over the replays, the warm-ups and the
+    eager forwards, the wrappers over the warm-ups, the capture and the
+    eager forwards (on the CPU, where nothing is captured, over every
+    step).  Returns (stdout, the profiler's launches)."""
+    import torch
+
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
+
+    (out, _, counts, _), kernels, graphs, busy, wall = profiled(
+        lambda: _cli(["train", "--config", path], cli=cli))
+    captured = torch.device(DEVICE).type == "cuda"
+    warm = WARMUP_STEPS if captured else 0
+    wrapped = WARMUP_STEPS + 1 if captured else steps
+    got = _profiler_launches(kernels, counts)
+    want = {k: per_fwd.get(k, 0) * (steps + warm + evals) for k in counts}
+    want_wrap = {k: per_fwd.get(k, 0) * (wrapped + evals) for k in counts}
+    if got != want or counts != want_wrap or graphs != steps:
+        raise AssertionError(f"{label} train: profiler {got} (want {want}), wrappers "
+                             f"{counts} (want {want_wrap}), {graphs} graph launches "
+                             f"(want {steps})")
+    say(f"-- {label} train (captured): {steps} steps in {graphs} graph launches, kernel "
+        f"launches {dict((k, v) for k, v in got.items() if v)} as predicted "
+        f"({dict((k, v) for k, v in per_fwd.items() if v)} a forward); device busy "
+        f"{busy:.3f} s of {wall:.3f} s")
+    return out, got
+
+
+def _rel_gap(got, want):
+    """The largest gap relative to ``want`` (1e-6 added below)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (np.abs(want) + 1e-6)))
+
+
+def engine_pair(workdir):
+    """pair.json: ``train`` (2 epochs, the resident pair batcher: both
+    towers gathered on the card, captured), ``infer`` on the card and on
+    the CPU from its checkpoint (scores within ENGINE_TOL), two GPU runs of
+    a pair step bitwise equal (segment_max's max and its tied gradients),
+    and the captured runner bitwise equal to its eager steps.  Returns the
+    launches."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.cli import pair as cli_pair
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.models.pair import GCNPairRanker, PairBatcher, ResidentPairBatcher
+    from kgcn_tpu_torch.runtime import backend
+
+    cfg, path = _engine_config(workdir, "pair", PAIR_CONFIG, dropout_rate=0.0)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    pairs = np.asarray(ds.graph_index_list)
+    B = int(cfg["batch_size"])
+
+    def build(info, cfg):
+        return GCNPairRanker(in_features=info.feature_dim, label_dim=info.label_dim,
+                             dropout_rate=float(cfg["dropout_rate"]))
+
+    sb = PairBatcher(ds, info, pairs, B, backend=be)
+    per_fwd = _forward_launches(build(info, cfg).to(DEVICE),
+                                sb.make_batch(np.arange(B)).to(DEVICE))
+    steps = ENGINE_EPOCHS * -(-len(pairs) // B)
+    out, launches = _engine_train("cli.pair", cli_pair, path, per_fwd, steps, 0)
+    accs = [float(a) for a in re.findall(r"pair acc=([\d.]+)", out)]
+    gpu_ev = _cli(["infer", "--config", path], cli=cli_pair)
+    cpu_ev = _cli(["infer", "--config", path], cpu=True, cli=cli_pair)
+    for k, v in gpu_ev[2].items():
+        launches[k] = launches.get(k, 0) + v
+    gap = _rel_gap(gpu_ev[1]["prediction"], cpu_ev[1]["prediction"])
+    with open(cfg["save_result_test"]) as f:
+        lines = f.read().splitlines()
+    if (lines[0] != "score0,score1" or len(lines) != len(pairs) + 1 or gap > ENGINE_TOL
+            or len(accs) != ENGINE_EPOCHS):
+        raise AssertionError(f"pair infer: {lines[:2]}, {len(lines)} lines, GPU vs CPU {gap}")
+    say(f"-- cli.pair infer: {len(pairs)} pairs scored; the checkpoint's scores on the card "
+        f"vs the CPU: max relative gap {gap:.3g} (limit {ENGINE_TOL}); pair accuracy by "
+        f"epoch {accs}")
+
+    # two GPU runs of one step bitwise equal
+    runs = []
+    for _ in range(2):
+        t = _trainer(cfg, info, build=build)
+        state, c, _ = t.train_step(t.init_state(0), sb.make_batch(np.arange(B)))
+        runs.append((c, state.params))
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    if not same:
+        raise AssertionError("pair: two GPU runs of one step differ")
+    say("pair: two GPU runs of one training step bitwise equal (cost and every parameter)")
+    captured_vs_eager("pair (resident)", cfg, info,
+                      lambda: ResidentPairBatcher(ds, info, pairs, B, backend=be,
+                                                  device=DEVICE), build=build)
+    return launches
+
+
+def engine_vae(workdir):
+    """vae.json: ``train`` (2 epochs, the resident VAE batcher: ε drawn on
+    the card each step, captured; validation with the streaming ε),
+    ``reconstruct`` and ``generate`` (the dumps' keys and shapes),
+    ``reconstruct`` on the card and on the CPU from one checkpoint with the
+    streaming ε (ENGINE_TOL), the captured runner bitwise equal to its eager
+    steps (the same ε: the generator's state restored), and the resident
+    evaluation runner's dict predictions (ε 0) captured bitwise equal to
+    eager.  Returns the launches."""
+    import numpy as np
+
+    from kgcn_tpu_torch.cli import gen as cli_gen
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.resident import ResidentBatcher, ResidentVAEBatcher
+
+    cfg, path = _engine_config(workdir, "vae", VAE_CONFIG)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    latent, B = int(cfg["latent_dim"]), int(cfg["batch_size"])
+    train_ds, valid_ds, _, _ = split_dataset(ds, cfg["validation_data_rate"], seed=cfg["seed"])
+    probe = _trainer(cfg, info)
+    sample = Batcher(ds, info, B, epsilon_dim=latent, backend=be).make_batch(np.arange(B))
+    per_fwd = _forward_launches(probe.model, sample.to(DEVICE))
+    steps = ENGINE_EPOCHS * -(-train_ds.num // B)
+    evals = ENGINE_EPOCHS * -(-valid_ds.num // B)  # one validation pass an epoch
+    _, launches = _engine_train("cli.gen", cli_gen, path, per_fwd, steps, evals)
+    gpu = _cli(["reconstruct", "--config", path], cli=cli_gen)
+    cpu = _cli(["reconstruct", "--config", path], cpu=True, cli=cli_gen)
+    gen = _cli(["generate", "--config", path], cli=cli_gen)
+    for k, v in gpu[2].items():
+        launches[k] = launches.get(k, 0) + v + gen[2][k]
+    rec = gpu[1]["prediction"]
+    gaps = {k: _rel_gap(rec[k], cpu[1]["prediction"][k]) for k in rec}
+    with open(cfg["generation_output"], "rb") as f:
+        generated = pickle.load(f)
+    shapes = {k: v.shape for k, v in rec.items()}
+    if (shapes != {"feature": (ds.num, 10, 3), "dense_adj": (ds.num, 1, 10, 10)}
+            or {k: v.shape[0] for k, v in generated.items()} != {"feature": 10, "dense_adj": 10}
+            or max(gaps.values()) > ENGINE_TOL):
+        raise AssertionError(f"vae: reconstruction {shapes}, generated "
+                             f"{ {k: v.shape for k, v in generated.items()} }, GPU vs CPU {gaps}")
+    say(f"-- cli.gen reconstruct and generate: {shapes}, generated "
+        f"{ {k: v.shape for k, v in generated.items()} }; the checkpoint's reconstruction "
+        f"on the card vs the CPU (streaming ε): max relative gaps {gaps} (limit {ENGINE_TOL})")
+
+    def make():
+        return ResidentVAEBatcher(train_ds, info, B, latent, backend=be, device=DEVICE)
+
+    captured_vs_eager("vae (resident, ε on the card)", cfg, info, make)
+    # the evaluation runner's dict predictions (a ResidentBatcher: ε 0; the
+    # VAE batcher itself evaluates through its host-ε batches)
+    preds = []
+    for capture in (False, True):
+        t = _trainer(cfg, info, capture=capture)
+        rb = ResidentBatcher(train_ds, info, B, backend=be, device=DEVICE)
+        preds.append(t.evaluate(t.init_state(0), rb)["prediction"])
+    if not all(np.array_equal(preds[0][k], preds[1][k]) for k in preds[0]):
+        raise AssertionError("vae: the captured resident evaluation differs from the eager one")
+    say(f"vae: the resident evaluation runner's dict predictions (ε 0) "
+        f"{ {k: v.shape for k, v in preds[1].items()} } captured bitwise equal to eager")
+    return launches
+
+
+def phase_engines(workdir):
+    phase(15, "engines: sparse, pair, VAE")
+    t_phase = time.time()
+    launches = {k: 0 for k in _counted()}
+
+    def add(name, got):
+        for k, v in got.items():
+            launches[k] += v
+        say(f"engines {name} done at {time.time() - t_phase:.1f} s of the phase")
+
+    reaction, numbers = sparse_reaction(workdir)
+    add("sparse reaction", reaction)
+    add("sparse beyond 256", sparse_beyond_256(workdir))
+    add("pair", engine_pair(workdir))
+    add("vae", engine_vae(workdir))
+    say(f"engines phase wall {time.time() - t_phase:.1f} s; launches {launches}")
+    return launches, numbers
+
+
+# ---------------------------------------------------------------------------
 
 
 def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
@@ -3718,12 +4374,19 @@ def main():
         for k, v in serving.items():
             launches[k] += v
         say(f"serving done at {time.time() - t_start:.1f} s")
+        engines, numbers = phase_engines(workdir)
+        for k, v in engines.items():
+            launches[k] += v
+        say(f"engines done at {time.time() - t_start:.1f} s")
 
     import torch
 
-    phase(15, "summary")
+    phase(16, "summary")
     if serving["gconv"] <= 0:
         raise AssertionError("gconv was not launched on the serving path")
+    if engines["gconv"] <= 0 or engines["tiled_spmm"] <= 0:
+        raise AssertionError(f"the engines launched {engines}")
+    say(f"reaction scale: {numbers}")
     kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)

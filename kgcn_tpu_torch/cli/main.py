@@ -61,7 +61,9 @@ Not ported yet, each raising "not yet ported" with its ROADMAP.md item:
 ``mesh`` (data parallel; KG: the sharded and resident training, A.11),
 ``fold_parallel`` ``"force"`` (A.11), ``"precision": "bfloat16"`` (A.6),
 the KG route of ``visualize`` (A.10) and the IG of sequence and
-vector-modal inputs (A.8).  ``export_savedmodel`` (a TensorFlow SavedModel)
+vector-modal inputs (``embedded_layer_ig``, A.8's one open item).  The
+sparse, pair and VAE engines have their own entry points, as in
+``kgcn_tpu``: ``cli/sparse.py``, ``cli/pair.py`` and ``cli/gen.py``.  ``export_savedmodel`` (a TensorFlow SavedModel)
 is refused: it needs TensorFlow, which the port does not use.
 """
 from __future__ import annotations

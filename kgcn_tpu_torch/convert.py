@@ -27,8 +27,12 @@ is decided by the port's module at that scope:
 
 Every other leaf keeps its name and layout: GraphConv's ``kernel``
 ``[C, Fin, Fout]``, DistMult's relation table ``kernel`` ``[C, dim]``, the
+VAE's ``GraphDecoderDistMult`` vector ``kernel`` ``[dim]``, the
 ``embedding`` table, GIN's ``epsilon``, biases, BN ``scale``/``mean``/
-``var``.  Without a ``model`` the ``Dense`` rule falls back to flax's
+``var``.  The engines' models take the same rule: ``SparseGCN``'s
+``Dense_0`` head, the pair tower's ``head`` and the VAE's ``mean_head``/
+``std_head`` are Linear layers; the names of a flax ``setup`` (``conv1``,
+``enc_bn1``, a list's ``link_dense1_0``) are the port's attribute names.  Without a ``model`` the ``Dense`` rule falls back to flax's
 automatic scope name ``Dense_<n>`` (enough for the models whose dense
 layers carry it).
 

@@ -26,8 +26,13 @@ The JAX package attaches the ELL arrays on every backend, but its layers
 read them only on these two, so no value differs.  ``host_seconds``
 accumulates the host time spent assembling batches, and ``tiled_seconds``
 / ``stream_seconds`` / ``ell_seconds`` the part of it spent building tiled
-/ stream structures / ELL arrays.  Datasets that fit the device take
-``runtime/resident.ResidentBatcher`` instead, which gathers batches there.
+/ stream structures / ELL arrays.  With ``epsilon_dim`` each batch carries
+the graph VAE's reparameterisation noise ``rng_normal`` ``[B, N,
+epsilon_dim]``, drawn from the batcher's ``RandomState`` after the epoch's
+shuffle, one array a batch, as ``kgcn_tpu/data/batcher.py:442-446`` draws
+it (one seed gives the same noise bit for bit).  Datasets that fit the
+device take ``runtime/resident.ResidentBatcher`` instead, which gathers
+batches there.
 """
 from __future__ import annotations
 
@@ -115,6 +120,7 @@ class Batch:
     pad_mask: Optional[torch.Tensor] = None  # [B] 1.0 = real example
     label_list: Optional[torch.Tensor] = None  # [B, L, 6] KG preference triples
     label_valid: Optional[torch.Tensor] = None  # [B, L] 1.0 = real pair (0 = wrap pad)
+    rng_normal: Optional[torch.Tensor] = None  # [B, N, latent] the VAE's ε
 
     def to(self, device) -> "Batch":
         moved = {
@@ -148,7 +154,7 @@ class Batcher:
 
     def __init__(self, ds: Dataset, info: DatasetInfo, batch_size: int, *,
                  edge_budget: Optional[int] = None, seed: int = 0,
-                 backend: Optional[Backend] = None):
+                 backend: Optional[Backend] = None, epsilon_dim: int = 0):
         self.ds = ds
         self.info = info
         self.batch_size = int(batch_size)
@@ -157,6 +163,7 @@ class Batcher:
         self.edge_budget = edge_budget or pad_edge_budget(per_graph * self.batch_size)
         self.seed = int(seed)
         self._rng = np.random.RandomState(seed)
+        self.epsilon_dim = int(epsilon_dim)
         self.backend = backend or Backend()
         # tiled: (ts, tr, chunk), locality flags and the chunk budget are
         # pinned by the first batch, so every batch has the same shapes
@@ -246,6 +253,10 @@ class Batcher:
 
         pad_mask = np.zeros((B,), np.float32)
         pad_mask[:G] = 1.0
+        eps = None
+        if self.epsilon_dim:
+            eps = torch.from_numpy(self._rng.normal(
+                size=(B, self.max_nodes, self.epsilon_dim)).astype(np.float32))
         return Batch(
             graph=graph,
             labels=take(ds.labels),
@@ -257,6 +268,7 @@ class Batcher:
             vector_modal=(tuple(take(v) for v in ds.vector_modal)
                           if ds.vector_modal else None),
             pad_mask=torch.from_numpy(pad_mask),
+            rng_normal=eps,
         )
 
     def _prepare_coo(self) -> None:

@@ -7,12 +7,10 @@ tuples), ``dense_adj`` and ``multi_dense_adj``, the transform flags
 ``mask_label`` (and their ``*_sparse`` forms), ``node_label`` /
 ``mask_node_label``, ``class_weight``, ``mol_info``, ``max_node_num``, the
 node-embedding mode of KG datasets (``node`` / ``node_num`` with
-``with_node_embedding``, ``label_list`` / ``test_label_list``), and the
+``with_node_embedding``, ``label_list`` / ``test_label_list``), the
 multimodal inputs: ``sequence`` / ``sequence_length`` /
-``sequence_symbol_num`` and the vector modals (``MODAL_NAMES``).
-
-Not read yet, because no ported model uses it (ROADMAP.md A.8):
-``graph_index_list``, the pairs of the VAE and pair families.
+``sequence_symbol_num`` and the vector modals (``MODAL_NAMES``), and
+``graph_index_list``, the graph pairs of the pair engine (``models/pair.py``).
 ``kfold_indices`` is the port's copy of the k-fold split.
 """
 from __future__ import annotations
@@ -65,6 +63,7 @@ class Dataset:
     node_label: Optional[np.ndarray] = None
     mask_node_label: Optional[np.ndarray] = None
     label_list: Optional[Any] = None  # KG triple lists
+    graph_index_list: Optional[Any] = None  # graph pairs (the pair engine)
     sequences: Optional[np.ndarray] = None  # [G, L] int32 token ids
     sequences_len: Optional[np.ndarray] = None  # [G] int32
     vector_modal: List[np.ndarray] = dataclasses.field(default_factory=list)
@@ -92,6 +91,7 @@ class Dataset:
             node_label=take(self.node_label),
             mask_node_label=take(self.mask_node_label),
             label_list=self.label_list,
+            graph_index_list=self.graph_index_list,
             sequences=take(self.sequences),
             sequences_len=take(self.sequences_len),
             vector_modal=[take(v) for v in self.vector_modal],
@@ -334,6 +334,7 @@ def build_dataset(data: Dict[str, Any], config: Optional[Dict[str, Any]] = None,
             np.asarray(mask_node_label) if mask_node_label is not None else None
         ),
         label_list=label_list,
+        graph_index_list=data.get("graph_index_list"),
         sequences=sequences,
         sequences_len=sequences_len,
         vector_modal=vector_modal,

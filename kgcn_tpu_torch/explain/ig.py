@@ -27,9 +27,9 @@ Output: one dump per sample with the reference's keys and shapes —
 ``features``, ``features_IG``, ``adjs``, ``adjs_IG``, ``check_score``,
 ``sum_of_IG`` and ``mol`` where the dataset has molecules — as a plain
 pickle (``joblib.load`` reads it), where the JAX package writes a joblib
-file.  Sequence and vector-modal inputs (their IG, ``embedded_layer_ig``)
-come with those models (ROADMAP.md A.8); the KG route of ``visualize``
-with ``explain/kg_ig.py`` (A.10).
+file.  Not ported yet: the IG of sequence and vector-modal inputs
+(``embedded_layer_ig``, ROADMAP.md A.8, its one open item) and the KG
+route of ``visualize`` with ``explain/kg_ig.py`` (A.10).
 """
 from __future__ import annotations
 

@@ -218,6 +218,7 @@ class KGBatcher:
         return self.graph_batch, (lls[:, None].astype(np.int32), lvs[:, None])
 
     @staticmethod
-    def make_scan_batch(const_batch: Batch, x) -> Batch:
+    def make_scan_batch(const_batch: Batch, x, generator=None) -> Batch:
+        """Step ``x``'s batch (the runner's ``generator``: nothing is drawn)."""
         ll, lv = x
         return const_batch.replace(label_list=ll, label_valid=lv)

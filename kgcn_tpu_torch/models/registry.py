@@ -1,13 +1,17 @@
 """Model registry — the counterpart of ``kgcn_tpu/models/registry.py``.
 
 Resolves the ``model.py`` config key (registry name or the reference's
-dotted path) to a constructor.  ``gcn``, ``gin``, ``gat``,
-``gcn_rxn_3layer``, ``gcn_multitask``, ``gcn_regression``,
-``gcn_node_label``, ``kg_distmult`` and the multimodal family
-(``gcn_multimodal``, ``gcn_vector_modal``, ``seq_cnn``; a ``task``
-containing ``"regression"`` gives the first two the regression head) are
-ported so far; every other name the JAX package knows (the VAE and pair
-families) raises ``NotImplementedError`` pointing at ROADMAP.md A.8.  On a featureless dataset (``with_node_embedding``) ``gcn``,
+dotted path) to a constructor: every name ``kgcn_tpu`` registers —
+``gcn``, ``gin``, ``gat``, ``gcn_rxn_3layer``, ``gcn_multitask``,
+``gcn_regression``, ``gcn_node_label``, ``kg_distmult``, the multimodal
+family (``gcn_multimodal``, ``gcn_vector_modal``, ``seq_cnn``; a ``task``
+containing ``"regression"`` gives the first two the regression head) and
+the graph VAE (``gcn_vae``, ``gcn_vae_onlylink``: the link-only variant,
+its ``pos_weight`` and ``norm`` from the config, which the ``cli.gen``
+engine computes from edge density instead).  The sparse and pair engines
+build their models themselves (``cli/sparse.py``, ``cli/pair.py``), as in
+``kgcn_tpu``.  An unknown name raises ``KeyError``.  On a featureless
+dataset (``with_node_embedding``) ``gcn``,
 ``gcn_rxn_3layer``, ``gcn_multitask`` and ``gcn_node_label`` take their
 node-embedding mode (``all_node_num`` rows of ``embedding_dim``, as
 ``kgcn_tpu`` passes them); ``gin``, ``gat`` and ``gcn_regression`` have
@@ -153,6 +157,24 @@ def _seq_cnn(info, config):
     )
 
 
+def _gcn_vae(info, config, **over):
+    from kgcn_tpu_torch.models.vae import GCNVAE
+
+    return GCNVAE(
+        in_features=_features(info, "gcn_vae"),
+        channels=info.adj_channel_num,
+        feature_dim=info.feature_dim,
+        latent_dim=int(config.get("latent_dim", 64)),
+        **over,
+    )
+
+
+def _gcn_vae_onlylink(info, config):
+    return _gcn_vae(info, config, link_only=True,
+                    pos_weight=float(config.get("pos_weight", 1.0)),
+                    norm=float(config.get("norm", 1.0)))
+
+
 def _kg_distmult(info, config):
     from kgcn_tpu_torch.models.kg import KGLinkPredictor
 
@@ -168,7 +190,8 @@ _REGISTRY = {"gcn": _gcn, "gin": _gin, "gat": _gat,
              "gcn_rxn_3layer": _gcn_rxn_3layer, "gcn_multitask": _gcn_multitask,
              "gcn_node_label": _gcn_node_label, "gcn_regression": _gcn_regression,
              "gcn_multimodal": _gcn_multimodal, "gcn_vector_modal": _gcn_vector_modal,
-             "seq_cnn": _seq_cnn, "kg_distmult": _kg_distmult}
+             "seq_cnn": _seq_cnn, "kg_distmult": _kg_distmult,
+             "gcn_vae": _gcn_vae, "gcn_vae_onlylink": _gcn_vae_onlylink}
 
 
 def available() -> list:
@@ -181,7 +204,4 @@ def build_model(name: str, info, config: Dict[str, Any]):
     key = _REFERENCE_ALIASES.get(name, name)
     if key in _REGISTRY:
         return _REGISTRY[key](info, config)
-    raise NotImplementedError(
-        f"model '{name}' is not ported to kgcn_tpu_torch yet (available: "
-        f"{available()}); see ROADMAP.md A.8 for the model families still to port"
-    )
+    raise KeyError(f"unknown model '{name}'; available: {available()}")

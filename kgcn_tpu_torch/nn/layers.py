@@ -1,5 +1,5 @@
 """Graph NN layers (torch.nn) — the counterparts of
-``kgcn_tpu/nn/layers.py:44-258, 294-396, 424-467``.
+``kgcn_tpu/nn/layers.py:44-467``.
 
 Semantics as there (checked against the reference, SURVEY.md §2.2):
 
@@ -28,6 +28,13 @@ Semantics as there (checked against the reference, SURVEY.md §2.2):
   their gradient by the SDDMM kernel) and the dense path ``_dense``.
   ``normalize="sender"`` keeps the reference's denominator gathered at the
   sender (kgcn/layers.py:530-531).
+* GraphMaxPooling: the neighbourhood max of ``A ⊙ x`` per feature,
+  channels summed, with the reference's densified-row zero floor
+  (kgcn/layers.py:122-153): ``segment_max`` over the edge lists, padding
+  edges masked to -inf.
+* GraphDecoderInnerProd / GraphDecoderDistMult: the graph VAE's adjacency
+  decoders ``Z Zᵀ`` and ``(w ⊙ Z) Zᵀ`` (kgcn/layers.py:268-305), einsums as
+  in ``kgcn_tpu``.
 * GraphBatchNormalization: statistics over valid (un-padded) node rows only,
   biased variance, running statistics ``m·ra + (1-m)·batch`` (m = 0.9,
   ε = 1e-3), output multiplied by the node mask.  Not ``nn.BatchNorm1d``,
@@ -269,12 +276,13 @@ class GraphGather(nn.Module):
 
 
 class GraphDense(nn.Module):
-    """Per-node dense layer; padded node rows are zeroed afterwards
-    (reference: kgcn/layers.py:223-265).  ``Dense_0`` is flax's name for
-    the inner layer."""
+    """Per-node dense layer; padded node rows are zeroed afterwards unless
+    ``mask_output`` is false (reference: kgcn/layers.py:223-265).
+    ``Dense_0`` is flax's name for the inner layer."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, mask_output: bool = True):
         super().__init__()
+        self.mask_output = mask_output
         self.Dense_0 = nn.Linear(in_features, features)
         self.reset_parameters()
 
@@ -283,7 +291,65 @@ class GraphDense(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
         out = self.Dense_0(_flat(x, graph))
+        if not self.mask_output:
+            return out
         return out * graph.node_mask.to(out.dtype)[:, None]
+
+
+class GraphMaxPooling(nn.Module):
+    """Neighbourhood max of ``A ⊙ x`` per feature, channels summed
+    (reference: kgcn/layers.py:122-153).  The reference densifies each row,
+    so its implicit zeros take part in the max: the max is floored at 0
+    where a row is not fully dense (``deg < max_nodes``), and a row without
+    edges gives 0.  Padding edges are masked to -inf, and the rows they
+    reach are masked out of the backward by the same ``where``."""
+
+    def forward(self, x: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        x = _flat(x, graph)
+        V, N = graph.total_nodes, graph.max_nodes
+        edge_mask = graph.edge_mask()
+        out = torch.zeros_like(x)
+        for c in range(graph.senders.shape[0]):
+            r = graph.receivers[c].long()
+            contrib = graph.edge_weights[c].to(x.dtype)[:, None] * x[graph.senders[c].long()]
+            contrib = torch.where(edge_mask[c][:, None] > 0, contrib, float("-inf"))
+            m = segment.segment_max(contrib, r, V)
+            # the edge counts are sums of ones: exact in any order
+            deg = torch.zeros(V, dtype=torch.float32, device=x.device).index_add_(
+                0, r, edge_mask[c].to(torch.float32))[:, None]
+            m = torch.where(deg < N, torch.maximum(m, torch.zeros_like(m)), m)
+            out = out + torch.where(deg == 0, torch.zeros_like(m), m)
+        return out
+
+
+class GraphDecoderInnerProd(nn.Module):
+    """Adjacency reconstruction ``Z Zᵀ`` per graph, ``[B, N, N]``
+    (reference: kgcn/layers.py:268-282)."""
+
+    def forward(self, z: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        zb = _flat(z, graph).reshape(graph.n_graph, graph.max_nodes, -1)
+        return torch.einsum("bnf,bmf->bnm", zb, zb)
+
+
+class GraphDecoderDistMult(nn.Module):
+    """``(w ⊙ Z) Zᵀ`` per graph with a learned diagonal relation vector
+    ``kernel`` ``[features]``, Glorot-uniform as ``kgcn_tpu``'s
+    ``glorot_uniform_nd`` draws a 1-D kernel (fan in = fan out = features;
+    reference: kgcn/layers.py:285-305)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(features))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        limit = math.sqrt(6.0 / (2 * self.kernel.shape[0]))
+        self.kernel.uniform_(-limit, limit, generator=generator)
+
+    def forward(self, z: torch.Tensor, graph: GraphBatch) -> torch.Tensor:
+        zb = _flat(z, graph).reshape(graph.n_graph, graph.max_nodes, -1)
+        return torch.einsum("bnf,bmf->bnm", self.kernel.to(zb.dtype) * zb, zb)
 
 
 class GraphBatchNormalization(nn.Module):

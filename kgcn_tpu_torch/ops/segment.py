@@ -1,6 +1,7 @@
 """Segment reductions of the sparse paths — the counterparts of
-``segment_sum`` and ``segment_softmax`` (``kgcn_tpu/ops/segment.py:17,77``),
-plain PyTorch (GAT's edge softmax and the ``xla`` scatter need them).
+``segment_sum``, ``segment_max`` and ``segment_softmax``
+(``kgcn_tpu/ops/segment.py:17,23,77``), plain PyTorch (GAT's edge softmax,
+the ``xla`` scatter and ``GraphMaxPooling`` need them).
 
 Sums run in a fixed order on every device: each segment's entries in their
 order in ``data`` (a stable sort by id, then a sorted segment reduction), so
@@ -58,6 +59,20 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     # the permutation: one entry a destination, no order to vary
     return torch.segment_reduce(data.index_select(0, order), "sum", offsets=offsets,
                                 axis=0, unsafe=True)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``out[k] = max_{i: ids[i] = k} data[i]``, ``[num_segments, ...]``;
+    empty segments are -inf, as ``jax.ops.segment_max`` gives them.  A
+    ``scatter_reduce`` amax: its value does not depend on the order of the
+    atomics, and its backward spreads a segment's gradient evenly over the
+    entries tied at the maximum, as JAX's does."""
+    ids = segment_ids.long()
+    index = ids.reshape(ids.shape + (1,) * (data.dim() - 1)).expand_as(data)
+    out = torch.full((num_segments, *data.shape[1:]), float("-inf"),
+                     dtype=data.dtype, device=data.device)
+    return out.scatter_reduce(0, index, data, reduce="amax", include_self=False)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,

@@ -32,6 +32,10 @@ What the port's kernels and ops read besides, gathered the same way:
 * the multimodal inputs (sequences, their lengths, the vector modals)
   are gathered per example like the labels.
 
+``ResidentVAEBatcher`` holds a ``ResidentBatcher`` and adds the graph
+VAE's reparameterisation noise; its docstring says where each path draws
+ε.
+
 The gate (``resident_enabled``) is the JAX package's, with the resolved
 backend passed in: the tiled and stream structures are packed on the host
 per batch, so those backends decline.  Shuffling stays a host function of
@@ -102,7 +106,7 @@ def supports_resident(ds: Dataset, *, allow_index_list: bool = False) -> bool:
     return (
         ds.adjs is not None
         and ds.label_list is None
-        and (allow_index_list or getattr(ds, "graph_index_list", None) is None)
+        and (allow_index_list or ds.graph_index_list is None)
     )
 
 
@@ -480,3 +484,69 @@ class ResidentBatcher:
         sched[:len(idx)] = idx
         valid = (np.arange(self.batch_size) < len(idx)).astype(np.float32)
         return self._gather(sched, valid)
+
+
+class ResidentVAEBatcher:
+    """The resident batcher of the graph VAE (``kgcn_tpu/runtime/resident.py:
+    437-493``): graphs gathered on the device by a ``ResidentBatcher`` it
+    holds, and ε ``[B, N, latent]`` for the reparameterisation with each
+    batch (the reference feeds it as the ``epsilon`` placeholder,
+    kgcn/feed_index.py:107-109).  It offers the trainer a scanned epoch
+    (``epoch_scan_inputs``) and no resident schedule, so each path has one
+    source of ε:
+
+    * ``Trainer.run_epoch`` (the scanned epoch, ``make_scan_batch``) draws
+      it on the device from the runner's generator, step by step, with no
+      host work (``kgcn_tpu`` takes its schedule first and trains at ε = 0,
+      ROADMAP C.5);
+    * ``make_batch`` and ``batches``, and so ``Trainer.evaluate``, draw it
+      on the host from the batcher's ``RandomState``, after the shuffle,
+      one array a batch, in the streaming ``Batcher``'s order."""
+
+    def __init__(self, ds: Dataset, info: DatasetInfo, batch_size: int, latent_dim: int,
+                 *, seed: int = 0, backend: Optional[Backend] = None, device="cpu"):
+        self._resident = ResidentBatcher(ds, info, batch_size, seed=seed, backend=backend,
+                                         device=device)
+        self.ds, self.batch_size = ds, self._resident.batch_size
+        self.device_data, self.max_nodes = self._resident.device_data, self._resident.max_nodes
+        self.latent_dim = int(latent_dim)
+
+    @property
+    def num_batches(self) -> int:
+        return self._resident.num_batches
+
+    @property
+    def valid_per_epoch(self) -> int:
+        return self._resident.valid_per_epoch
+
+    def batch_valid_counts(self):
+        return self._resident.batch_valid_counts()
+
+    def epoch_scan_inputs(self, shuffle: bool = True, epoch: Optional[int] = None):
+        """(this batcher, the epoch's schedule and validity)."""
+        return self, self._resident.epoch_schedule(shuffle, epoch=epoch)
+
+    @staticmethod
+    def make_scan_batch(const: "ResidentVAEBatcher", x, generator=None) -> Batch:
+        idx, valid = x
+        batch = gather_batch(const.device_data, idx, valid)
+        eps = torch.randn((const.batch_size, const.max_nodes, const.latent_dim),
+                          generator=generator, device=idx.device)
+        return batch.replace(rng_normal=eps)
+
+    def _eps(self) -> torch.Tensor:
+        eps = self._resident._rng.normal(size=(self.batch_size, self.max_nodes,
+                                               self.latent_dim))
+        return torch.from_numpy(eps.astype(np.float32)).to(self.device_data.device)
+
+    def make_batch(self, idx: np.ndarray) -> Batch:
+        return self._resident.make_batch(idx).replace(rng_normal=self._eps())
+
+    def batches(self, shuffle: bool = True, epoch: Optional[int] = None):
+        """``kgcn_tpu``'s draw order: the shuffle, then each batch's ε, from
+        the same ``RandomState`` (``epoch`` is not read)."""
+        idx = np.arange(self.ds.num)
+        if shuffle:
+            self._resident._rng.shuffle(idx)
+        for start in range(0, len(idx), self.batch_size):
+            yield self.make_batch(idx[start:start + self.batch_size])

@@ -8,15 +8,19 @@ from static device buffers, indexed by a step counter on the device:
 
 * ``TrainRunner``: the batch (built on the device from the epoch's
   per-step inputs: a resident batcher's schedule row, a KG epoch's label
-  slice), forward, backward and the optimizer update, written into static
+  slice, a pair epoch's two towers' rows; with the VAE's reparameterisation
+  noise drawn on the device), forward, backward and the optimizer update,
+  written into static
   buffers of the parameters, BN statistics and optimizer state; the
   optimizer's per-step numbers (bias corrections, scheduled learning
   rates, which the eager update computes as Python floats from host step
   counts) come from a table computed on the host once an epoch
-  (``optim.Transform.table``) and indexed by the counter; dropout draws
-  from a generator registered with the graph, so each replay draws anew;
-* ``EvalRunner``: the batch and the forward, predictions and costs
-  written per step.
+  (``optim.Transform.table``) and indexed by the counter; dropout and the
+  VAE's noise draw from a generator registered with the graph, so each
+  replay draws anew;
+* ``EvalRunner``: the batch and the forward, predictions (a tensor, or a
+  dict of them: the VAE's ``feature`` and ``dense_adj``) and costs written
+  per step.
 
 The state is copied into the buffers at the start of an epoch and out at
 its end; costs and metrics stay on the device for one read by the caller.
@@ -156,14 +160,22 @@ class _Steps:
                 self.body()
 
 
+def _named(prediction) -> Dict[Optional[str], torch.Tensor]:
+    """A prediction as ``{name: tensor}``: a dict as it is, a tensor under
+    the name None."""
+    return prediction if isinstance(prediction, dict) else {None: prediction}
+
+
 class _Runner:
     """What the train and eval runners share: the per-step inputs ``xs``
     (static device buffers ``[S, ...]``, refilled each epoch), the step
-    counter, the recorded costs and metrics, and the parameter and
-    statistics buffers."""
+    counter, the recorded costs, metrics and predictions, and the parameter
+    and statistics buffers.  ``make_batch(i, xs, generator)`` builds step
+    ``i``'s batch on the device; ``generator`` is the train runner's (the
+    eval runner passes None)."""
 
     def __init__(self, trainer, n_steps: int,
-                 make_batch: Callable[[torch.Tensor, Sequence[torch.Tensor]], object],
+                 make_batch: Callable[..., object],
                  xs: Sequence[np.ndarray], keep_alive=None):
         self.trainer = trainer
         self.device = trainer.device
@@ -175,6 +187,7 @@ class _Runner:
         self.i = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.costs = None
         self.metrics: Optional[Dict[str, torch.Tensor]] = None
+        self.preds: Optional[Dict[Optional[str], torch.Tensor]] = None
         self.params: Dict[str, torch.Tensor] = {}
         self.stats: Dict[str, torch.Tensor] = {}
 
@@ -187,13 +200,14 @@ class _Runner:
             self.metrics = {k: torch.zeros((S, *v.shape), dtype=v.dtype, device=dev)
                             for k, v in metrics.items()}
             if prediction is not None:
-                self.preds = torch.zeros((S, *prediction.shape), dtype=prediction.dtype,
-                                         device=dev)
+                self.preds = {k: torch.zeros((S, *v.shape), dtype=v.dtype, device=dev)
+                              for k, v in _named(prediction).items()}
         self.costs.index_copy_(0, i, cost_sum.detach().reshape(1).to(torch.float32))
         for k, v in metrics.items():
             self.metrics[k].index_copy_(0, i, v.detach()[None])
         if prediction is not None:
-            self.preds.index_copy_(0, i, prediction.detach()[None])
+            for k, v in _named(prediction).items():
+                self.preds[k].index_copy_(0, i, v.detach()[None])
 
     def _load(self, xs: Sequence[np.ndarray], params, stats) -> None:
         self._xs.fill(xs)
@@ -203,9 +217,9 @@ class _Runner:
             self.stats[k].copy_(v)
         self.i.zero_()
 
-    def _batch(self):
+    def _batch(self, generator=None):
         i = self.i
-        return i, self.make_batch(i, self.xs)
+        return i, self.make_batch(i, self.xs, generator)
 
 
 class TrainRunner(_Runner):
@@ -225,7 +239,7 @@ class TrainRunner(_Runner):
 
     def _body(self) -> None:
         t = self.trainer
-        i, batch = self._batch()
+        i, batch = self._batch(self.gen)
         leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
         out = functional_call(t.model, {**leaves, **self.stats}, (batch,),
                               {"train": True, "generator": self.gen})
@@ -272,8 +286,9 @@ class TrainRunner(_Runner):
 
 class EvalRunner(_Runner):
     """``n_steps`` evaluation steps over per-step inputs ``xs``:
-    ``run(params, batch_stats, xs)`` → (predictions ``[S, B, ...]``, costs
-    ``[S]``, metrics ``{name: [S, ...]}``) on the device."""
+    ``run(params, batch_stats, xs)`` → (predictions ``{name: [S, B, ...]}``,
+    a tensor prediction under the name None, costs ``[S]``, metrics
+    ``{name: [S, ...]}``) on the device."""
 
     def __init__(self, trainer, n_steps, make_batch, xs, keep_alive=None):
         super().__init__(trainer, n_steps, make_batch, xs, keep_alive)
@@ -296,7 +311,7 @@ class EvalRunner(_Runner):
             self.steps.prepare()
         self._load(xs, params, batch_stats)
         self.steps.run(self.n_steps)
-        return (self.preds.clone(), self.costs.clone(),
+        return ({k: v.clone() for k, v in self.preds.items()}, self.costs.clone(),
                 {k: v.clone() for k, v in self.metrics.items()})
 
 

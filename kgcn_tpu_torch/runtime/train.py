@@ -12,13 +12,17 @@ optimizer (``runtime/optim.py``, optax's update rules) the new parameters.
 ``run_epoch`` dispatches as the JAX trainer does (``train.py:358-363``): a
 batcher with ``epoch_schedule`` (``runtime/resident.ResidentBatcher``)
 runs the whole-epoch resident runner, one with ``epoch_scan_inputs``
-(``models/kg.KGBatcher``) the scanned epoch, and any other the streaming
-loop, its batches assembled ahead in a thread (``data/prefetch.py``) and
-moved to the device one by one.  ``evaluate`` runs the resident evaluation
-runner for a resident batcher (``Trainer`` itself, not a subclass, as
-there).  The runners (``runtime/runner.py``) replay each step from one
-captured CUDA graph on the card, unless the trainer was made with
-``capture=False``; on the CPU they run eagerly.  Validation batches of the
+(``models/kg.KGBatcher``, ``models/pair.ResidentPairBatcher``,
+``runtime/resident.ResidentVAEBatcher``) the scanned epoch, and any other
+the streaming loop, its batches assembled ahead in a thread
+(``data/prefetch.py``) and moved to the device one by one.  A batch is a
+``Batch``, or a ``models/pair.PairBatch`` of two; a prediction is a
+tensor, or a dict of tensors (the VAE's).
+``evaluate`` runs the resident evaluation runner for a resident batcher
+(``Trainer`` itself, not a subclass, as there).  The runners
+(``runtime/runner.py``) replay each step from one captured CUDA graph on
+the card, unless the trainer was made with ``capture=False``; on the CPU
+they run eagerly.  Validation batches of the
 streaming path are built once and replayed (``CachedBatches``), where the
 resident memory budget admits them.
 """
@@ -122,20 +126,29 @@ def _cache_fits(batcher) -> bool:
 
 def _scan_batch(batcher, const_batch):
     """A scanned epoch's step batch: the batcher type's ``make_scan_batch``
-    of the constant batch and step ``i``'s row of each per-step input."""
-    def make(i, xs):
+    of the constant batch, step ``i``'s row of each per-step input and the
+    runner's generator (what the batch draws on the device)."""
+    def make(i, xs, generator=None):
         return type(batcher).make_scan_batch(
-            const_batch, tuple(x.index_select(0, i)[0] for x in xs))
+            const_batch, tuple(x.index_select(0, i)[0] for x in xs), generator)
     return make
 
 
 def _schedule_batch(device_data):
     """A resident epoch's step batch: schedule row ``i`` gathered from the
     device dataset (``resident.gather_batch``)."""
-    def make(i, xs):
+    def make(i, xs, generator=None):
         return gather_batch(device_data, xs[0].index_select(0, i)[0],
                             xs[1].index_select(0, i)[0])
     return make
+
+
+def _trimmed(preds, counts):
+    """Per-step predictions ``[S, B, ...]`` (or a dict of them) without the
+    padding rows, the steps concatenated."""
+    if isinstance(preds, dict):
+        return {k: _trimmed(v, counts) for k, v in preds.items()}
+    return np.concatenate([np.asarray(preds[s])[:n] for s, n in enumerate(counts)])
 
 
 def _metric_list(metrics: Dict[str, np.ndarray], n_steps: int):
@@ -316,8 +329,10 @@ class Trainer:
         dd = batcher.device_data
         runner = self._runner("eval", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
         preds, costs, metrics = runner.run(state.params, state.batch_stats, xs)
-        names = list(metrics)
-        preds, costs, *values = read_back(preds, costs, *(metrics[k] for k in names))
+        names, keys = list(metrics), list(preds)
+        costs, *values = read_back(costs, *(metrics[k] for k in names),
+                                   *(preds[k] for k in keys))
+        preds = dict(zip(keys, values[len(names):]))
         counts = batcher.batch_valid_counts()
         n_total = sum(counts)
         agg = aggregate_metrics(_metric_list(dict(zip(names, values)), len(costs)),
@@ -325,7 +340,7 @@ class Trainer:
         return {
             "cost": float(np.sum(costs)) / max(n_total, 1),
             "metrics": agg or {},
-            "prediction": np.concatenate([preds[s][:n] for s, n in enumerate(counts)]),
+            "prediction": _trimmed(preds[None] if keys == [None] else preds, counts),
             "num": n_total,
         }
 
@@ -365,17 +380,20 @@ class Trainer:
             preds.append(pred)
             costs.append(cost_sum)
             metric_list.append(metrics)
-        preds = [p.cpu().numpy()[:n] for p, n in zip(preds, counts)]
         costs = [float(c) for c in costs]
         metric_list = [{k: v.cpu().numpy() for k, v in m.items()} for m in metric_list]
         n_total = sum(counts)
         agg = aggregate_metrics(
             metric_list, n_total, self.config.get("task", ""), key_prefix
         )
+        if preds and isinstance(preds[0], dict):
+            preds = {k: [p[k].cpu().numpy() for p in preds] for k in preds[0]}
+        else:
+            preds = [p.cpu().numpy() for p in preds]
         return {
             "cost": float(np.sum(costs)) / max(n_total, 1),
             "metrics": agg or {},
-            "prediction": np.concatenate(preds) if preds else None,
+            "prediction": _trimmed(preds, counts) if counts else None,
             "num": n_total,
         }
 

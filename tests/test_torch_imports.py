@@ -2,8 +2,8 @@
 chip_smoke.py) imports with JAX, flax, optax, joblib, scikit-learn, msgpack
 and kgcn_tpu made unimportable (the GPU machine has none of them), and the
 entry points (serving, training, KG training and inference, graph
-inference, cross-validation, IG visualisation) refuse to run without a GPU
-unless the CPU is asked for."""
+inference, cross-validation, IG visualisation, and the sparse, pair and VAE
+engines) refuse to run without a GPU unless the CPU is asked for."""
 import os
 import subprocess
 import sys
@@ -51,10 +51,15 @@ def test_every_module_imports_without_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in BLOCKED)
         assert not bad, bad
+        engines = {"kgcn_tpu_torch.data.tfrecord", "kgcn_tpu_torch.models.sparse",
+                   "kgcn_tpu_torch.models.pair", "kgcn_tpu_torch.models.vae",
+                   "kgcn_tpu_torch.cli.sparse", "kgcn_tpu_torch.cli.pair",
+                   "kgcn_tpu_torch.cli.gen"}
+        assert engines <= set(names), sorted(engines - set(names))
         print(len(names))
     """)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 27
+    assert int(r.stdout.split()[-1]) >= 34
 
 
 def test_entry_points_refuse_to_run_without_a_gpu():
@@ -63,7 +68,15 @@ def test_entry_points_refuse_to_run_without_a_gpu():
         from kgcn_tpu_torch.runtime.serve import ExportPredictor, Predictor
         from kgcn_tpu_torch.cli.serve import build_server
         from kgcn_tpu_torch.cli.main import main as train_main
-        for fn in (lambda: resolve_device(),
+        from kgcn_tpu_torch.cli import gen, pair, sparse
+        engines = [lambda mode=mode, m=m, cfg=cfg: m.main([mode, "--config", cfg])
+                   for m, modes, cfg in (
+                       (sparse, ("train", "train_cv", "infer"), "example_config/vae.json"),
+                       (pair, ("train", "infer"), "example_config/pair.json"),
+                       (gen, ("train", "reconstruct", "generate"),
+                        "example_config/vae.json"))
+                   for mode in modes]
+        for fn in engines + [lambda: resolve_device(),
                    lambda: Predictor({"model.py": "gcn"}),
                    lambda: ExportPredictor("model.pt2"),
                    lambda: build_server({"model.py": "gcn"}, port=0),
@@ -81,7 +94,7 @@ def test_entry_points_refuse_to_run_without_a_gpu():
                    lambda: train_main(["train_cv", "--config",
                                        "example_config/solubility_reg.json"]),
                    lambda: train_main(["visualize", "--config",
-                                       "example_config/synth.json"])):
+                                       "example_config/synth.json"])]:
             try:
                 fn()
             except RuntimeError as e:
