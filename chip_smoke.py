@@ -228,10 +228,46 @@ non-zero exit and no result line:
    runner bitwise equal to its eager steps (the same ε), and the resident
    evaluation's dict predictions captured bitwise equal to eager; the
    phase's wall;
-16. summary — one JSON line of kernel numbers, then the result line.
+16. precision and explain, in a process of its own (``--phase16 WORKDIR``,
+   started and waited for by this one: torch.profiler, whose records the
+   phase's launch counts come from, has been seen to record nothing late
+   in a long process) — ``"precision": "bfloat16"`` and the rest of
+   ``visualize``: the bf16 gconv kernel (``kgcn_gconv_bf16``) at phase 3's
+   shapes (the serving path's, a misaligned toy, reaction scale, N 600 and
+   1024 with their split runs, 70 000 graphs of 8 nodes) against its plain
+   version (``gconv_reference`` widened to f32, rounded once), kernel and
+   plain each within one bf16 rounding of an f64 sum, two launches bitwise
+   equal, its launches as the wrapper counts them equal to
+   torch.profiler's (no f32 copy of an operand: no other kernel), with
+   device, plain, library (``torch.einsum`` on the bf16 tensors) and bound
+   times (bf16 bytes at 3.35 TB/s vs FLOP at 989 TFLOP/s, the bf16 tensor
+   cores); the ELL kernel and its dx with bf16 slot weights at phase 9's
+   ring6 batch (F 3 and 50, x f32 and bf16) against their plain versions;
+   ``cli.main train`` at bf16 (2 epochs; finite, falling costs) on the
+   dense solubility GCN (resident, captured: 3 bf16 gconv kernels a step
+   and an evaluated batch in the profiler) and GAT on ``tiled``, GIN on
+   ``pallas`` (ring6: the ELL kernel with bf16 weights; finite costs, and
+   the same run with TF32 off falling: ``precision_gin`` says why), and
+   the WN18RR-shaped KG for 1 epoch (stream); 3 steps at bf16 GPU vs CPU
+   (2e-2, on batches spread over the dataset, with the card's launches)
+   for the dense GCN, GIN ``pallas``, GAT ``tiled`` and the KG; the
+   captured bf16 runner bitwise equal to its eager steps; the captured
+   step's wall, device busy and idle share at bf16 beside float32 (GCN
+   dense, and the reaction step through ``cli.sparse``, which also trains
+   2 epochs at bf16, with the bf16 gconv held at the engine's own operands
+   (one bf16 rounding; its backward's bf16 einsums within 2e-2 of the
+   largest gradient) and 3 reaction steps at bf16 GPU vs CPU (2e-2));
+   ``visualize`` on the KG with phase 8's
+   checkpoint (2 targets, ``ig_divide_number`` 30; the CSVs written, ms a
+   target) and one target's embedding IG at 5 steps GPU vs CPU (f32
+   payload, 1e-3 of its largest value); ``embedded_layer_ig`` of
+   multimodal.json's model GPU vs CPU (1e-4); ``python -m
+   kgcn_tpu_torch.cli.gcnv`` on a dump (``ImportError`` where matplotlib
+   is missing, as ``make_plot``'s);
+17. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
-5, 6, 8, 10, 11, 12, 14 and 15) and read just after; the summary's
+5, 6, 8, 10, 11, 12, 14, 15 and 16) and read just after; the summary's
 ``launches`` add up the tiled GCN, tiled GAT and dense GCN training runs
 and the serve run, the KG runs (train and infer) for the stream kernels,
 the ring runs (train and infer) for the ELL kernel, phase 11's resident
@@ -240,7 +276,8 @@ stream backends, the stream weight gradient's one main-path run) and
 phase 14's (gconv: the served kgcn_tpu checkpoint, the dynamic batcher's
 device calls, the export and its program's run, multimodal training) and
 phase 15's (gconv: the sparse, pair and VAE engines' training and
-inference; the tiled SpMM: the sparse engine beyond 256 nodes).
+inference; the tiled SpMM: the sparse engine beyond 256 nodes) and
+phase 16's (the bf16 runs; gconv_bf16 counts them alone).
 A step replayed from a captured
 CUDA graph launches its kernels from the graph, where no wrapper counts:
 for those runs (the KG training, phase 11's and phase 12's resident
@@ -351,13 +388,18 @@ def call_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, attempts=3, cold=False):
+def device_ms(fn, iters, attempts=5, cold=False):
     """Device time per call of ``fn`` in ms from torch.profiler: the mean
     duration of the CUDA kernels it recorded over ``iters`` calls, times the
     kernels a call launches (the records over the calls, rounded up: on the
     H100 a window of many calls has been seen to lose one record).  A
     profiling window that records no device time at all (seen once on the
-    H100 for a 1.5 µs kernel) is taken again, up to ``attempts`` times, and
+    H100 for a 1.5 µs kernel), or fewer kernels a call than the port's
+    wrappers counted in it (seen on the H100: a reaction-scale gconv window
+    that kept the records of one of its two kernels and read half the
+    time; a window short of a record or two, which many windows are, still
+    rounds up to the count), is taken again, after a pause that grows with
+    each attempt, up to ``attempts`` times, and
     then the time comes from CUDA events around the calls (``call_ms``:
     launch overhead included, so an upper bound), said so on the log.
     ``cold``: before each call a 128 MB write (over twice the H100's 50 MB
@@ -388,19 +430,24 @@ def device_ms(fn, iters, attempts=3, cold=False):
         raise AssertionError("torch.profiler recorded no kernel of the L2 flush")
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        time.sleep(0.1 * attempt)
+        before = _launched()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if cold:
                     flush.zero_()
                 fn()
             torch.cuda.synchronize()
+        counted = _launched() - before
         evs = kernels(prof, skip)
         total_us = sum(getattr(ev, "device_time_total", 0.0) for ev in evs)
         n = sum(ev.count for ev in evs)
-        if total_us > 0:
-            return total_us / n * -(-n // iters) / 1e3
-        say("  torch.profiler recorded no device time; profiling again")
+        per_call = -(-n // iters)
+        if total_us > 0 and per_call >= -(-counted // iters):
+            return total_us / n * per_call / 1e3
+        say(f"  torch.profiler recorded {n} kernel(s) of {counted} counted in {iters} "
+            f"calls, device time {total_us:.3f} us; profiling again")
     if cold:
         raise AssertionError("torch.profiler recorded no device time")
     ms = call_ms(fn, iters)
@@ -562,24 +609,33 @@ def phase_gconv_check():
 def gconv_gradients_check(label, adj, x, w, b, gen):
     """``_GConv.backward`` on the card, all four gradients (dA among them,
     which IG asks for) for a random upstream gradient, against autograd
-    through ``gconv_reference`` on the same operands (rtol = atol = 1e-4)."""
+    through ``gconv_reference`` on the same operands (rtol = atol = 1e-4;
+    on bf16 operands, whose backward runs its einsums in bf16 where the
+    plain version's autograd runs in f32, within BF16_EINSUM_TOL of the
+    gradient's largest magnitude)."""
     import torch
 
     from kgcn_tpu_torch.ops.gconv import gconv, gconv_reference
 
-    g = torch.randn(x.shape[:2] + (w.shape[2],), device=DEVICE, generator=gen)
+    bf16 = x.dtype == torch.bfloat16
+    g = torch.randn(x.shape[:2] + (w.shape[2],), device=DEVICE, generator=gen).to(x.dtype)
     grads = []
     for fn in (gconv, gconv_reference):
         ops = [t.detach().clone().requires_grad_(True) for t in (adj, x, w, b)]
         grads.append(torch.autograd.grad(fn(*ops), ops, g))
     errs = []
     for name, got, want in zip(("dadj", "dx", "dw", "db"), *grads):
+        got, want = got.float(), want.float()
         err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=TOL, atol=TOL):
+        ok = (err <= BF16_EINSUM_TOL * float(want.abs().max()) if bf16
+              else torch.allclose(got, want, rtol=TOL, atol=TOL))
+        if not ok:
             raise AssertionError(f"gconv {label}: {name} max |kernel - autograd| = {err}")
-        errs.append(f"{name} {err:.3g}")
+        errs.append(f"{name} {err:.3g}" + (f" of {float(want.abs().max()):.3g}" if bf16 else ""))
+    limit = (f"bf16: within {BF16_EINSUM_TOL} of the largest magnitude" if bf16
+             else f"rtol = atol = {TOL}")
     say(f"gconv {label}: backward against autograd through the plain version "
-        f"(rtol = atol = {TOL}): max_abs_err {', '.join(errs)}")
+        f"({limit}): max_abs_err {', '.join(errs)}")
 
 
 # ---------------------------------------------------------------------------
@@ -897,25 +953,35 @@ class _Tee(io.TextIOBase):
 
 
 def _counted():
-    """{kernel name: the wrapper function that carries its launch count}."""
+    """{kernel name: (the wrapper function that carries its launch count,
+    the count's attribute)}; the bf16 gconv's launches are counted in
+    ``gconv.launches`` and, alone, in ``gconv.bf16_launches``."""
     from kgcn_tpu_torch.ops import ell_spmm as te
     from kgcn_tpu_torch.ops import gconv as gconv_mod
     from kgcn_tpu_torch.ops import stream_spmm as ts
     from kgcn_tpu_torch.ops import tiled_spmm as tt
 
-    return {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
-            "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
-            "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw,
-            "ell_spmm": te.spmm_ell_gpu, "ell_spmm_dx": te.spmm_ell_dx_gpu}
+    counted = {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
+               "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
+               "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw,
+               "ell_spmm": te.spmm_ell_gpu, "ell_spmm_dx": te.spmm_ell_dx_gpu}
+    out = {k: (fn, "launches") for k, fn in counted.items()}
+    out["gconv_bf16"] = (gconv_mod.gconv, "bf16_launches")
+    return out
 
 
 def _counts():
-    return {k: fn.launches for k, fn in _counted().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
+
+
+def _launched():
+    """The kernels the port's wrappers have launched so far, each once."""
+    return sum(v for k, v in _counts().items() if k != "gconv_bf16")
 
 
 def _zero_counts():
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def _write_config(workdir, name, src, **over):
@@ -1084,9 +1150,11 @@ def gconv_kernels_a_forward(cfg, bs=None):
     return n
 
 
-def _trainer_batches(cfg, steps, bs=None):
-    """(model info, the first ``steps`` batches of ``bs`` graphs) of a
-    config on its resolved backend."""
+def _trainer_batches(cfg, steps, bs=None, spread=False):
+    """(model info, ``steps`` batches of ``bs`` graphs) of a config on its
+    resolved backend: the first ones, or with ``spread`` batches that each
+    take every ``steps``-th of ``steps·bs`` graphs spread evenly over the
+    dataset (a dataset sorted by class gives each batch every class)."""
     import numpy as np
 
     from kgcn_tpu_torch.data.batcher import Batcher
@@ -1097,17 +1165,21 @@ def _trainer_batches(cfg, steps, bs=None):
     be = backend.resolve(dict(cfg), info, log=False)
     bs = bs or int(cfg["batch_size"])
     tb = Batcher(ds, info, bs, backend=be)
+    if spread:
+        idx = np.linspace(0, ds.num - 1, steps * bs).astype(np.int64)
+        return info, [tb.make_batch(idx[i::steps]) for i in range(steps)]
     return info, [tb.make_batch(np.arange(i * bs, (i + 1) * bs)) for i in range(steps)]
 
 
-def steps_gpu_vs_cpu(label, cfg, steps, launches, bs=None):
-    """The first ``steps`` training steps of ``cfg`` on the GPU and on the
-    CPU from one seed: costs within TRAJECTORY_RTOL, and the GPU run's
-    kernel launches equal to ``launches(info)``."""
+def steps_gpu_vs_cpu(label, cfg, steps, launches, bs=None, rtol=TRAJECTORY_RTOL):
+    """``steps`` training steps of ``cfg`` on the GPU and on the CPU from
+    one seed, on batches spread over the dataset: costs within ``rtol``
+    (TRAJECTORY_RTOL) of the CPU's, and the GPU run's kernel launches equal
+    to ``launches(info)``."""
     from kgcn_tpu_torch.models.registry import build_model
     from kgcn_tpu_torch.runtime.train import Trainer
 
-    info, batches = _trainer_batches(cfg, steps, bs)
+    info, batches = _trainer_batches(cfg, steps, bs, spread=True)
     costs = {}
     for dev in (DEVICE, "cpu"):
         trainer = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info, device=dev)
@@ -1122,8 +1194,8 @@ def steps_gpu_vs_cpu(label, cfg, steps, launches, bs=None):
                 launches(info) if dev == DEVICE else {})
     rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
     say(f"GPU vs CPU {label} step costs: GPU {costs[DEVICE]} CPU {costs['cpu']} "
-        f"relative difference {rel} (limit {TRAJECTORY_RTOL})")
-    if max(rel) > TRAJECTORY_RTOL:
+        f"relative difference {rel} (limit {rtol})")
+    if max(rel) > rtol:
         raise AssertionError(f"GPU and CPU {label} step costs differ by {max(rel)}")
 
 
@@ -2046,14 +2118,20 @@ def kg_run(workdir, name, **over):
     return launches, costs, result
 
 
-def kg_gpu_vs_cpu(workdir, steps=3):
-    """The float32-payload KG training's first steps on the GPU and on the
-    CPU, from one seed (weights drawn on the CPU, the same label slices and
-    negatives): per-step costs within TRAJECTORY_RTOL."""
+def kg_gpu_vs_cpu(workdir, steps=3, precision="float32"):
+    """The KG training's first steps on the GPU and on the CPU, from one
+    seed (weights drawn on the CPU, the same label slices and negatives):
+    per-step costs within TRAJECTORY_RTOL with the float32 payload, or at
+    ``"precision": "bfloat16"`` with its default bf16 payload (the one-hot
+    route) within BF16_STEP_RTOL."""
     from kgcn_tpu_torch.models.registry import build_model
     from kgcn_tpu_torch.runtime.train import Trainer
 
-    cfg, _ = kg_config(workdir, "kg_gpu_vs_cpu", tiled_compute_dtype="float32")
+    bf16 = precision == "bfloat16"
+    kernel, rtol = (("stream_scatter_mat", BF16_STEP_RTOL) if bf16
+                    else ("stream_scatter", TRAJECTORY_RTOL))
+    over = dict(precision=precision) if bf16 else dict(tiled_compute_dtype="float32")
+    cfg, _ = kg_config(workdir, f"kg_gpu_vs_cpu_{precision}", **over)
     costs = {}
     for dev in (DEVICE, "cpu"):
         kb, info, _ = kg_batcher(cfg, device=dev)
@@ -2065,13 +2143,14 @@ def kg_gpu_vs_cpu(workdir, steps=3):
             state, cost, _ = trainer.train_step(state, batch)
             c.append(float(cost))
         costs[dev] = c
-        want = {"stream_scatter": 4 * info.adj_channel_num * steps} if dev == DEVICE else {}
-        _expect(f"kg steps on {dev}", _counts(), want)
+        want = {kernel: 4 * info.adj_channel_num * steps} if dev == DEVICE else {}
+        _expect(f"kg steps at {precision} on {dev}", _counts(), want)
     rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
-    say(f"GPU vs CPU KG step costs (float32 payload): GPU {costs[DEVICE]} CPU "
-        f"{costs['cpu']} relative difference {rel} (limit {TRAJECTORY_RTOL})")
-    if max(rel) > TRAJECTORY_RTOL:
-        raise AssertionError(f"GPU and CPU KG step costs differ by {max(rel)}")
+    say(f"GPU vs CPU KG step costs ({precision}, {cfg.get('tiled_compute_dtype', 'bfloat16')} "
+        f"payload): GPU {costs[DEVICE]} CPU {costs['cpu']} relative difference {rel} "
+        f"(limit {rtol})")
+    if max(rel) > rtol:
+        raise AssertionError(f"GPU and CPU KG step costs at {precision} differ by {max(rel)}")
 
 
 def kg_step_breakdown(workdir, steps=20):
@@ -2522,17 +2601,20 @@ def phase_ell(workdir):
 RUNNER_CASES = (("gcn dense", CONFIG, {}), ("gat dense", GAT_CONFIG, {}),
                 ("gin pallas (ring6)", GIN_CONFIG, {"spmm_backend": "pallas"}))
 # the kernels of kgcn_tpu_torch/ops/csrc by their names in torch.profiler's
-# records, demangled ("(anonymous namespace)::ell_kernel<float, 4, 1, true,
-# true>(...)") or mangled ("_ZN12_GLOBAL__N_110ell_kernelIfLi4ELi1ELb1ELb1E..."),
-# and the wrapper counts
-# that count them (the stream scatter kernel runs both stream routes;
-# _profiler_launches gives it to the route that ran)
+# records, demangled ("(anonymous namespace)::ell_kernel<float, float, 4, 1,
+# true, true>(...)") or mangled ("_ZN12_GLOBAL__N_110ell_kernelIffLi4ELi1ELb1ELb1E
+# ..."), and the wrapper counts that count them (the stream scatter kernel
+# runs both stream routes; _profiler_launches gives it to the route that
+# ran; a bf16 gconv kernel counts as gconv and as gconv_bf16, as the
+# wrappers count it)
 _START = r"(?:^|void |\d|namespace\)::)"
 KERNEL_COUNTERS = (
+    (_START + r"(?:gemm_kernel|small_graph_kernel|sum_splits)[^(]*__nv_bfloat16",
+     ("gconv", "gconv_bf16")),
     (_START + r"(?:gemm_kernel|small_graph_kernel|sum_splits)", "gconv"),
-    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*, *false|I\w*?Li\d+ELi\d+ELb0E)",
+    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*,[^,]*, *false|I\w*?Li\d+ELi\d+ELb0E)",
      "ell_spmm"),
-    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*, *true|I\w*?Li\d+ELi\d+ELb1E)",
+    (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*,[^,]*, *true|I\w*?Li\d+ELi\d+ELb1E)",
      "ell_spmm_dx"),
     (_START + r"stream_scatter_kernel", "stream_scatter"),
     (_START + r"stream_dw_kernel", "stream_dw"),
@@ -2565,7 +2647,8 @@ def profiled(fn, cpu=True):
             busy += getattr(ev, "device_time_total", 0.0)
             for pattern, counter in KERNEL_COUNTERS:
                 if re.search(pattern, ev.key):
-                    kernels[counter] += ev.count
+                    for name in (counter if isinstance(counter, tuple) else (counter,)):
+                        kernels[name] += ev.count
                     break
         elif ev.key == "cudaGraphLaunch":
             graphs += ev.count
@@ -2769,24 +2852,34 @@ def runner_timing(label, cfg, info, rb, sb):
     return rows
 
 
-def resident_cli(workdir, name, src, epochs, per_step, per_eval, **over):
+def resident_cli(workdir, name, src, epochs, per_step, per_eval, attempts=3, **over):
     """``cli.main train`` with ``device_resident`` at its default (``auto``)
     under torch.profiler, then ``infer``: the resident runners, each step
     replayed (one graph launch per training step and evaluated batch), the
     kernels the profiler records equal to ``per_step``/``per_eval`` over
-    the replays and warm-ups.  Returns the profiler's launches."""
+    the replays and warm-ups.  A run whose records fall short of that, and
+    of nothing else (torch.profiler on the H100 loses a record now and
+    then), is taken again in a directory of its own, up to ``attempts``
+    runs.  Returns the profiler's launches."""
     from kgcn_tpu_torch.data.dataset import load_jbl
     from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
 
-    d = os.path.join(workdir, name)
-    (_, counts, steps, evals, _), kernels, graphs, busy, wall = profiled(
-        lambda: train_run(workdir, name, src, epochs, falling=epochs > 1,
-                          save_info_test=os.path.join(d, "info_test.json"),
-                          save_result_test=os.path.join(d, "result_test.csv"), **over))
-    # one training runner and one evaluation runner, each warmed up once
-    want = {k: per_step.get(k, 0) * (steps + WARMUP_STEPS)
-            + per_eval.get(k, 0) * (evals + WARMUP_STEPS) for k in counts}
-    kernels = _profiler_launches(kernels, counts)
+    for attempt in range(attempts):
+        run = name if attempt == 0 else f"{name}_again_{attempt}"
+        d = os.path.join(workdir, run)
+        (_, counts, steps, evals, _), kernels, graphs, busy, wall = profiled(
+            lambda: train_run(workdir, run, src, epochs, falling=epochs > 1,
+                              save_info_test=os.path.join(d, "info_test.json"),
+                              save_result_test=os.path.join(d, "result_test.csv"), **over))
+        # one training runner and one evaluation runner, each warmed up once
+        want = {k: per_step.get(k, 0) * (steps + WARMUP_STEPS)
+                + per_eval.get(k, 0) * (evals + WARMUP_STEPS) for k in counts}
+        kernels = _profiler_launches(kernels, counts)
+        short = (kernels != want and graphs == steps + evals
+                 and all(kernels[k] <= want[k] for k in want))
+        if not short or attempt == attempts - 1:
+            break
+        say(f"  torch.profiler recorded {kernels} of {want}; the run is taken again")
     if kernels != want or graphs != steps + evals:
         raise AssertionError(f"train {name}: profiler launches {kernels}, {graphs} graph "
                              f"launches; want {want}, {steps + evals}")
@@ -3772,11 +3865,18 @@ def engine_gconv_check(label, model, batch):
         adj, x, w, b = (t.detach() for t in args)
         shape = (*adj.shape[:3], x.shape[2], w.shape[2])
         got = gconv(adj, x, w, b)
-        err = _check(f"gconv {label} layer {i} {shape}", got, gconv_reference(adj, x, w, b))
+        if x.dtype == torch.bfloat16:
+            err = within_one_bf16_rounding(f"gconv {label} layer {i} {shape}",
+                                           (adj, x, w, b), got)
+            limit = "kernel and plain each within one bf16 rounding of the f64 sum"
+        else:
+            err = _check(f"gconv {label} layer {i} {shape}", got,
+                         gconv_reference(adj, x, w, b))
+            limit = f"limit {TOL}"
         if not torch.equal(got, gconv(adj, x, w, b)):
             raise AssertionError(f"gconv {label} layer {i}: two launches differ")
-        say(f"gconv {label} layer {i} C,B,N,Fin,Fout={shape}: max |kernel - plain| "
-            f"{err:.3g} (limit {TOL}); two launches bitwise equal")
+        say(f"gconv {label} layer {i} C,B,N,Fin,Fout={shape} {x.dtype}: max |kernel - "
+            f"plain| {err:.3g} ({limit}); two launches bitwise equal")
         gconv_gradients_check(f"{label} layer {i}", adj, x, w, b, gen)
         shapes.append(shape)
     if not calls:
@@ -3837,10 +3937,12 @@ def engine_tiled_check(label, model, host_batch, extra_widths=()):
     return [x.shape[1] for _, x, _ in cases]
 
 
-def engine_steps_gpu_vs_cpu(label, cfg, info, batches):
+def engine_steps_gpu_vs_cpu(label, cfg, info, batches, rtol=ENGINE_STEP_RTOL,
+                           launches=None):
     """The first training steps of the sparse engine on ``batches``, on the
-    card and on the CPU from one seed: summed-CE costs within
-    ENGINE_STEP_RTOL."""
+    card and on the CPU from one seed: summed-CE costs within ``rtol``
+    (ENGINE_STEP_RTOL); with ``launches``, the card's kernel launches equal
+    to it."""
     from kgcn_tpu_torch.cli import sparse as cli_sparse
     from kgcn_tpu_torch.runtime.train import Trainer
 
@@ -3848,16 +3950,19 @@ def engine_steps_gpu_vs_cpu(label, cfg, info, batches):
     for dev in (DEVICE, "cpu"):
         t = Trainer(cli_sparse._model(cfg, info), cfg, info, device=dev)
         state = t.init_state(0)
+        _zero_counts()
         got = []
         for batch in batches:
             state, c, _ = t.train_step(state, batch)
             got.append(float(c))
         costs[dev] = got
+        if launches is not None:
+            _expect(f"{label} steps on {dev}", _counts(), launches if dev == DEVICE else {})
     rel = [abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"])]
     say(f"GPU vs CPU {label} steps ({len(batches)}, one seed): GPU {costs[DEVICE]} CPU "
-        f"{costs['cpu']} relative difference {rel} (limit {ENGINE_STEP_RTOL}); "
+        f"{costs['cpu']} relative difference {rel} (limit {rtol}); "
         f"{time.time() - t0:.1f} s")
-    if max(rel) > ENGINE_STEP_RTOL:
+    if max(rel) > rtol:
         raise AssertionError(f"{label}: GPU and CPU step costs differ by {max(rel)}")
     return rel
 
@@ -4223,11 +4328,548 @@ def phase_engines(workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: precision and explain
+
+BF16_FLOP_PER_S = 989e12   # H100 SXM data sheet, dense bf16 on the tensor cores
+BF16_STEP_RTOL = 2e-2      # GPU vs CPU bf16 step costs (tests/test_torch_precision.py)
+# bf16 einsums (XLA's in kgcn_tpu, the gconv backward's here) against f32
+# sums: of the result's largest magnitude (tests/test_torch_precision.py)
+BF16_EINSUM_TOL = 2e-2
+ONE_BF16_ROUNDING = 2.0 ** -8
+# phase 3's shapes the bf16 gconv is held at (N 600 and 1024 take the split
+# runs, B 70 000 the grid-stride loop of the one-launch design)
+PRECISION_GCONV = ("path layer 1", "path layer 2", "path layer 3", "misaligned",
+                   "reaction-scale", "N 600", "N 1024", "B 70 000")
+KG_IG_TARGETS = 2          # visualize_num of the KG visualize run
+KG_IG_STEPS = 30           # ig_divide_number's default on the KG route
+KG_IG_CHECK_STEPS = 5      # the GPU-vs-CPU target's steps
+KG_IG_TOL = 1e-3           # of the CPU IG's largest magnitude
+EMBEDDED_IG_TOL = 1e-4
 
 
-def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
+def gconv_bf16_bound(C, B, N, Fin, Fout):
+    """(bound_ms, bound_by) of the bf16 gconv: every input read once and
+    the output written once in bf16 (2 bytes), against its FLOP at the
+    bf16 tensor-core rate (what the card could do for the same work)."""
+    nbytes = 2 * (C * B * N * N + B * N * Fin + C * Fin * Fout + C * Fout + B * N * Fout)
+    flops = 2 * C * B * N * (Fin * Fout + N * Fout) + 2 * C * B * N * Fout
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def within_one_bf16_rounding(what, operands, got):
+    """The bf16 gconv output ``got`` and the plain version on ``operands``
+    each within one bf16 rounding of the f64 sum (2⁻⁸ of each value, plus
+    1e-5 of the largest); both bf16.  Returns max |kernel - plain|."""
+    import torch
+
+    from kgcn_tpu_torch.ops.gconv import gconv_reference
+
+    want = gconv_reference(*operands)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: output {got.dtype}, plain {want.dtype}")
+    exact = gconv_reference(*(t.double() for t in operands))
+    lim = ONE_BF16_ROUNDING * exact.abs() + 1e-5 * float(exact.abs().max())
+    for name, out in (("kernel", got), ("plain", want)):
+        over = float(((out.double() - exact).abs() - lim).max())
+        if over > 0:
+            raise AssertionError(f"{what}: the {name} is more than one bf16 rounding from "
+                                 f"the f64 sum (by {over})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def precision_gconv_check():
+    """The bf16 gconv against its plain version at ``PRECISION_GCONV``."""
+    import torch
+
+    from kgcn_tpu_torch.ops.gconv import gconv, gconv_reference
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    shapes = dict(GCONV_SHAPES)
+    rows = []
+    for label in PRECISION_GCONV:
+        C, B, N, Fin, Fout = shapes[label]
+        bf = torch.bfloat16
+        adj = (torch.rand((C, B, N, N), device=DEVICE, generator=gen) * (2.0 / N)).to(bf)
+        x = torch.rand((B, N, Fin), device=DEVICE, generator=gen).to(bf)
+        w = (torch.randn((C, Fin, Fout), device=DEVICE, generator=gen)
+             / math.sqrt(Fin)).to(bf)
+        b = (torch.randn((C, Fout), device=DEVICE, generator=gen) * 0.1).to(bf)
+        got = gconv(adj, x, w, b)
+        err = within_one_bf16_rounding(f"gconv bf16 {label}", (adj, x, w, b), got)
+        same = float((got == gconv_reference(adj, x, w, b)).float().mean())
+        if not torch.equal(got, gconv(adj, x, w, b)):
+            raise AssertionError(f"gconv bf16 {label}: two launches differ")
+        kernels, counted = kernels_in(lambda: gconv(adj, x, w, b), gconv)
+        if counted != kernels:
+            raise AssertionError(f"gconv bf16 {label}: the wrapper counted {counted} "
+                                 f"kernels, torch.profiler recorded {kernels}")
+
+        def library():
+            return (torch.einsum("cbnm,bmi,cif->bnf", adj, x, w)
+                    + torch.einsum("cbn,cf->bnf", adj.sum(-1), b))
+
+        iters = 20 if B * N > 10000 else 100
+        kernel_ms = device_ms(lambda: gconv(adj, x, w, b), iters)
+        plain_ms = device_ms(lambda: gconv_reference(adj, x, w, b), iters)
+        lib_ms = library_ms(library, iters)
+        bound_ms, bound_by = gconv_bf16_bound(C, B, N, Fin, Fout)
+        rows.append(dict(label=label, shape=(C, B, N, Fin, Fout), err=err,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        say(f"gconv bf16 {label:15s} C,B,N,Fin,Fout={(C, B, N, Fin, Fout)}: kernel and "
+            f"plain each within one bf16 rounding of the f64 sum; max |kernel - plain| "
+            f"{err:.3g} ({same:.4f} of the outputs equal); two launches bitwise equal; "
+            f"{kernels} kernel(s) a call, as counted; device ms: kernel {kernel_ms:.6f} "
+            f"plain {plain_ms:.6f} library {lib_ms} bound {bound_ms:.6f} ({bound_by})")
+    return rows
+
+
+def precision_ell_check(workdir):
+    """The ELL kernel and its dx on bf16 slot weights (the batch's under
+    ``"precision": "bfloat16"``) at phase 9's ring6 batch, against their
+    plain versions (ELL_TOL by x's type), with their device times beside
+    the float32 weights'."""
+    import torch
+
+    from kgcn_tpu_torch.ops import ell_spmm as te
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    g0 = _ring6_batch(workdir, 25).graph
+    idx_c, w_c = g0.ell_senders[0], g0.ell_weights[0].to(torch.bfloat16)
+    off_c, slots_c = g0.ell_transpose()
+    idx, w, w32 = idx_c.to(DEVICE), w_c.to(DEVICE), g0.ell_weights[0].to(DEVICE)
+    off, slots = off_c.to(DEVICE), slots_c.to(DEVICE)
+    V = idx.shape[0]
+    for F in (3, 50):
+        for dt in ("float32", "bfloat16"):
+            x = torch.randn((V, F), device=DEVICE, generator=gen).to(getattr(torch, dt))
+            g = torch.randn((V, F), device=DEVICE, generator=gen).to(getattr(torch, dt))
+            err = _check(f"ell_spmm bf16 weights F={F} x {dt}", te._launch(idx, w, x),
+                         te.spmm_ell_reference(idx_c, w_c, x.cpu()), ELL_TOL[dt])
+            dx_err = _check(f"ell dx bf16 weights F={F} g {dt}",
+                            te._dx_launch(off, slots, w, g, (V, F)),
+                            te.spmm_ell_dx_reference(idx_c, w_c, g.cpu(), (V, F)),
+                            ELL_TOL[dt])
+            t = dict(fwd=device_ms(lambda: te._launch(idx, w, x), 50),
+                     fwd_f32w=device_ms(lambda: te._launch(idx, w32, x), 50),
+                     dx=device_ms(lambda: te._dx_launch(off, slots, w, g, (V, F)), 50),
+                     dx_f32w=device_ms(lambda: te._dx_launch(off, slots, w32, g, (V, F)), 50))
+            say(f"ell bf16 weights (ring6 batch, V {V}) F={F} x {dt}: max |kernel - plain| "
+                f"{err:.3g}, dx {dx_err:.3g}; device ms: forward {t['fwd']:.6f} (f32 "
+                f"weights {t['fwd_f32w']:.6f}), dx {t['dx']:.6f} (f32 weights "
+                f"{t['dx_f32w']:.6f})")
+
+
+@contextlib.contextmanager
+def float32_after():
+    """The float32 matmul setting back after the block: a CLI run at
+    ``"precision": "bfloat16"`` allows TF32 for the process
+    (``runtime/device.set_precision``), and the float32 runs and the
+    GPU-vs-CPU checks after it must not inherit that."""
+    from kgcn_tpu_torch.runtime.device import set_precision
+
+    try:
+        yield
+    finally:
+        set_precision("float32")
+
+
+def precision_train(workdir, name, src, epochs, want=(), falling=True, **over):
+    """``cli.main train`` of a config at ``"precision": "bfloat16"`` under
+    torch.profiler (train_run's checks: lines, files, finite and, with
+    ``falling``, falling costs): the launches the profiler records (replays
+    included), each kernel of ``want`` among them.  Returns (launches,
+    training costs)."""
+    with float32_after():
+        (costs, counts, _, _, _), kernels, _, busy, wall = profiled(
+            lambda: train_run(workdir, name, src, epochs, falling=falling,
+                              precision="bfloat16", **over))
+    got = _profiler_launches(kernels, counts)
+    missing = [k for k in want if got.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"train {name}: {missing} not launched ({got})")
+    say(f"-- train {name} at bf16: kernel launches in the profiler "
+        f"{dict((k, v) for k, v in got.items() if v)}; device busy {busy:.3f} s of "
+        f"{wall:.3f} s")
+    return got, costs
+
+
+@contextlib.contextmanager
+def float32_products():
+    """The CLI's ``set_precision`` followed by TF32 off: the bf16 cast of
+    ``"precision": "bfloat16"`` with full float32 library products, where
+    that value otherwise allows TF32 (JAX's ``default`` on a GPU)."""
+    import torch
+
+    from kgcn_tpu_torch.cli import main as cli
+    from kgcn_tpu_torch.runtime import device
+
+    real = cli.set_precision
+
+    def no_tf32(precision):
+        real(precision)
+        device._TF32[0] = False
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cli.set_precision = no_tf32
+    try:
+        yield
+    finally:
+        cli.set_precision = real
+
+
+def precision_gin(workdir):
+    """GIN on ``pallas`` (ring6) at bf16 through ``cli.main train``, 2
+    epochs.  Its summed CE reaches ~0.1 in the first epoch and then moves
+    by spikes, and the TF32 that ``"bfloat16"`` allows moves its costs by
+    1e-3 from the third step, which those spikes grow: on an H100 the
+    second epoch's cost was above the first's, where the CPU's (kgcn_tpu's
+    and the port's) fall.  So the run as a user makes it is held to finite
+    costs, and the same run with full float32 products (the bf16 cast, the
+    ELL kernel and its dx with bf16 weights, no TF32) to falling ones.
+    Returns the first run's launches."""
+    over = dict(dataset=ring6_file(workdir), spmm_backend="pallas")
+    got, costs = precision_train(workdir, "gin_pallas_bf16", GIN_CONFIG, 2,
+                                 want=("ell_spmm", "ell_spmm_dx"), falling=False, **over)
+    with float32_after(), float32_products():
+        exact, counts, _, _, _ = train_run(workdir, "gin_pallas_bf16_no_tf32", GIN_CONFIG, 2,
+                                           precision="bfloat16", **over)
+    if counts["ell_spmm"] <= 0 or counts["ell_spmm_dx"] <= 0:
+        raise AssertionError(f"train gin_pallas_bf16_no_tf32: launches {counts}")
+    say(f"-- gin pallas at bf16, training costs: with TF32 (as \"bfloat16\" sets it) "
+        f"{costs}; with full float32 products {exact} (falling)")
+    return got
+
+
+def captured_numbers(label, runs, S):
+    """Step wall, device busy and idle share of captured epochs, in turns
+    (a, b, b, a) in one process: {name: (wall ms, busy ms, idle)} of the
+    two runs' means."""
+    numbers = {}
+    order = list(runs) + list(runs)[::-1]
+    for name in order:
+        wall, _, busy, idle = epoch_numbers(runs[name], S)
+        numbers.setdefault(name, []).append((wall, busy, idle))
+    out = {k: tuple(sum(v[i] for v in vals) / len(vals) for i in range(3))
+           for k, vals in numbers.items()}
+    say(f"captured step {label} ({S} steps an epoch; means of two epochs in turns "
+        f"{' '.join(order)}): " + "; ".join(
+            f"{k}: wall {w:.4f} ms, device busy {b:.4f} ms, idle share {i:.4f}"
+            for k, (w, b, i) in out.items()))
+    return out
+
+
+def precision_steps(workdir):
+    """3 training steps at bf16 on the GPU and on the CPU from one seed,
+    on batches spread over each dataset, costs within BF16_STEP_RTOL, with
+    the GPU run's launches: the dense solubility GCN (3 bf16 gconv kernels
+    a step), GIN on ``pallas`` (ring6: the ELL kernel with bf16 weights and
+    its dx), GAT on ``tiled`` and the WN18RR-shaped KG (bf16 payload)."""
+    for label, src, over, launches in (
+            ("dense GCN at bf16", CONFIG, {}, {"gconv": 9, "gconv_bf16": 9}),
+            ("GIN (pallas, ring6) at bf16", GIN_CONFIG,
+             dict(dataset=ring6_file(workdir), spmm_backend="pallas"),
+             {"ell_spmm": 2 * 3, "ell_spmm_dx": 3}),
+            ("GAT (tiled) at bf16", GAT_CONFIG, dict(spmm_backend="tiled"),
+             {"tiled_spmm": 6 * 3, "tiled_sddmm": 3 * 3})):
+        cfg = _load_config(src, dropout_rate=0.0, precision="bfloat16", **over)
+        steps_gpu_vs_cpu(label, cfg, 3, lambda info, want=launches: want,
+                         rtol=BF16_STEP_RTOL)
+    kg_gpu_vs_cpu(workdir, precision="bfloat16")
+
+
+def precision_gcn_steps():
+    """The dense solubility GCN at bf16: the captured resident runner
+    bitwise equal to its eager steps (3 bf16 gconv launches a step), and
+    the captured step's numbers at bf16 beside float32."""
+    cfg = _load_config(CONFIG, dropout_rate=0.0, precision="bfloat16")
+    info, rb, _, _ = _resident_setup(cfg, DEVICE)
+    _, per, _ = captured_vs_eager("gcn dense bf16 (resident)", cfg, info,
+                                  lambda: _resident_setup(cfg, DEVICE)[1])
+    if per["gconv_bf16"] != 3 or per["gconv"] != 3:
+        raise AssertionError(f"gcn dense bf16: {per} launches a step, want 3 bf16 gconv")
+    runs = {}
+    for name, c in (("float32", _load_config(CONFIG, dropout_rate=0.0)), ("bfloat16", cfg)):
+        trainer = _trainer(c, info)
+        holder = [trainer, trainer.init_state(seed=0)]
+
+        def run(h=holder):
+            h[1] = h[0].run_epoch(h[1], rb, epoch=0)[0]
+        runs[name] = run
+    return captured_numbers("gcn dense solubility", runs, rb.num_batches)
+
+
+def precision_reaction(workdir):
+    """The reaction workload (phase 15's) through ``cli.sparse train`` at
+    bf16 (2 epochs: finite costs, the valid keys; the bf16 gconv in the
+    profiler); the bf16 gconv at the engine's own operands (a bf16-cast
+    reaction batch, ``engine_gconv_check``) and 3 streaming steps at bf16
+    on the card and on the CPU (BF16_STEP_RTOL, with the card's launches);
+    then its captured step at bf16 beside float32."""
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.cli import sparse as cli_sparse
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.tfrecord import load_tfrecord_dataset
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.resident import ResidentBatcher
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    spec = REACTION
+    pattern = os.path.join(workdir, "reaction", "part-*.tfrecords")  # phase 15's shards
+    os.makedirs(os.path.join(workdir, "reaction_bf16"))
+    cfg, path = sparse_config(workdir, "reaction_bf16", pattern, spec, precision="bfloat16")
+    with float32_after():
+        (out, _, counts, wall), kernels, graphs, busy, pwall = profiled(
+            lambda: _cli(["train", "--config", path], cli=cli_sparse))
+    got = _profiler_launches(kernels, counts)
+    valid = _json(cfg["save_info_valid"])
+    if got["gconv_bf16"] <= 0 or not all(math.isfinite(v) for v in valid.values()):
+        raise AssertionError(f"sparse bf16 train: launches {got}, valid {valid}")
+    say(f"-- cli.sparse train at bf16 (reaction, 2 epochs): {wall:.2f} s, {graphs} graph "
+        f"launches, kernel launches {dict((k, v) for k, v in got.items() if v)}, valid "
+        f"{valid}; device busy {busy:.3f} s of {pwall:.3f} s")
+    import glob
+
+    ds, info = load_tfrecord_dataset(sorted(glob.glob(pattern)), cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    train_ds = ds.subset(np.arange(ds.num)[np.arange(ds.num) % 5 != 0])
+    B = spec["batch"]
+    sb = Batcher(train_ds, info, B, seed=0, backend=be)
+    batches = [sb.make_batch(np.arange(i * B, (i + 1) * B)) for i in range(3)]
+    probe = Trainer(cli_sparse._model(cfg, info), cfg, info, device=DEVICE)
+    first = batches[0].cast_compute(torch.bfloat16).to(DEVICE)
+    engine_gconv_check("reaction bf16", probe.model, first)
+    per_fwd = _forward_launches(probe.model, first)
+    if per_fwd.get("gconv_bf16", 0) != per_fwd.get("gconv", 0) or not per_fwd["gconv"]:
+        raise AssertionError(f"reaction bf16: a forward launched {per_fwd}")
+    engine_steps_gpu_vs_cpu("reaction at bf16", cfg, info, batches, rtol=BF16_STEP_RTOL,
+                            launches={k: 3 * v for k, v in per_fwd.items()})
+    rb = ResidentBatcher(train_ds, info, B, seed=0, backend=be, device=DEVICE)
+    runs = {}
+    for name, c in (("float32", dict(cfg, precision="float32")), ("bfloat16", cfg)):
+        tr = Trainer(cli_sparse._model(c, info), c, info, device=DEVICE)
+        holder = [tr, tr.init_state(0)]
+
+        def run(h=holder):
+            h[1] = h[0].run_epoch(h[1], rb, epoch=0)[0]
+        runs[name] = run
+    return got, captured_numbers(f"reaction (batch {spec['batch']}, N 256)", runs,
+                                 rb.num_batches)
+
+
+def explain_kg(workdir):
+    """``visualize`` on the WN18RR-shaped KG from phase 8's bf16-payload
+    checkpoint: KG_IG_TARGETS targets at KG_IG_STEPS steps, the node and
+    edge CSVs written (ms a target); one target's embedding IG at
+    KG_IG_CHECK_STEPS steps on the card and on the CPU with the float32
+    payload, within KG_IG_TOL of the CPU's largest value.  Returns the
+    stream launches of the visualize run."""
+    import numpy as np
+
+    from kgcn_tpu_torch.explain.kg_ig import embedding_ig
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    ckpt = os.path.join(workdir, "kg_bf16", "model", "model.last.ckpt")
+    viz = os.path.join(workdir, "kg_visualize", "viz")
+    cfg, path = kg_config(workdir, "kg_visualize", load_model=ckpt, visualize_path=viz,
+                          visualize_num=KG_IG_TARGETS, ig_divide_number=KG_IG_STEPS)
+    out, paths, counts, wall = _cli(["visualize", "--config", path])
+    files = sorted(os.listdir(viz))
+    if len(paths) != 2 * KG_IG_TARGETS or sorted(map(os.path.basename, paths)) != files:
+        raise AssertionError(f"kg visualize: wrote {files}, returned {paths}")
+    rows = 0
+    for p in paths:
+        with open(p) as f:
+            lines = f.read().splitlines()
+        if lines[0] not in ("node,name,ig_score,is_target", "source,target,ig_score") \
+                or len(lines) < 2:
+            raise AssertionError(f"kg visualize: {p} holds {lines[:2]}")
+        rows += len(lines) - 1
+    if counts["stream_scatter_mat"] + counts["stream_scatter"] <= 0:
+        raise AssertionError(f"kg visualize: launches {counts}")
+    say(f"-- kg visualize ({KG_IG_TARGETS} targets, {KG_IG_STEPS} steps, phase 8's "
+        f"checkpoint): {len(files)} CSVs, {rows} rows, {wall:.2f} s "
+        f"({wall / KG_IG_TARGETS * 1e3:.1f} ms a target, the model's load included); "
+        f"launches {dict((k, v) for k, v in counts.items() if v)}")
+    cfg32, _ = kg_config(workdir, "kg_ig_f32", tiled_compute_dtype="float32")
+    igs, ms = {}, {}
+    for dev in (DEVICE, "cpu"):
+        kb, info, _ = kg_batcher(cfg32, device=dev)
+        trainer = Trainer(build_model("kg_distmult", info, cfg32), cfg32, info, device=dev)
+        state = trainer.restore(ckpt)
+        variables = {**state.params, **state.batch_stats}
+        triples = np.asarray(kb.label_list, dtype=np.int32)[:1, :3]
+        t0 = time.perf_counter()
+        igs[dev] = embedding_ig(trainer.model, variables, kb.init_batch(), triples,
+                                steps=KG_IG_CHECK_STEPS)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+    scale = float(np.abs(igs["cpu"]).max())
+    gap = float(np.abs(igs[DEVICE] - igs["cpu"]).max())
+    say(f"kg embedding IG ({KG_IG_CHECK_STEPS} steps, one target, f32 payload) GPU vs "
+        f"CPU: max |diff| {gap:.3g} of max |IG| {scale:.3g} (limit {KG_IG_TOL} of it); "
+        f"{ms[DEVICE]:.1f} ms on the card, {ms['cpu']:.1f} ms on the CPU")
+    if not scale > 0 or gap > KG_IG_TOL * scale:
+        raise AssertionError(f"kg embedding IG: GPU and CPU differ by {gap} of {scale}")
+    return counts
+
+
+def explain_embedded():
+    """``embedded_layer_ig`` of multimodal.json's model on one compound of
+    example_jbl/multimodal.jbl, weights drawn on the CPU from seed 0, on the
+    card and on the CPU: the embedded layer, its IG and the check within
+    EMBEDDED_IG_TOL.  Returns its gconv launches."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.explain.ig import embedded_layer_ig
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg = _load_config(MULTIMODAL_CONFIG, dropout_rate=0.0)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    batch = Batcher(ds, info, 1, backend=be).make_batch(np.arange(1))
+    res, ms = {}, {}
+    for dev in (DEVICE, "cpu"):
+        tr = Trainer(build_model(cfg["model.py"], info, cfg), cfg, info, device=dev)
+        state = tr.init_state(seed=0)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res[dev] = embedded_layer_ig(tr.model, {**state.params, **state.batch_stats},
+                                     batch.to(dev), steps=100)
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+        if dev == DEVICE:
+            counts = _counts()
+    (ge, gig, gc), (ce, cig, cc) = res[DEVICE], res["cpu"]
+    gaps = [float(np.abs(ge - ce).max()), float(np.abs(gig - cig).max()),
+            abs(gc["check_score"] - cc["check_score"])]
+    # the check is a difference of two probabilities: held on the scale of 1
+    scales = [float(np.abs(ce).max()), float(np.abs(cig).max()), 1.0]
+    say(f"embedded_layer_ig (multimodal.json, 100 steps) GPU vs CPU: max |diff| embedded "
+        f"{gaps[0]:.3g}, IG {gaps[1]:.3g} (of {scales[1]:.3g}), check {gaps[2]:.3g}; "
+        f"sum_of_IG {gc['sum_of_IG']:.5f} vs F(emb) - F(0) {gc['check_score']:.5f}; "
+        f"{ms[DEVICE]:.1f} ms on the card, {ms['cpu']:.1f} ms on the CPU; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    if not scales[1] > 0 or any(g > EMBEDDED_IG_TOL * s for g, s in zip(gaps, scales)):
+        raise AssertionError(f"embedded_layer_ig: GPU and CPU differ by {gaps}")
+    if counts["gconv"] <= 0:
+        raise AssertionError(f"embedded_layer_ig launched {counts}")
+    return counts
+
+
+def explain_gcnv(workdir):
+    """``python -m kgcn_tpu_torch.cli.gcnv`` on an IG dump: the heatmaps
+    where matplotlib is installed, else ``ImportError`` as ``make_plot``
+    raises (phase 12)."""
+    import importlib.util
+
+    import numpy as np
+
+    from kgcn_tpu_torch.cli import gcnv
+
+    rng = np.random.RandomState(0)
+    dump = os.path.join(workdir, "gcnv", "mol_00000_max.jbl")
+    os.makedirs(os.path.dirname(dump))
+    with open(dump, "wb") as f:
+        pickle.dump({"features": rng.rand(6, 3), "features_IG": rng.randn(6, 3),
+                     "adjs": rng.rand(6, 6), "adjs_IG": rng.randn(6, 6),
+                     "check_score": 0.5, "sum_of_IG": 0.48}, f, protocol=4)
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            gcnv.main([dump])
+        except ImportError as e:
+            say(f"gcnv: matplotlib is not installed here: ImportError ({e}), as make_plot "
+                "raises; the rendered files are checked on the CPU "
+                "(tests/test_torch_gcnv.py)")
+            return
+        raise AssertionError("gcnv rendered without matplotlib")
+    gcnv.main([dump])
+    made = sorted(f for f in os.listdir(os.path.dirname(dump)) if f.endswith(".png"))
+    if len(made) != 4:
+        raise AssertionError(f"gcnv wrote {made}")
+    say(f"gcnv: {made}")
+
+
+def phase_precision_process(workdir, timeout=900):
+    """Phase 16 in a process of its own, on this card and ``workdir``
+    (phase 8's KG and checkpoint, phase 15's reaction shards): a fresh CUDA
+    context.  In a process that has run phases 3-15, torch.profiler has
+    been seen to record no kernel at all (on an H100: 0 of 3
+    matmuls in a window after phase 15, 1 of 3 after phase 8), and phase
+    16 reads its launch counts from it.  The child writes its rows and
+    launches to ``workdir/phase16.json``; it is waited for, and killed at
+    ``timeout``.  Returns (bf16 gconv rows, launches)."""
+    out = os.path.join(workdir, "phase16.json")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase16", workdir],
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 exited with code {proc.returncode}")
+    with open(out) as f:
+        res = json.load(f)
+    return res["rows"], res["launches"]
+
+
+def precision_main(workdir):
+    """The child of ``phase_precision_process``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    if not torch.cuda.is_available():
+        say("FAIL: torch.cuda.is_available() is false")
+        sys.exit(2)
+    rows, launches = phase_precision(workdir)
+    with open(os.path.join(workdir, "phase16.json"), "w") as f:
+        json.dump({"rows": rows, "launches": launches}, f)
+
+
+def phase_precision(workdir):
+    phase(16, "precision and explain: bf16 and the rest of visualize")
+    t_phase = time.time()
+    launches = {k: 0 for k in _counted()}
+
+    def add(name, got):
+        for k, v in got.items():
+            launches[k] += v
+        say(f"precision {name} done at {time.time() - t_phase:.1f} s of the phase")
+
+    rows = precision_gconv_check()
+    precision_ell_check(workdir)
+    say(f"precision kernel checks done at {time.time() - t_phase:.1f} s of the phase")
+    got, _ = precision_train(workdir, "gcn_dense_bf16", CONFIG, 2, want=("gconv_bf16",))
+    add("gcn dense", got)
+    add("gin pallas", precision_gin(workdir))
+    got, _ = precision_train(workdir, "gat_tiled_bf16", GAT_CONFIG, 2,
+                             want=("tiled_spmm", "tiled_sddmm"), spmm_backend="tiled")
+    add("gat tiled", got)
+    with float32_after():
+        got, _, _ = kg_run(workdir, "kg_precision_bf16", precision="bfloat16", epoch=1)
+    add("kg", got)
+    precision_steps(workdir)
+    say(f"precision GPU-vs-CPU steps done at {time.time() - t_phase:.1f} s of the phase")
+    gcn_numbers = precision_gcn_steps()
+    got, reaction_numbers = precision_reaction(workdir)
+    add("reaction", got)
+    add("kg visualize", explain_kg(workdir))
+    add("embedded IG", explain_embedded())
+    explain_gcnv(workdir)
+    say(f"precision phase wall {time.time() - t_phase:.1f} s; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}; captured steps: gcn "
+        f"{gcn_numbers}, reaction {reaction_numbers}")
+    return rows, launches
+
+
+def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_rows):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
-    the served batch's three GraphConv calls; tiled: the solubility batch at
+    the served batch's three GraphConv calls, float32 and, for its bf16
+    entry, bf16 (phase 16); tiled: the solubility batch at
     F 81 and 50 and the GAT batch, bf16 payload; stream: the KG's largest
     and smallest relation channels at F 128 — the iota-route scatter with
     the float32 payload of its KG run, the one-hot scatter and the weight
@@ -4238,6 +4880,7 @@ def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
         return None if None in vals else sum(vals) / len(vals)
 
     path = gconv_rows[:3]
+    bf16_path = [r for r in bf16_rows if r["label"].startswith("path layer")]
     on_path = [r for r in tiled_rows if r["on_path"]]
     gat = [r for r in on_path if r["label"] == "GAT batch"]
     return [{
@@ -4252,6 +4895,18 @@ def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches):
         "bound_ms": mean(path, "bound_ms"),
         "bound_by": path[0]["bound_by"],
         "library_ms": mean(path, "library_ms"),
+    }, {
+        "name": "gconv_bf16",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/gconv.cu",
+        "replaces": "kgcn_tpu/ops/pallas_gconv.py:33",
+        "launches": launches["gconv_bf16"],
+        "max_abs_err": max(r["err"] for r in bf16_rows),
+        "ms": mean(bf16_path, "kernel_ms"),
+        "plain_ms": mean(bf16_path, "plain_ms"),
+        "bound_ms": mean(bf16_path, "bound_ms"),
+        "bound_by": bf16_path[0]["bound_by"],
+        "library_ms": mean(bf16_path, "library_ms"),
     }, {
         "name": "tiled_spmm",
         "route": "cuda",
@@ -4367,7 +5022,7 @@ def main():
         say(f"configs done at {time.time() - t_start:.1f} s")
         phase(13, "launches: every kernel launched on the main path (phases 5-12)")
         for k, v in launches.items():
-            if v <= 0:
+            if v <= 0 and k != "gconv_bf16":  # the bf16 path is phase 16's
                 raise AssertionError(f"{k} was not launched on the main path")
         say(f"launches so far: {launches}")
         serving = phase_serving(workdir, smi)
@@ -4378,16 +5033,23 @@ def main():
         for k, v in engines.items():
             launches[k] += v
         say(f"engines done at {time.time() - t_start:.1f} s")
+        bf16_rows, precision = phase_precision_process(workdir)
+        for k, v in precision.items():
+            launches[k] += v
+        say(f"precision and explain done at {time.time() - t_start:.1f} s")
 
     import torch
 
-    phase(16, "summary")
+    phase(17, "summary")
+    if precision["gconv_bf16"] <= 0:
+        raise AssertionError("the bf16 gconv kernel was not launched on the bf16 path")
     if serving["gconv"] <= 0:
         raise AssertionError("gconv was not launched on the serving path")
     if engines["gconv"] <= 0 or engines["tiled_spmm"] <= 0:
         raise AssertionError(f"the engines launched {engines}")
     say(f"reaction scale: {numbers}")
-    kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches)
+    kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches,
+                           bf16_rows)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": kernels}))
@@ -4399,4 +5061,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase16":
+        precision_main(sys.argv[2])
+    else:
+        main()

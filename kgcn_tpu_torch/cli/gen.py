@@ -30,14 +30,13 @@ import time
 import numpy as np
 import torch
 
-from kgcn_tpu_torch.cli.main import _refuse_bf16
 from kgcn_tpu_torch.data.batcher import Batcher
 from kgcn_tpu_torch.data.dataset import load_jbl, split_dataset
 from kgcn_tpu_torch.models.vae import GCNVAE
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime import resident
 from kgcn_tpu_torch.runtime.config import load_config
-from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
 from kgcn_tpu_torch.runtime.train import Trainer
 
 _ONLYLINK = ("gcn_vae_onlylink", "vae_onlylink", "example_model.model_vae_onlylink:VAE")
@@ -63,7 +62,6 @@ def link_statistics(ds):
 def _setup(config, device=None, with_batcher: bool = True):
     """(dataset, info, model, trainer, backend, the whole dataset's
     streaming batcher with ε or None)."""
-    _refuse_bf16(config)
     device = device_from_arg(device)
     ds, info = load_jbl(config["dataset"], config)
     backend = backend_mod.resolve(config, info)
@@ -160,6 +158,7 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = p.parse_args(argv)
     config = load_config(args.config)
+    set_precision(config.get("precision", "float32"))  # as cli.main's main()
     device = "cpu" if args.cpu else None
     return {"train": cmd_train, "reconstruct": cmd_reconstruct,
             "generate": cmd_generate}[args.mode](config, device=device)

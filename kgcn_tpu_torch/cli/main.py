@@ -51,17 +51,33 @@ replayed from a captured CUDA graph), as ``kgcn_tpu`` does; the tiled and
 stream backends decline it (said when it was forced).  KG training runs
 the scanned epoch.
 
+``precision`` (``runtime/device.set_precision``): ``"float32"`` (the
+default) and ``"highest"`` keep float32 library products in full float32;
+``"default"`` allows TF32 for them; ``"bfloat16"`` allows it too and casts
+each step's payload to bf16 (``Trainer.compute_dtype``: the dense
+aggregation then runs the bf16 gconv kernel).  ``debug_nan`` stops the run
+at the first non-finite cost or gradient (``FloatingPointError``; the
+steps run eagerly, each checked), ``deterministic`` sets
+``torch.use_deterministic_algorithms(True)``, and ``profile`` (or
+``--profile``) writes a ``torch.profiler`` trace of the whole command to
+``profile_dir`` (``logs/torch_trace`` by default); ``--save-config PATH``
+writes the merged config.
+
 ``export_model`` (a path) has ``train`` write the trained model as a
 ``torch.export`` artifact traced at a batch of the training split
 (``runtime/export.py``; dense backend only), which ``kgcn_tpu_torch.cli.
 serve --export`` serves.  ``retrain``, ``load_model`` and ``infer`` take a
 checkpoint of the port or a flax-msgpack one that ``kgcn_tpu`` wrote.
 
+``visualize`` routes as ``kgcn_tpu``'s: a KG config (``task:
+link_prediction``, an ``edge*`` ``visualize_type``, or a node-embedding
+dataset with KG triples) to the embedding IG of ``explain/kg_ig.py``, any
+other to ``explain/ig.py`` (with the IG of the vector modals and of the
+sequence-embedding layer where the dataset has them).
+
 Not ported yet, each raising "not yet ported" with its ROADMAP.md item:
-``mesh`` (data parallel; KG: the sharded and resident training, A.11),
-``fold_parallel`` ``"force"`` (A.11), ``"precision": "bfloat16"`` (A.6),
-the KG route of ``visualize`` (A.10) and the IG of sequence and
-vector-modal inputs (``embedded_layer_ig``, A.8's one open item).  The
+``mesh`` (data parallel; KG: the sharded and resident training, A.11) and
+``fold_parallel`` ``"force"`` (A.11).  The
 sparse, pair and VAE engines have their own entry points, as in
 ``kgcn_tpu``: ``cli/sparse.py``, ``cli/pair.py`` and ``cli/gen.py``.  ``export_savedmodel`` (a TensorFlow SavedModel)
 is refused: it needs TensorFlow, which the port does not use.
@@ -80,16 +96,17 @@ import torch
 
 from kgcn_tpu_torch.data import jbl
 from kgcn_tpu_torch.data.batcher import Batcher
-from kgcn_tpu_torch.data.dataset import (MODAL_NAMES, kfold_indices, load_jbl,
+from kgcn_tpu_torch.data.dataset import (kfold_indices, load_jbl,
                                          split_dataset)
 from kgcn_tpu_torch.explain.ig import run_visualization
+from kgcn_tpu_torch.explain.kg_ig import run_kg_visualization
 from kgcn_tpu_torch.models.kg import KGBatcher
 from kgcn_tpu_torch.models.registry import build_model
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime import resident
-from kgcn_tpu_torch.runtime.config import load_config
-from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.config import load_config, save_config
+from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
 from kgcn_tpu_torch.runtime.export import export_model
 from kgcn_tpu_torch.runtime.metrics import compute_metrics
 from kgcn_tpu_torch.runtime.train import Trainer
@@ -309,11 +326,6 @@ def _battery_applies(config, ds) -> bool:
             and ds.node_label is None)
 
 
-def _refuse_bf16(config) -> None:
-    if str(config.get("precision", "float32")) != "float32":
-        _not_ported(f"config precision {config['precision']!r}", "A.6")
-
-
 def _maybe_resident(config, ds, info, bs, backend, device, seed=0):
     """A device-resident batcher (whole epochs through the resident runners)
     where the gate admits the dataset (``resident.resident_enabled``), else
@@ -381,7 +393,6 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
             "jax2tf bridge) is not ported: it needs TensorFlow, which "
             "kgcn_tpu_torch does not use; 'export_model' writes a torch.export "
             "artifact")
-    _refuse_bf16(config)
     preloaded = None
     if _is_kg(config):
         preloaded = _prepare(config)
@@ -460,7 +471,6 @@ def cmd_train_cv(config, device=None) -> Dict[str, Any]:
     restored), then evaluates that fold: its cost, the task metric and the
     battery, and the summary's mean and spread of the task metric."""
     device = device_from_arg(device)
-    _refuse_bf16(config)
     if fold_parallel_flag(config) == "force":
         _not_ported("fold_parallel 'force' (the folds trained at once across "
                     "devices, kgcn_tpu/parallel/cv.py)", "A.11")
@@ -509,22 +519,23 @@ def cmd_train_cv(config, device=None) -> Dict[str, Any]:
 
 
 def cmd_visualize(config, device=None) -> list:
-    """Integrated-gradients visualisation of a graph dataset (``kgcn_tpu``'s
-    ``cmd_visualize``, reference gcn.py:637-657): ``explain/ig.
-    run_visualization``.  Not ported yet: the KG route (``task:
-    link_prediction``, an ``edge*`` ``visualize_type``, or a node-embedding
-    dataset with KG triples) and the IG of sequence and vector-modal
-    inputs."""
+    """Integrated-gradients visualisation (``kgcn_tpu``'s ``cmd_visualize``,
+    reference gcn.py:637-657): the KG route (``task: link_prediction``, an
+    ``edge*`` ``visualize_type``, or a node-embedding dataset that carries
+    KG triples) runs the embedding IG of ``explain/kg_ig.
+    run_kg_visualization``; any other the compound IG of ``explain/ig.
+    run_visualization``.  Returns the paths written."""
     device = device_from_arg(device)
     vt = str(config.get("visualize_type", "graph") or "graph")
-    if config.get("task") == "link_prediction" or vt.startswith("edge"):
-        _not_ported("the KG route of visualize (explain/kg_ig.py)", "A.10")
-    raw = jbl.load(config["dataset"])
-    if config.get("with_node_embedding") and raw.get("label_list") is not None:
-        _not_ported("the KG route of visualize (explain/kg_ig.py)", "A.10")
-    if "sequence" in raw or any(k in raw for k in MODAL_NAMES):
-        _not_ported("IG of sequence and vector-modal inputs (embedded_layer_ig)",
-                    "A.8")
+    # the train dispatch's rule: a node-embedding config is a KG run only
+    # when its dataset carries KG triples
+    kg_route = config.get("task") == "link_prediction" or vt.startswith("edge")
+    raw = None
+    if not kg_route and config.get("with_node_embedding"):
+        raw = jbl.load(config["dataset"])
+        kg_route = isinstance(raw, dict) and raw.get("label_list") is not None
+    if kg_route:
+        return run_kg_visualization(config, raw=raw, device=device)
     return run_visualization(config, device=device, raw=raw)
 
 
@@ -534,6 +545,7 @@ def build_argparser():
     p.add_argument("mode", choices=["train", "train_cv", "infer", "predict",
                                     "visualize"])
     p.add_argument("--config", default=None, help="JSON config file")
+    p.add_argument("--save-config", default=None, help="dump merged config")
     p.add_argument("--dataset", default=None)
     p.add_argument("--model", default=None, help="model registry name")
     p.add_argument("--epoch", type=int, default=None)
@@ -541,20 +553,12 @@ def build_argparser():
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the command")
     return p
 
 
-def main(argv=None):
-    args = build_argparser().parse_args(argv)
-    config = load_config(args.config, {
-        "dataset": args.dataset,
-        "model.py": args.model,
-        "epoch": args.epoch,
-        "batch_size": args.batch_size,
-        "learning_rate": args.learning_rate,
-        "seed": args.seed,
-    })
-    device = "cpu" if args.cpu else None
+def _run(args, config, device):
     if args.mode == "train":
         return cmd_train(config, device=device)
     if args.mode == "train_cv":
@@ -562,6 +566,48 @@ def main(argv=None):
     if args.mode in ("infer", "predict"):
         return cmd_infer(config, device=device)
     return cmd_visualize(config, device=device)
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    overrides = {
+        "dataset": args.dataset,
+        "model.py": args.model,
+        "epoch": args.epoch,
+        "batch_size": args.batch_size,
+        "learning_rate": args.learning_rate,
+        "seed": args.seed,
+    }
+    if args.profile:
+        overrides["profile"] = True
+    config = load_config(args.config, overrides)
+    if args.save_config:
+        save_config(config, args.save_config)
+    device = "cpu" if args.cpu else None
+    # the switches of kgcn_tpu's main() (kgcn_tpu/cli/main.py:681-716):
+    # precision, determinism, the profiler trace; debug_nan is read by the
+    # Trainer
+    set_precision(config.get("precision", "float32"))
+    if config.get("deterministic"):
+        # cuBLAS repeats its sums only with a fixed workspace
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    if not config.get("profile"):
+        return _run(args, config, device)
+    prof_dir = config.get("profile_dir", "logs/torch_trace")
+    os.makedirs(prof_dir, exist_ok=True)
+    print(f"[PROFILE] tracing to {prof_dir}")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if not args.cpu:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        return _run(args, config, device)
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+        print(f"[PROFILE] trace written to {prof_dir}")
 
 
 if __name__ == "__main__":

@@ -23,20 +23,18 @@ import time
 
 import numpy as np
 
-from kgcn_tpu_torch.cli.main import _refuse_bf16
 from kgcn_tpu_torch.data.dataset import load_jbl
 from kgcn_tpu_torch.models.pair import GCNPairRanker, PairBatcher, ResidentPairBatcher
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime import resident
 from kgcn_tpu_torch.runtime.config import load_config
-from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
 from kgcn_tpu_torch.runtime.train import Trainer
 
 
 def _setup(config, device=None):
     """(dataset, info, trainer, pair batcher) of a config."""
-    _refuse_bf16(config)
     device = device_from_arg(device)
     ds, info = load_jbl(config["dataset"], config)
     if ds.graph_index_list is None:
@@ -99,6 +97,7 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = p.parse_args(argv)
     config = load_config(args.config)
+    set_precision(config.get("precision", "float32"))  # as cli.main's main()
     device = "cpu" if args.cpu else None
     return (cmd_train if args.mode == "train" else cmd_infer)(config, device=device)
 

@@ -21,9 +21,10 @@ wrote) and reports on ``test_dataset`` (``save_info_test``), with the
 predictions as a plain pickle at ``prediction_output``.  A ``tasks_file``
 lists the task names, one a line.  Runs on the GPU unless ``--cpu``.
 
-Not ported: ``mesh`` (data parallel over devices, ROADMAP.md A.11),
-``fold_parallel`` ``"force"`` (A.11) and ``"precision": "bfloat16"``
-(A.6).
+``"precision": "bfloat16"`` casts each step's payload to bf16 (the
+dense aggregation runs the bf16 gconv kernel), as ``kgcn_tpu``'s trainer
+does.  Not ported: ``mesh`` (data parallel over devices, ROADMAP.md A.11)
+and ``fold_parallel`` ``"force"`` (A.11).
 """
 from __future__ import annotations
 
@@ -36,14 +37,13 @@ import time
 
 import numpy as np
 
-from kgcn_tpu_torch.cli.main import (_maybe_resident, _not_ported, _refuse_bf16,
-                                     fold_parallel_flag)
+from kgcn_tpu_torch.cli.main import _maybe_resident, _not_ported, fold_parallel_flag
 from kgcn_tpu_torch.data.batcher import Batcher
 from kgcn_tpu_torch.data.tfrecord import load_tfrecord_dataset
 from kgcn_tpu_torch.models.sparse import SparseGCN
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime.config import load_config
-from kgcn_tpu_torch.runtime.device import device_from_arg
+from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
 from kgcn_tpu_torch.runtime.train import Trainer
 
 
@@ -105,7 +105,6 @@ def cmd_train(config, fold: int = 0, device=None):
     evaluation)."""
     if config.get("mesh"):
         _not_ported("data-parallel sparse training (config 'mesh')", "A.11")
-    _refuse_bf16(config)
     device = device_from_arg(device)
     ds, info, backend = _load(config)
     tr_idx, va_idx = split_fold(ds.num, fold, int(config.get("num_folds", 5)))
@@ -139,7 +138,6 @@ def cmd_train_cv(config, device=None):
 
 def cmd_infer(config, device=None):
     """Evaluate ``test_dataset`` with a restored checkpoint."""
-    _refuse_bf16(config)
     device = device_from_arg(device)
     ds, info, backend = _load(config, test=True)
     trainer = Trainer(_model(config, info), config, info, device=device)
@@ -168,6 +166,7 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = p.parse_args(argv)
     config = load_config(args.config)
+    set_precision(config.get("precision", "float32"))  # as cli.main's main()
     device = "cpu" if args.cpu else None
     if "tasks_file" in config and os.path.exists(config["tasks_file"]):
         with open(config["tasks_file"]) as f:

@@ -135,6 +135,19 @@ class Batch:
     def replace(self, **changes) -> "Batch":
         return dataclasses.replace(self, **changes)
 
+    def cast_compute(self, dtype) -> "Batch":
+        """The compute-path floats (the graph's payload, ``GraphBatch.
+        astype``; the vector modals; the VAE's ε) cast to ``dtype`` for
+        mixed precision, as ``kgcn_tpu``'s ``Batch.cast_compute``
+        (``data/batcher.py:46-60``).  Labels, masks and ids stay as they
+        are: losses and metrics run in float32."""
+        vm = self.vector_modal
+        if vm is not None:
+            vm = tuple(v.to(dtype) for v in vm)
+        return dataclasses.replace(
+            self, graph=self.graph.astype(dtype), vector_modal=vm,
+            rng_normal=None if self.rng_normal is None else self.rng_normal.to(dtype))
+
 
 def epoch_permutation(n: int, seed: int, epoch: Optional[int] = None,
                       rng: Optional[np.random.RandomState] = None) -> np.ndarray:

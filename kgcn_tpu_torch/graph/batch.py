@@ -210,7 +210,8 @@ class GraphBatch:
     def dense_adjacency(self, dtype=None) -> torch.Tensor:
         """Materialise the ``[C, B, N, N]`` dense adjacency from the COO
         lists: receiver row, sender column, ``out[r, s] += w``.  Padding
-        edges carry weight 0, so they add nothing."""
+        edges carry weight 0, so they add nothing.  ``dtype``: the
+        payload's (``edge_weights``') when None."""
         C, E = self.senders.shape
         B, N = self.n_graph, self.max_nodes
         dtype = dtype or self.edge_weights.dtype
@@ -221,6 +222,26 @@ class GraphBatch:
         out = torch.zeros((C, B * N * N), dtype=dtype, device=flat.device)
         out.index_put_((chan, flat), self.edge_weights.to(dtype), accumulate=True)
         return out.reshape(C, B, N, N)
+
+    def astype(self, dtype) -> "GraphBatch":
+        """A copy with the floating-point payload (``edge_weights``,
+        ``node_mask``, ``nodes``, ``dense_adj``, ``ell_weights``,
+        ``edge_valid``) cast to ``dtype``: the mixed-precision hook of
+        ``kgcn_tpu``'s ``GraphBatch.astype`` (``graph/batch.py:159-176``).
+        Integer arrays, the tiled and stream structures and the ELL layout
+        (``ell_pack``, the transpose) stay as they are; a dense adjacency
+        built afterwards (``with_dense_adj``) follows ``edge_weights``'
+        dtype."""
+
+        def cast(t):
+            return None if t is None else t.to(dtype)
+
+        # dataclasses.replace, not self.replace: the ELL arrays keep their
+        # layout and transpose, only the weights' type changes
+        return dataclasses.replace(
+            self, edge_weights=cast(self.edge_weights), node_mask=cast(self.node_mask),
+            nodes=cast(self.nodes), dense_adj=cast(self.dense_adj),
+            ell_weights=cast(self.ell_weights), edge_valid=cast(self.edge_valid))
 
     def with_dense_adj(self) -> "GraphBatch":
         """A copy carrying the dense adjacency (no-op if already cached, and

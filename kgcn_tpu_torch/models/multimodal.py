@@ -78,8 +78,8 @@ class GCNMultimodal(_GraphBranch):
         self._graph_layers(in_features, channels, hidden)
         self.seq_enc = SequenceEncoder(sequence_symbol_num, embedding_dim,
                                        lstm_features=lstm_features)
-        self.shared1 = nn.Linear(lstm_features + hidden, 52)
-        self.head = nn.Linear(52, label_dim)
+        self.shared1 = knn.Dense(lstm_features + hidden, 52)
+        self.head = knn.Dense(52, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -87,13 +87,20 @@ class GCNMultimodal(_GraphBranch):
         knn.reset_linear_(self.shared1, generator)
         knn.reset_linear_(self.head, generator)
 
+    def embedding(self, sequences: torch.Tensor) -> torch.Tensor:
+        """The sequence-embedding hook of IG on embeddings (reference:
+        model_multimodal.py:122-126): ``[B, L, embedding_dim]``."""
+        return self.seq_enc(sequences, return_embedded=True)
+
     def forward(self, batch: Batch, train: bool = False,
-                generator=None) -> ModelOutput:
+                generator=None, embedded=None) -> ModelOutput:
+        """``embedded``: the sequence embedding to use in place of the
+        sequences' (``embedding``'s output, scaled by IG)."""
         gh = self.graph_branch(batch)
         if batch.sequences is None:
             raise ValueError("gcn_multimodal needs a 'sequence' entry in the dataset "
                              "(this batch carries none)")
-        sh = self.seq_enc(batch.sequences)
+        sh = self.seq_enc(batch.sequences, embedded=embedded)
         h = torch.relu(self.shared1(torch.cat([sh, gh], dim=1)))
         return _head(self.head(h), batch, self.task)
 
@@ -115,8 +122,8 @@ class GCNVectorModal(_GraphBranch):
         self._graph_layers(in_features, channels, hidden)
         for i, d in enumerate(dims):
             setattr(self, f"modal_encs_{i}", VectorModalEncoder(int(d), features=32))
-        self.shared1 = nn.Linear(hidden + 32 * len(dims), 52)
-        self.head = nn.Linear(52, label_dim)
+        self.shared1 = knn.Dense(hidden + 32 * len(dims), 52)
+        self.head = knn.Dense(52, label_dim)
         self.reset_parameters()
 
     def modal_encs(self):
@@ -157,7 +164,7 @@ class SequenceCNN(nn.Module):
         self.Embed_0 = knn.Embed(vocab_size, embedding_dim)
         self.Conv_0 = Conv1dSame(embedding_dim, conv_features, 5)
         self.Conv_1 = Conv1dSame(conv_features, conv_features, 5)
-        self.Dense_0 = nn.Linear(conv_features, label_dim)
+        self.Dense_0 = knn.Dense(conv_features, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -190,7 +197,7 @@ class GCNRegression(nn.Module):
         self.GraphBatchNormalization_0 = knn.GraphBatchNormalization(hidden)
         self.GraphDense_0 = knn.GraphDense(hidden, hidden)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(hidden, label_dim)
+        self.Dense_0 = knn.Dense(hidden, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:

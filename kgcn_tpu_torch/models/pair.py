@@ -62,7 +62,7 @@ class GCNPairRanker(nn.Module):
         self.bn = knn.GraphBatchNormalization(hidden)
         self.dense = knn.GraphDense(hidden, hidden)
         self.gather = knn.GraphGather()
-        self.head = nn.Linear(hidden, label_dim)
+        self.head = knn.Dense(hidden, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:

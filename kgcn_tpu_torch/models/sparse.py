@@ -14,7 +14,8 @@ on the dense adjacency (the CUDA gconv kernel); beyond it the layers take the
 batch's edge-list route (the resolved backend: ``auto`` gives block-diagonal
 batches the tiled kernel).  The backend owns the threshold, so the model
 takes the route the batches were built for.  The head is a plain
-``nn.Linear``, as ``kgcn_tpu`` leaves it to XLA.
+matrix product (``knn.Dense`` in the features' dtype, as ``kgcn_tpu``'s
+``nn.Dense(dtype=h.dtype)``), which ``kgcn_tpu`` leaves to XLA.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ class SparseGCN(nn.Module):
         if self.batch_normalize:
             self.GraphBatchNormalization_0 = knn.GraphBatchNormalization(dense_dim)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(dense_dim, self.num_classes)
+        self.Dense_0 = knn.Dense(dense_dim, self.num_classes, promote=False)  # in h's dtype
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:

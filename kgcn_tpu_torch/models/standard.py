@@ -109,7 +109,7 @@ class GCN(nn.Module):
         self.GraphBatchNormalization_0 = knn.GraphBatchNormalization(hidden)
         self.GraphDense_0 = knn.GraphDense(hidden, hidden)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(hidden, label_dim)
+        self.Dense_0 = knn.Dense(hidden, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -154,7 +154,7 @@ class GATModel(nn.Module):
         self.GraphDense_2 = knn.GraphDense(hidden, hidden)
         self.GAT_2 = knn.GAT(hidden, channels, normalize=gat_normalize)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(2 * hidden, label_dim)
+        self.Dense_0 = knn.Dense(2 * hidden, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -199,7 +199,7 @@ class RxnGCN(nn.Module):
         self.GraphBatchNormalization_2 = knn.GraphBatchNormalization(hidden)
         self.GraphDense_0 = knn.GraphDense(hidden, hidden)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(hidden, label_dim)
+        self.Dense_0 = knn.Dense(hidden, label_dim)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -242,7 +242,7 @@ class GIN(nn.Module):
             setattr(self, f"GraphDense_{2 * b + 1}", knn.GraphDense(hidden, hidden))
             fin = hidden
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(num_blocks * hidden, label_dim)
+        self.Dense_0 = knn.Dense(num_blocks * hidden, label_dim)
         self.reset_parameters()
 
     def _block(self, b):
@@ -295,7 +295,7 @@ class GCNMultitask(nn.Module):
         self.GraphBatchNormalization_0 = knn.GraphBatchNormalization(hidden)
         self.GraphDense_1 = knn.GraphDense(hidden, hidden)
         self.GraphGather_0 = knn.GraphGather()
-        self.Dense_0 = nn.Linear(hidden, label_dim)
+        self.Dense_0 = knn.Dense(hidden, label_dim)
         self.reset_parameters()
 
     def _pos_weight_on(self, device) -> torch.Tensor:

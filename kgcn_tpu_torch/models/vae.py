@@ -70,8 +70,8 @@ class GCNVAE(nn.Module):
         self.enc_bn2 = knn.GraphBatchNormalization(d)
         self.enc_dense = knn.GraphDense(d, d)
         self.gather = knn.GraphGather()
-        self.mean_head = nn.Linear(d, self.latent_dim)
-        self.std_head = nn.Linear(d, self.latent_dim)
+        self.mean_head = knn.Dense(d, self.latent_dim)
+        self.std_head = knn.Dense(d, self.latent_dim)
         if not self.link_only:
             self.node_decoder = knn.GraphDense(self.latent_dim, self.feature_dim,
                                                mask_output=False)

@@ -35,6 +35,16 @@ Semantics as there (checked against the reference, SURVEY.md §2.2):
 * GraphDecoderInnerProd / GraphDecoderDistMult: the graph VAE's adjacency
   decoders ``Z Zᵀ`` and ``(w ⊙ Z) Zᵀ`` (kgcn/layers.py:268-305), einsums as
   in ``kgcn_tpu``.
+* Dense: flax ``nn.Dense`` (an ``nn.Linear`` with flax's ``[in, out]``
+  names in ``convert.py``): without ``dtype`` flax computes in the
+  promotion of the input's and the float32 parameters' types, so a bf16
+  input gives a float32 output; ``promote=False`` is ``nn.Dense(dtype=
+  x.dtype)``, the parameters cast to the input's type.
+* Mixed precision (``"precision": "bfloat16"``): parameters live in float32
+  and are cast to the activation dtype where ``kgcn_tpu`` casts them
+  (GraphConv's kernel and bias, GIN's ε, GAT's ``attn``, the DistMult
+  decoder's kernel); ``GraphDense`` computes in its input's dtype; GAT's
+  scores and softmax and the batch norm's moments run in float32.
 * GraphBatchNormalization: statistics over valid (un-padded) node rows only,
   biased variance, running statistics ``m·ra + (1-m)·batch`` (m = 0.9,
   ε = 1e-3), output multiplied by the node mask.  Not ``nn.BatchNorm1d``,
@@ -105,6 +115,26 @@ def reset_linear_(lin: nn.Linear, generator=None) -> None:
     lecun_normal_(lin.weight, generator)
     if lin.bias is not None:
         nn.init.zeros_(lin.bias)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``.  ``promote`` (flax's ``dtype=None``): computed in
+    the promotion of the input's type and the parameters' float32, so a
+    bf16 input gives float32; else (``dtype=x.dtype``) in the input's type,
+    the parameters cast to it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 promote: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.promote = promote
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.promote:
+            dtype = torch.promote_types(x.dtype, self.weight.dtype)
+            return F.linear(x.to(dtype), self.weight.to(dtype),
+                            None if self.bias is None else self.bias.to(dtype))
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class GraphConv(nn.Module):
@@ -283,7 +313,7 @@ class GraphDense(nn.Module):
     def __init__(self, in_features: int, features: int, mask_output: bool = True):
         super().__init__()
         self.mask_output = mask_output
-        self.Dense_0 = nn.Linear(in_features, features)
+        self.Dense_0 = Dense(in_features, features, promote=False)  # in x's dtype
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:

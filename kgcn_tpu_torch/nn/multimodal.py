@@ -121,8 +121,15 @@ class SequenceEncoder(nn.Module):
         for layer in (self.Embed_0, self.Conv_0, self.OptimizedLSTMCell_0):
             layer.reset_parameters(generator)
 
-    def forward(self, sequences: torch.Tensor) -> torch.Tensor:
-        x = self.Embed_0(sequences)
+    def forward(self, sequences: torch.Tensor, return_embedded: bool = False,
+                embedded=None) -> torch.Tensor:
+        """``sequences`` ``[B, L]`` token ids → ``[B, H]``.  ``embedded``
+        feeds a computed embedding ``[B, L, D]`` instead, and
+        ``return_embedded`` returns the embedding (the IG-on-embeddings
+        hooks, reference model_multimodal.py:76-80)."""
+        x = embedded if embedded is not None else self.Embed_0(sequences)
+        if return_embedded:
+            return x
         x = max_pool(torch.relu(self.Conv_0(x)), self.pool_stride)
         return self.OptimizedLSTMCell_0.scan_reversed(x)
 
@@ -136,8 +143,8 @@ class VectorModalEncoder(nn.Module):
                  dropout_rate: float = 0.2):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.Dense_0 = nn.Linear(in_features, 2 * features)
-        self.Dense_1 = nn.Linear(2 * features, features)
+        self.Dense_0 = knn.Dense(in_features, 2 * features)
+        self.Dense_1 = knn.Dense(2 * features, features)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:

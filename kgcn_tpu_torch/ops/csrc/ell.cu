@@ -2,7 +2,7 @@
 // channels, and its transpose (dx) over sender-grouped slot lists.
 //
 //   forward: out[v, :] = sum_c sum_k w[c, v, k] * x_c[idx[c, v, k], :]
-//            idx [C, V, K] int32, w [C, V, K] float32, x_c the channel's
+//            idx [C, V, K] int32, w [C, V, K] float32 or bf16, x_c the channel's
 //            [N, F] slice of x [C, N, F], or x [N, F] shared by every
 //            channel -> out [V, F] in x's dtype
 //   dx:      dx_c[u, :] = sum_{j in T_c(u)} w[c, s_j] * g[s_j / K, :]
@@ -18,7 +18,10 @@
 // keeps ALL of x in VMEM and gathers rows there, because Mosaic cannot
 // gather rows from HBM; that caps x at the VMEM budget.  Here every row is
 // read from device memory or L2, so the kernel takes every size.  Kept from
-// the TPU kernel: the weight stays f32, x is widened to f32, a channel's
+// the TPU kernel: the weight is widened to f32 (bf16 slot weights, which
+// the batch carries under "precision": "bfloat16", are read as bf16 and
+// widened in registers, as `_ell_kernel` widens them, pallas_spmm.py:36),
+// x is widened to f32, a channel's
 // sum runs in f32 in slot order k = 0 .. K-1, and the row is written once
 // in x's dtype.
 //
@@ -72,6 +75,13 @@ constexpr int WARPS = THREADS / 32;
 // longest
 constexpr int UNROLL_FWD = 8, UNROLL_DX = 4;
 constexpr unsigned FULL = 0xffffffffu;
+
+// a slot weight, streamed (evict-first), widened to f32
+__device__ __forceinline__ float load_w(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_w(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
 
 // VEC columns of a gathered row, through the read-only path (rows repeat
 // across slots, so they stay cacheable, unlike the streamed slot data).
@@ -131,10 +141,10 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* v) {
 // order into out + y*out_cstride.  ONE: csum is 1, known to the compiler
 // (a loop over a run-time count of one channel made the one-channel
 // forward measurably slower at the path's shape).
-template <typename T, int LPR, int VEC, bool DX, bool ONE>
+template <typename T, typename WT, int LPR, int VEC, bool DX, bool ONE>
 __global__ void __launch_bounds__(THREADS)
 ell_kernel(const int* __restrict__ ids, const int* __restrict__ off,
-           const float* __restrict__ w, const T* __restrict__ src,
+           const WT* __restrict__ w, const T* __restrict__ src,
            T* __restrict__ out, int rows, int K, int F, int csum,
            long long src_cstride, long long out_cstride, long long vk) {
   constexpr int UNROLL = DX ? UNROLL_DX : UNROLL_FWD;
@@ -169,7 +179,7 @@ ell_kernel(const int* __restrict__ ids, const int* __restrict__ off,
       }
       const int steps = DX ? __reduce_max_sync(FULL, deg) : K;  // warp-uniform
       const T* xs = src + c * src_cstride;
-      const float* wc = w + c * vk;
+      const WT* wc = w + c * vk;
       float acc[VEC];
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
@@ -184,10 +194,10 @@ ell_kernel(const int* __restrict__ ids, const int* __restrict__ off,
           if (j < deg) {
             const int s = __ldcs(ids + lo + j);
             if (DX) {
-              my_w[q] = __ldcs(wc + s);
+              my_w[q] = load_w(wc + s);
               my_s[q] = s / K;
             } else {
-              my_w[q] = __ldcs(w + lo + j);
+              my_w[q] = load_w(w + lo + j);
               my_s[q] = s;
             }
           }
@@ -234,8 +244,8 @@ ell_kernel(const int* __restrict__ ids, const int* __restrict__ off,
   }
 }
 
-template <typename T, int LPR, int VEC, bool DX>
-cudaError_t launch(const int* ids, const int* off, const float* w, const T* src, T* out,
+template <typename T, typename WT, int LPR, int VEC, bool DX>
+cudaError_t launch(const int* ids, const int* off, const WT* w, const T* src, T* out,
                    int rows, int K, int F, int csum, int groups, long long src_cstride,
                    long long out_cstride, long long vk, cudaStream_t stream) {
   constexpr int RPW = 32 / LPR;
@@ -243,63 +253,76 @@ cudaError_t launch(const int* ids, const int* off, const float* w, const T* src,
   const long long blocks = (warps + WARPS - 1) / WARPS;  // rows < 2^31: fits
   const dim3 grid((unsigned)blocks, (unsigned)groups);
   if (csum == 1)
-    ell_kernel<T, LPR, VEC, DX, true><<<grid, THREADS, 0, stream>>>(
+    ell_kernel<T, WT, LPR, VEC, DX, true><<<grid, THREADS, 0, stream>>>(
         ids, off, w, src, out, rows, K, F, csum, src_cstride, out_cstride, vk);
   else
-    ell_kernel<T, LPR, VEC, DX, false><<<grid, THREADS, 0, stream>>>(
+    ell_kernel<T, WT, LPR, VEC, DX, false><<<grid, THREADS, 0, stream>>>(
         ids, off, w, src, out, rows, K, F, csum, src_cstride, out_cstride, vk);
   return cudaGetLastError();
 }
 
 // The narrowest row group whose VEC-wide lanes cover F in one pass (at
 // least 4 lanes), else the whole warp.
-template <typename T, int VEC, bool DX>
-cudaError_t dispatch_lpr(const int* ids, const int* off, const float* w, const T* src,
+template <typename T, typename WT, int VEC, bool DX>
+cudaError_t dispatch_lpr(const int* ids, const int* off, const WT* w, const T* src,
                          T* out, int rows, int K, int F, int csum, int groups,
                          long long src_cstride, long long out_cstride, long long vk,
                          cudaStream_t s) {
   const int lanes = (F + VEC - 1) / VEC;
   if (lanes <= 4)
-    return launch<T, 4, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
+    return launch<T, WT, 4, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
                                  src_cstride, out_cstride, vk, s);
   if (lanes <= 8)
-    return launch<T, 8, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
+    return launch<T, WT, 8, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
                                  src_cstride, out_cstride, vk, s);
   if (lanes <= 16)
-    return launch<T, 16, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
+    return launch<T, WT, 16, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
                                   src_cstride, out_cstride, vk, s);
-  return launch<T, 32, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
+  return launch<T, WT, 32, VEC, DX>(ids, off, w, src, out, rows, K, F, csum, groups,
                                 src_cstride, out_cstride, vk, s);
 }
 
-template <bool DX>
-cudaError_t dispatch(const void* ids, const void* off, const void* w, const void* src,
-                     void* out, int rows, int K, int F, int csum, int groups,
-                     long long src_cstride, long long out_cstride, long long vk,
-                     int bf16, void* stream) {
-  auto i = static_cast<const int*>(ids);
-  auto o = static_cast<const int*>(off);
-  auto ww = static_cast<const float*>(w);
-  auto s = static_cast<cudaStream_t>(stream);
+// x (and out) float32 or bf16 (bf16 = 1), the weights of type WT
+template <typename WT, bool DX>
+cudaError_t dispatch_x(const int* i, const int* o, const WT* ww, const void* src, void* out,
+                       int rows, int K, int F, int csum, int groups, long long src_cstride,
+                       long long out_cstride, long long vk, int bf16, cudaStream_t s) {
   if (bf16) {
     auto x = static_cast<const __nv_bfloat16*>(src);
     auto y = static_cast<__nv_bfloat16*>(out);
     if (F % 2 == 0)
-      return dispatch_lpr<__nv_bfloat16, 2, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
-                                                src_cstride, out_cstride, vk, s);
-    return dispatch_lpr<__nv_bfloat16, 1, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
-                                              src_cstride, out_cstride, vk, s);
+      return dispatch_lpr<__nv_bfloat16, WT, 2, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
+                                                    src_cstride, out_cstride, vk, s);
+    return dispatch_lpr<__nv_bfloat16, WT, 1, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
+                                                  src_cstride, out_cstride, vk, s);
   }
   auto x = static_cast<const float*>(src);
   auto y = static_cast<float*>(out);
   if (F % 4 == 0)
-    return dispatch_lpr<float, 4, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
-                                      src_cstride, out_cstride, vk, s);
+    return dispatch_lpr<float, WT, 4, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
+                                          src_cstride, out_cstride, vk, s);
   if (F % 2 == 0)
-    return dispatch_lpr<float, 2, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
-                                      src_cstride, out_cstride, vk, s);
-  return dispatch_lpr<float, 1, DX>(i, o, ww, x, y, rows, K, F, csum, groups, src_cstride,
-                                    out_cstride, vk, s);
+    return dispatch_lpr<float, WT, 2, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
+                                          src_cstride, out_cstride, vk, s);
+  return dispatch_lpr<float, WT, 1, DX>(i, o, ww, x, y, rows, K, F, csum, groups,
+                                        src_cstride, out_cstride, vk, s);
+}
+
+// w_bf16 = 1: the slot weights are bf16, else float32
+template <bool DX>
+cudaError_t dispatch(const void* ids, const void* off, const void* w, const void* src,
+                     void* out, int rows, int K, int F, int csum, int groups,
+                     long long src_cstride, long long out_cstride, long long vk,
+                     int bf16, int w_bf16, void* stream) {
+  auto i = static_cast<const int*>(ids);
+  auto o = static_cast<const int*>(off);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (w_bf16)
+    return dispatch_x<__nv_bfloat16, DX>(i, o, static_cast<const __nv_bfloat16*>(w), src, out,
+                                         rows, K, F, csum, groups, src_cstride, out_cstride,
+                                         vk, bf16, s);
+  return dispatch_x<float, DX>(i, o, static_cast<const float*>(w), src, out, rows, K, F, csum,
+                               groups, src_cstride, out_cstride, vk, bf16, s);
 }
 
 }  // namespace
@@ -308,18 +331,19 @@ extern "C" {
 
 // out [V, F] = sum over the C channels of the ELL products of idx/w
 // [C, V, K] and x: [C, N, F] (shared = 0) or [N, F] (shared = 1), float32
-// (bf16 = 0) or bf16 (bf16 = 1; out in the same dtype, sums in f32).  Every
+// (bf16 = 0) or bf16 (bf16 = 1; out in the same dtype, sums in f32); w
+// float32 (w_bf16 = 0) or bf16 (w_bf16 = 1).  Every
 // idx entry must lie in [0, N).  Launches on `stream` (a cudaStream_t) and
 // returns the cudaError_t of the launch (0 on success).  Does not
 // synchronise and allocates nothing.  The pointers must be 16-byte aligned
 // (PyTorch's allocations are).
 int kgcn_ell_spmm(const void* idx, const void* w, const void* x, void* out, int C, int V,
-                  int K, int N, int F, int shared, int bf16, void* stream) {
+                  int K, int N, int F, int shared, int bf16, int w_bf16, void* stream) {
   if (V <= 0 || F <= 0) return 0;
   if (K <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   return (int)dispatch<false>(idx, nullptr, w, x, out, V, K, F, C, 1,
                               shared ? 0 : (long long)N * F, 0, (long long)V * K, bf16,
-                              stream);
+                              w_bf16, stream);
 }
 
 // The transpose: dx from g [V, F] (x's dtype) over the slot lists grouped by
@@ -329,12 +353,12 @@ int kgcn_ell_spmm(const void* idx, const void* w, const void* x, void* out, int 
 // order; shared = 0: dx [C, N, F].  Same conventions as kgcn_ell_spmm.
 int kgcn_ell_dx(const void* slots, const void* offsets, const void* w, const void* g,
                 void* dx, int C, int V, int K, int N, int F, int shared, int bf16,
-                void* stream) {
+                int w_bf16, void* stream) {
   if (N <= 0 || F <= 0) return 0;
   if (K <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   return (int)dispatch<true>(slots, offsets, w, g, dx, N, K, F, shared ? C : 1,
                              shared ? 1 : C, 0, shared ? 0 : (long long)N * F,
-                             (long long)V * K, bf16, stream);
+                             (long long)V * K, bf16, w_bf16, stream);
 }
 
 const char* kgcn_cuda_error_string(int code) {

@@ -1,8 +1,19 @@
-// Fused multi-channel dense graph convolution for Hopper (sm_90a), float32.
+// Fused multi-channel dense graph convolution for Hopper (sm_90a), float32
+// (kgcn_gconv_f32) and bf16 (kgcn_gconv_bf16).
 //
 //   out[b] = sum_c A[c, b] @ (X[b] @ W[c] + bias[c])
 //   adj [C, B, N, N], x [B, N, Fin], w [C, Fin, Fout], bias [C, Fout]
-//   -> out [B, N, Fout], all row-major and contiguous.
+//   -> out [B, N, Fout], all row-major and contiguous, all of one type.
+//
+// bf16: what `_gconv_kernel` computes on bf16 refs (pallas_gconv.py:33-53).
+// Every operand is read as bf16 and widened to f32 in registers (or in
+// shared memory, which stays f32); X W_c is summed in f32 and b_c added in
+// f32, and that projection is kept in f32 (the scratch of the two-launch
+// design is f32, sized as for float32); A_c HW_c is summed in f32 over the
+// channels in order; the output is rounded to bf16 once.  The launch
+// shapes, the order of sums and the split runs are the float32 ones, so two
+// launches give the same bits.  The arithmetic is FP32 FMAs: bf16 halves
+// the operand bytes, and no tensor core is used yet.
 //
 // Replaces the Pallas TPU kernel `_gconv_kernel`
 // (kgcn_tpu/ops/pallas_gconv.py:33, launched by `_gconv_call`), which keeps
@@ -64,11 +75,22 @@
 // the runs' sums added in run order), so two launches give the same bits.
 // Every kernel walks its blocks in a grid-stride loop, so B is not bounded
 // by a grid dimension.  chip_smoke.py phase 3 runs every launch shape.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 namespace {
+
+// an operand element, widened to f32 (read-only path)
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+// an output element, rounded once to its type
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 constexpr int SMS = 132;                  // H100 SXM
 constexpr long long MAX_GRID = 1 << 20;   // blocks a launch asks for at most
@@ -77,11 +99,14 @@ constexpr long long MAX_GRID = 1 << 20;   // blocks a launch asks for at most
 //   out_z[m, n] = sum_{c < nsum} sum_{k < K} A_zc[m, k] B_zc[k, n] (+ bias_z[n])
 // with A_zc = a + z a_z + c a_c (row-major, leading dimension lda) and
 // B_zc = b + z b_z + c b_c (row-major, ldb); out_z = out + z out_z (ldo).
+// A is read as TA, B and the bias as TB, and out written as TO; the sums
+// are f32.
+template <typename TA, typename TB, typename TO>
 struct Gemm {
-  const float* a;
-  const float* b;
-  const float* bias;  // nullptr: none
-  float* out;
+  const TA* a;
+  const TB* b;
+  const TB* bias;  // nullptr: none
+  TO* out;
   long long a_z, a_c, b_z, b_c, out_z, bias_z, batch, M;
   int N, K, nsum, lda, ldb, ldo;
 };
@@ -90,9 +115,10 @@ struct Gemm {
 // by its own block into part[split] (laid out as out, with ldo = N and
 // out_z = M N), and sum_splits adds the runs in order.  Off, part and
 // splits are unused and the kernel keeps the registers of one run.
-template <int BM, int BN, int BK, int TM, int TN, bool SPLIT>
+template <typename TA, typename TB, typename TO, int BM, int BN, int BK, int TM, int TN,
+          bool SPLIT>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN), 2)  // <= 128 registers
-gemm_kernel(const Gemm g, float* __restrict__ part, int splits_) {
+gemm_kernel(const Gemm<TA, TB, TO> g, float* __restrict__ part, int splits_) {
   constexpr int THREADS = (BM / TM) * (BN / TN);
   constexpr int TX = BN / TN;                 // threads along a row of the tile
   constexpr int GM = TM / 4, GN = TN / 4;     // 4-wide runs per thread
@@ -133,20 +159,20 @@ gemm_kernel(const Gemm g, float* __restrict__ part, int splits_) {
     auto fetch = [&](int step) {
       const int c = step / k_tiles;
       const int k0 = (step - c * k_tiles) * BK;
-      const float* a = g.a + z * g.a_z + c * g.a_c;
-      const float* b = g.b + z * g.b_z + c * g.b_c;
+      const TA* a = g.a + z * g.a_z + c * g.a_c;
+      const TB* b = g.b + z * g.b_z + c * g.b_c;
 #pragma unroll
       for (int j = 0; j < A_LOADS; ++j) {
         const int i = tid + j * THREADS;
         const long long m = m0 + i / BK;
         const int k = k0 + i % BK;
-        ra[j] = (m < g.M && k < g.K) ? __ldg(a + m * g.lda + k) : 0.f;
+        ra[j] = (m < g.M && k < g.K) ? ld(a + m * g.lda + k) : 0.f;
       }
 #pragma unroll
       for (int j = 0; j < B_LOADS; ++j) {
         const int i = tid + j * THREADS;
         const int k = k0 + i / BN, n = n0 + i % BN;
-        rb[j] = (k < g.K && n < g.N) ? __ldg(b + (size_t)k * g.ldb + n) : 0.f;
+        rb[j] = (k < g.K && n < g.N) ? ld(b + (size_t)k * g.ldb + n) : 0.f;
       }
     };
     auto stash = [&](int buf) {
@@ -195,9 +221,10 @@ gemm_kernel(const Gemm g, float* __restrict__ part, int splits_) {
       __syncthreads();
     }
 
-    const float* bias = splits == 1 && g.bias ? g.bias + z * g.bias_z : nullptr;
-    float* o = splits == 1 ? g.out + z * g.out_z
-                           : part + ((long long)split * g.batch + z) * g.M * g.N;
+    // one run: the output (+ bias), rounded to TO; runs: f32 partials
+    const TB* bias = splits == 1 && g.bias ? g.bias + z * g.bias_z : nullptr;
+    TO* o = g.out + z * g.out_z;
+    float* po = splits == 1 ? nullptr : part + ((long long)split * g.batch + z) * g.M * g.N;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const long long m = m0 + (i / 4) * (BM / GM) + ty * 4 + i % 4;
@@ -205,7 +232,11 @@ gemm_kernel(const Gemm g, float* __restrict__ part, int splits_) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int n = n0 + (j / 4) * (BN / GN) + tx * 4 + j % 4;
-        if (n < g.N) o[m * g.ldo + n] = bias ? acc[i][j] + __ldg(bias + n) : acc[i][j];
+        if (n >= g.N) continue;
+        if (splits == 1)
+          st(o + m * g.ldo + n, bias ? acc[i][j] + ld(bias + n) : acc[i][j]);
+        else
+          po[m * g.ldo + n] = acc[i][j];
       }
     }
   }
@@ -227,10 +258,11 @@ inline long long small_graph_floats(int N, int Fin) {
 
 constexpr int SG_WARPS = SG_MAX_N / SG_ROWS;  // one a row group
 
+template <typename T>
 __global__ void __launch_bounds__(SG_WARPS * 32)
-small_graph_kernel(const float* __restrict__ adj, const float* __restrict__ x,
-                   const float* __restrict__ w, const float* __restrict__ bias,
-                   float* __restrict__ out, int C, int B, int N, int Fin, int Fout) {
+small_graph_kernel(const T* __restrict__ adj, const T* __restrict__ x,
+                   const T* __restrict__ w, const T* __restrict__ bias,
+                   T* __restrict__ out, int C, int B, int N, int Fin, int Fout) {
   extern __shared__ float4 smem4[];
   const int XS = round4(Fin), AS = round4(N);
   float* xs = reinterpret_cast<float*>(smem4);  // [N][XS]: X_b, zero past Fin
@@ -248,19 +280,19 @@ small_graph_kernel(const float* __restrict__ adj, const float* __restrict__ x,
     for (int i = 0; i < SG_ROWS; ++i) acc[i] = 0.f;
     __syncthreads();  // the previous graph's readers are done
     // rows by warp, columns by lane: coalesced, no index division
-    const float* xb = x + b * N * Fin;
+    const T* xb = x + b * N * Fin;
     for (int r = warp; r < N; r += SG_WARPS)
-      for (int k = lane; k < XS; k += 32) xs[r * XS + k] = k < Fin ? __ldg(xb + r * Fin + k) : 0.f;
+      for (int k = lane; k < XS; k += 32) xs[r * XS + k] = k < Fin ? ld(xb + r * Fin + k) : 0.f;
     for (int r = N + warp; r < AS; r += SG_WARPS) hs[r * SG_TF + lane] = 0.f;
 
     for (int c = 0; c < C; ++c) {
-      const float* wc = w + (size_t)c * Fin * Fout;
-      const float* ac = adj + ((size_t)c * B + b) * N * N;
+      const T* wc = w + (size_t)c * Fin * Fout;
+      const T* ac = adj + ((size_t)c * B + b) * N * N;
       for (int k = warp; k < XS; k += SG_WARPS)
-        ws[k * SG_TF + lane] = (k < Fin && f < Fout) ? __ldg(wc + (size_t)k * Fout + f) : 0.f;
+        ws[k * SG_TF + lane] = (k < Fin && f < Fout) ? ld(wc + (size_t)k * Fout + f) : 0.f;
       for (int r = warp; r < N; r += SG_WARPS)
-        for (int m = lane; m < AS; m += 32) as[r * AS + m] = m < N ? __ldg(ac + r * N + m) : 0.f;
-      const float bc = f < Fout ? __ldg(bias + (size_t)c * Fout + f) : 0.f;
+        for (int m = lane; m < AS; m += 32) as[r * AS + m] = m < N ? ld(ac + r * N + m) : 0.f;
+      const float bc = f < Fout ? ld(bias + (size_t)c * Fout + f) : 0.f;
       __syncthreads();
 
       // HW_c rows warp + SG_WARPS i of this column: X_b W_c, then + b_c
@@ -313,36 +345,38 @@ small_graph_kernel(const float* __restrict__ adj, const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < SG_ROWS; ++i) {
         const int r = warp + i * SG_WARPS;
-        if (r < N) out[(b * N + r) * Fout + f] = acc[i];
+        if (r < N) st(out + (b * N + r) * Fout + f, acc[i]);
       }
     }
   }
 }
 
-// out = the runs of part added in split order (+ bias), element by element:
-// total = batch * M * N outputs, out_z = M * N
+// out = the runs of part added in split order (+ bias), element by element,
+// rounded to TO: total = batch * M * N outputs, out_z = M * N
+template <typename TB, typename TO>
 __global__ void __launch_bounds__(256)
-sum_splits(const float* __restrict__ part, const float* __restrict__ bias,
-           float* __restrict__ out, long long total, long long out_z, long long bias_z,
+sum_splits(const float* __restrict__ part, const TB* __restrict__ bias,
+           TO* __restrict__ out, long long total, long long out_z, long long bias_z,
            int N, int splits) {
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
        i += (long long)gridDim.x * 256) {
     float v = __ldg(part + i);
     for (int sp = 1; sp < splits; ++sp) v += __ldg(part + sp * total + i);
-    if (bias) v += __ldg(bias + i / out_z * bias_z + i % N);
-    out[i] = v;
+    if (bias) v += ld(bias + i / out_z * bias_z + i % N);
+    st(out + i, v);
   }
 }
 
 // launched: incremented once for each kernel launched
-template <int BM, int BN, int BK, int TM, int TN, bool SPLIT>
-cudaError_t launch(const Gemm& g, float* part, int splits, cudaStream_t stream,
+template <int BM, int BN, int BK, int TM, int TN, bool SPLIT, typename TA, typename TB,
+          typename TO>
+cudaError_t launch(const Gemm<TA, TB, TO>& g, float* part, int splits, cudaStream_t stream,
                    int* launched) {
   const long long blocks =
       g.batch * ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN) * splits;
   if (blocks == 0) return cudaSuccess;
   const unsigned grid = (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID);
-  gemm_kernel<BM, BN, BK, TM, TN, SPLIT><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
+  gemm_kernel<TA, TB, TO, BM, BN, BK, TM, TN, SPLIT><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
       g, part, splits);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -350,14 +384,16 @@ cudaError_t launch(const Gemm& g, float* part, int splits, cudaStream_t stream,
   if (splits == 1) return e;
   const long long total = g.batch * g.M * g.N;
   const long long sum_blocks = (total + 255) / 256;
-  sum_splits<<<(unsigned)(sum_blocks < MAX_GRID ? sum_blocks : MAX_GRID), 256, 0, stream>>>(
+  sum_splits<TB, TO><<<(unsigned)(sum_blocks < MAX_GRID ? sum_blocks : MAX_GRID), 256, 0,
+                        stream>>>(
       part, g.bias, g.out, total, g.M * g.N, g.bias_z, g.N, splits);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
 }
 
-bool large_tiles(const Gemm& g) {
+template <typename G>
+bool large_tiles(const G& g) {
   return g.batch * ((g.M + 127) / 128) * ((g.N + 127) / 128) >= SMS;
 }
 
@@ -366,7 +402,8 @@ bool large_tiles(const Gemm& g) {
 // A mid-sized GEMM (N 600 and 1024 in chip_smoke.py: 128-152 blocks of 4
 // warps, 38-128 steps of 16 terms) is otherwise a chain of dependent loads
 // on a few warps an SM.
-int split_count(const Gemm& g) {
+template <typename G>
+int split_count(const G& g) {
   if (large_tiles(g)) return 1;
   const long long blocks = g.batch * ((g.M + 31) / 32) * ((g.N + 63) / 64);
   const int steps = g.nsum * ((g.K + 15) / 16);
@@ -378,7 +415,8 @@ int split_count(const Gemm& g) {
 // the launch shape by size: large tiles once they fill every SM, else small
 // ones, their steps cut into runs where the blocks are few (split_count);
 // part: room for the runs' partial outputs
-cudaError_t run(const Gemm& g, float* part, cudaStream_t stream, int* launched) {
+template <typename TA, typename TB, typename TO>
+cudaError_t run(const Gemm<TA, TB, TO>& g, float* part, cudaStream_t stream, int* launched) {
   return large_tiles(g)
              ? launch<128, 128, 8, 8, 8, false>(g, nullptr, 1, stream, launched)
              : launch<32, 64, 16, 4, 4, true>(g, part, split_count(g), stream, launched);
@@ -388,10 +426,12 @@ bool small_graph(int N, int Fin) {
   return N <= SG_MAX_N && small_graph_floats(N, Fin) * (long long)sizeof(float) <= SG_SMEM;
 }
 
-// The projection HW[c] = X W_c + bias_c, X read as one [B*N, Fin] matrix.
-Gemm projection(const float* x, const float* w, const float* bias, float* hw,
-                int C, int B, int N, int Fin, int Fout) {
-  Gemm g{};
+// The projection HW[c] = X W_c + bias_c, X read as one [B*N, Fin] matrix,
+// written in f32.
+template <typename T>
+Gemm<T, T, float> projection(const T* x, const T* w, const T* bias, float* hw, int C, int B,
+                             int N, int Fin, int Fout) {
+  Gemm<T, T, float> g{};
   g.a = x;
   g.b = w;
   g.bias = bias;
@@ -410,10 +450,12 @@ Gemm projection(const float* x, const float* w, const float* bias, float* hw,
   return g;
 }
 
-// The aggregation out[b] = sum_c A[c, b] HW[c, b] over the C*N terms.
-Gemm aggregation(const float* adj, const float* hw, float* out, int C, int B, int N,
-                 int Fout) {
-  Gemm g{};
+// The aggregation out[b] = sum_c A[c, b] HW[c, b] over the C*N terms, HW
+// read in f32.
+template <typename T>
+Gemm<T, float, T> aggregation(const T* adj, const float* hw, T* out, int C, int B, int N,
+                              int Fout) {
+  Gemm<T, float, T> g{};
   g.a = adj;
   g.b = hw;
   g.out = out;
@@ -434,23 +476,50 @@ Gemm aggregation(const float* adj, const float* hw, float* out, int C, int B, in
 }
 
 // floats of the split runs' partial outputs of one GEMM (0: not split)
-long long part_floats(const Gemm& g) {
+template <typename G>
+long long part_floats(const G& g) {
   const int splits = split_count(g);
   return splits == 1 ? 0 : splits * g.batch * g.M * g.N;
+}
+
+// out [B, N, Fout] = sum_c adj[c, b] (x[b] w[c] + bias[c]) in T, as the C
+// entries below say.
+template <typename T>
+int gconv(const T* adj, const T* x, const T* w, const T* bias, float* scratch, T* out,
+          int C, int B, int N, int Fin, int Fout, void* stream, int* launched) {
+  *launched = 0;
+  if (C <= 0 || B <= 0 || N <= 0 || Fin < 0 || Fout <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (small_graph(N, Fin)) {
+    const size_t small_bytes = small_graph_floats(N, Fin) * sizeof(float);
+    const long long blocks = (long long)B * ((Fout + SG_TF - 1) / SG_TF);
+    const unsigned grid = (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID);
+    small_graph_kernel<T><<<grid, SG_WARPS * 32, small_bytes, s>>>(adj, x, w, bias, out, C, B,
+                                                                   N, Fin, Fout);
+    const cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess) *launched = 1;
+    return (int)e;
+  }
+  float* hw = scratch;                                  // [C, B, N, Fout]
+  float* part = scratch + (long long)C * B * N * Fout;  // the split runs
+  cudaError_t e = run(projection<T>(x, w, bias, hw, C, B, N, Fin, Fout), part, s, launched);
+  if (e != cudaSuccess) return (int)e;
+  return (int)run(aggregation<T>(adj, hw, out, C, B, N, Fout), part, s, launched);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch kgcn_gconv_f32 needs for these sizes: 0 for the
-// small-graph design; else C*B*N*Fout for the projection, then room for the
-// partial outputs of whichever GEMM has its steps cut into runs.
+// Floats of scratch kgcn_gconv_f32 and kgcn_gconv_bf16 need for these
+// sizes: 0 for the small-graph design; else C*B*N*Fout for the projection,
+// then room for the partial outputs of whichever GEMM has its steps cut
+// into runs.
 long long kgcn_gconv_f32_scratch_floats(int C, int B, int N, int Fin, int Fout) {
   if (small_graph(N, Fin)) return 0;
-  const long long parts =
-      std::max(part_floats(projection(nullptr, nullptr, nullptr, nullptr, C, B, N, Fin, Fout)),
-               part_floats(aggregation(nullptr, nullptr, nullptr, C, B, N, Fout)));
+  const long long parts = std::max(
+      part_floats(projection<float>(nullptr, nullptr, nullptr, nullptr, C, B, N, Fin, Fout)),
+      part_floats(aggregation<float>(nullptr, nullptr, nullptr, C, B, N, Fout)));
   return (long long)C * B * N * Fout + parts;
 }
 
@@ -462,24 +531,19 @@ long long kgcn_gconv_f32_scratch_floats(int C, int B, int N, int Fin, int Fout) 
 int kgcn_gconv_f32(const float* adj, const float* x, const float* w,
                    const float* bias, float* scratch, float* out, int C, int B, int N,
                    int Fin, int Fout, void* stream, int* launched) {
-  *launched = 0;
-  if (C <= 0 || B <= 0 || N <= 0 || Fin < 0 || Fout <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (small_graph(N, Fin)) {
-    const size_t small_bytes = small_graph_floats(N, Fin) * sizeof(float);
-    const long long blocks = (long long)B * ((Fout + SG_TF - 1) / SG_TF);
-    const unsigned grid = (unsigned)(blocks < MAX_GRID ? blocks : MAX_GRID);
-    small_graph_kernel<<<grid, SG_WARPS * 32, small_bytes, s>>>(adj, x, w, bias, out, C, B,
-                                                                N, Fin, Fout);
-    const cudaError_t e = cudaGetLastError();
-    if (e == cudaSuccess) *launched = 1;
-    return (int)e;
-  }
-  float* hw = scratch;                                  // [C, B, N, Fout]
-  float* part = scratch + (long long)C * B * N * Fout;  // the split runs
-  cudaError_t e = run(projection(x, w, bias, hw, C, B, N, Fin, Fout), part, s, launched);
-  if (e != cudaSuccess) return (int)e;
-  return (int)run(aggregation(adj, hw, out, C, B, N, Fout), part, s, launched);
+  return gconv<float>(adj, x, w, bias, scratch, out, C, B, N, Fin, Fout, stream, launched);
+}
+
+// The same on bf16 operands and a bf16 output (the scratch is f32, of
+// kgcn_gconv_f32_scratch_floats floats): f32 sums, one rounding at the
+// output.
+int kgcn_gconv_bf16(const void* adj, const void* x, const void* w, const void* bias,
+                    float* scratch, void* out, int C, int B, int N, int Fin, int Fout,
+                    void* stream, int* launched) {
+  using T = __nv_bfloat16;
+  return gconv<T>(static_cast<const T*>(adj), static_cast<const T*>(x),
+                  static_cast<const T*>(w), static_cast<const T*>(bias), scratch,
+                  static_cast<T*>(out), C, B, N, Fin, Fout, stream, launched);
 }
 
 const char* kgcn_cuda_error_string(int code) {

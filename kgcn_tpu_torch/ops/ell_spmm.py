@@ -2,8 +2,10 @@
 
 ``out[v] = Σ_c Σ_k w[c,v,k] · x_c[idx[c,v,k]]`` over padded per-row
 neighbour lists (idx int32 ``[C, V, K]``, or ``[V, K]`` for one channel; w
-float32 of the same shape; x ``[C, N, F]`` per channel or ``[N, F]`` shared,
-float32 or bf16).
+of the same shape, float32 or bf16 (a batch's slot weights under
+``"precision": "bfloat16"``, read as bf16 and widened in the kernel, as the
+Pallas kernel widens them); x ``[C, N, F]`` per channel or ``[N, F]``
+shared, float32 or bf16).
 
 * ``spmm_ell_gpu`` launches the hand-written Hopper kernel ``csrc/ell.cu``
   (which replaces the Pallas ``_ell_kernel``) for CUDA tensors, ONE launch
@@ -74,9 +76,9 @@ def _lib():
     lib = _build.load("ell")
     if lib.kgcn_ell_spmm.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.kgcn_ell_spmm.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.kgcn_ell_spmm.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.kgcn_ell_spmm.restype = i32
-        lib.kgcn_ell_dx.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.kgcn_ell_dx.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.kgcn_ell_dx.restype = i32
     return lib
 
@@ -101,8 +103,8 @@ def _aligned(t):
 def _check_kernel_operands(idx, w, src):
     if idx.dtype != torch.int32:
         raise TypeError(f"ELL kernel takes int32 indices, got {idx.dtype}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"ELL kernel takes float32 weights, got {w.dtype}")
+    if w.dtype not in _DTYPES:
+        raise TypeError(f"ELL kernel takes float32 or bfloat16 weights, got {w.dtype}")
     if src.dtype not in _DTYPES:
         raise TypeError(f"ELL kernel takes float32 or bfloat16 x, got {src.dtype}")
     for name, t in (("idx", idx), ("w", w), ("x", src)):
@@ -128,7 +130,7 @@ def _launch(idx, w, x):
     lib = _lib()
     code = _call(x, lib.kgcn_ell_spmm, idx.data_ptr(), w.data_ptr(), x.data_ptr(),
                  out.data_ptr(), C, V, K, N, F, int(x.dim() == 2),
-                 int(x.dtype == torch.bfloat16))
+                 int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
     _build.check(lib, code, "ell_spmm launch")
     spmm_ell_gpu.launches += 1
     return out
@@ -163,7 +165,7 @@ def _dx_launch(offsets, slots, w, g, x_shape):
     lib = _lib()
     code = _call(g, lib.kgcn_ell_dx, slots.data_ptr(), offsets.data_ptr(), w.data_ptr(),
                  g.data_ptr(), dx.data_ptr(), C, V, K, N, F, int(len(x_shape) == 2),
-                 int(g.dtype == torch.bfloat16))
+                 int(g.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16))
     _build.check(lib, code, "ell_dx launch")
     spmm_ell_dx_gpu.launches += 1
     return dx

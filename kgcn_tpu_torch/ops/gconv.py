@@ -10,18 +10,22 @@ adj ``[C, B, N, N]``, x ``[B, N, Fin]``, w ``[C, Fin, Fout]``, b ``[C, Fout]``
   ``kgcn_torch::gconv`` (``torch.ops.kgcn_torch.gconv``) with a fake
   implementation for its output's shape, so that ``torch.export`` captures
   it as one call (``runtime/export.py``).  On CUDA tensors it launches the
-  hand-written Hopper kernel ``csrc/gconv.cu`` (float32, any N and B: one
-  launch per call for molecule-sized graphs, else the projection
-  ``X W_c + b_c`` into a scratch the wrapper allocates, then the
-  aggregation over it); on CPU tensors it computes ``gconv_reference``.  It
-  never falls back from one to the other.
+  hand-written Hopper kernel ``csrc/gconv.cu`` (any N and B: one launch
+  per call for molecule-sized graphs, else the projection ``X W_c + b_c``
+  into a scratch the wrapper allocates, then the aggregation over it):
+  ``kgcn_gconv_f32`` on float32 operands, ``kgcn_gconv_bf16`` on bf16
+  ones (``"precision": "bfloat16"``: bf16 read, f32 sums, one rounding to
+  bf16 at the output, the Pallas kernel's semantics on bf16 refs); a mix
+  of types raises ``TypeError``.  On CPU tensors it computes
+  ``gconv_reference``.  It never falls back from one to the other.
 * The backward is the torch translation of ``_bwd``
   (``pallas_gconv.py:139-152``): einsums for dA, dX, dW and db, as the JAX
-  package computes it with XLA einsums.
+  package computes it with XLA einsums, in the operands' dtype.
 * ``gconv.launches`` counts the CUDA kernels a call launched, as the C
   entry reports them (one, or the two or three of the projection, the
   aggregation and the sum of its split runs), and nothing else, so a run
-  can show that its path went through the kernel.
+  can show that its path went through the kernel; ``gconv.bf16_launches``
+  counts those of the bf16 entry alone.
 """
 from __future__ import annotations
 
@@ -33,9 +37,14 @@ from kgcn_tpu_torch.ops import _build
 
 def gconv_reference(adj, x, w, b):
     """Plain PyTorch version: per-channel ``X W_c + b_c``, then aggregate —
-    the kernel's arithmetic, one einsum at a time."""
+    the kernel's arithmetic, one einsum at a time.  bf16 operands are
+    widened to float32 and the result rounded to bf16 once (the Pallas
+    kernel's f32 accumulation, ``pallas_gconv.py:33-53``)."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        adj, x, w, b = (t.to(torch.float32) for t in (adj, x, w, b))
     hw = torch.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
-    return torch.einsum("cbnm,cbmf->bnf", adj, hw)
+    return torch.einsum("cbnm,cbmf->bnf", adj, hw).to(dtype)
 
 
 def _check(adj, x, w, b):
@@ -58,31 +67,38 @@ def _check(adj, x, w, b):
         raise ValueError(f"gconv operands on several devices: {devices}")
 
 
+_ENTRIES = {torch.float32: "kgcn_gconv_f32", torch.bfloat16: "kgcn_gconv_bf16"}
+
+
 def _launch(adj, x, w, b):
-    """One call of the CUDA kernel; float32, contiguous, one device."""
+    """One call of the CUDA kernel: all four operands float32
+    (``kgcn_gconv_f32``) or all bf16 (``kgcn_gconv_bf16``, which reads them
+    as bf16: no float32 copy is made), contiguous, on one device; the
+    output in their type."""
+    dtypes = {t.dtype for t in (adj, x, w, b)}
+    if len(dtypes) != 1 or x.dtype not in _ENTRIES:
+        raise TypeError(
+            "gconv CUDA kernel takes all-float32 or all-bfloat16 operands; got "
+            f"adj {adj.dtype}, x {x.dtype}, w {w.dtype}, b {b.dtype}")
     for name, t in (("adj", adj), ("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"gconv CUDA kernel takes float32 only; {name} is {t.dtype} "
-                "(bf16 is listed in ROADMAP.md)"
-            )
         if not t.is_contiguous():
             raise ValueError(f"gconv CUDA kernel needs contiguous {name}")
     C, B, N, _ = adj.shape
     Fin, Fout = w.shape[1], w.shape[2]
-    out = torch.empty((B, N, Fout), device=x.device, dtype=torch.float32)
+    out = torch.empty((B, N, Fout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
     lib = _build.load("gconv")
-    fn = lib.kgcn_gconv_f32
+    fn = getattr(lib, _ENTRIES[x.dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         lib.kgcn_gconv_f32_scratch_floats.argtypes = [ctypes.c_int] * 5
         lib.kgcn_gconv_f32_scratch_floats.restype = ctypes.c_longlong
-    # the projection's (and the split runs') scratch where the kernel takes
-    # its two-launch design (none for molecule-sized graphs)
+    # the projection's (and the split runs') float32 scratch where the
+    # kernel takes its two-launch design (none for molecule-sized graphs);
+    # the same for both types
     floats = lib.kgcn_gconv_f32_scratch_floats(C, B, N, Fin, Fout)
     scratch = (torch.empty(floats, device=x.device, dtype=torch.float32)
                if floats else None)
@@ -94,6 +110,8 @@ def _launch(adj, x, w, b):
                   C, B, N, Fin, Fout, stream, ctypes.byref(launched))
     _build.check(lib, code, "gconv launch")
     gconv.launches += launched.value
+    if x.dtype == torch.bfloat16:
+        gconv.bf16_launches += launched.value
     return out
 
 
@@ -151,3 +169,4 @@ def gconv(adj, x, w, b):
 
 
 gconv.launches = 0
+gconv.bf16_launches = 0  # the bf16 kernel's launches (in gconv.launches too)

@@ -78,3 +78,11 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict] = None):
     if overrides:
         cfg.update({k: v for k, v in overrides.items() if v is not None})
     return cfg
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    """The merged config as JSON (``--save-config``), without the
+    underscore keys of per-process resolution state."""
+    public = {k: v for k, v in cfg.items() if not k.startswith("_")}
+    with open(path, "w") as f:
+        json.dump(public, f, indent=2, default=str)

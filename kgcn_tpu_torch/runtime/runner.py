@@ -247,6 +247,7 @@ class TrainRunner(_Runner):
                                     allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(self.names, grads)}
+        t.check_finite(out.cost_opt, grads)  # debug_nan only (eager steps)
         with torch.no_grad():
             row = self.table.index_select(0, i)[0]
             updates, opt = t.tx.update_row(grads, self.opt, self.params, row)

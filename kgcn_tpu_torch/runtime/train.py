@@ -172,9 +172,41 @@ class Trainer:
         self.config = config
         self.info = info
         self.tx = tx if tx is not None else make_optimizer(config)
-        self.capture = bool(capture) and self.device.type == "cuda"
+        # debug_nan (kgcn_tpu's jax_debug_nans): the run stops at the first
+        # non-finite cost or gradient; each step is checked, so the runners
+        # run eagerly (a captured step cannot read the card)
+        self.debug_nan = bool(config.get("debug_nan"))
+        self.capture = (bool(capture) and self.device.type == "cuda"
+                        and not self.debug_nan)
+        # mixed precision (kgcn_tpu/runtime/train.py:162-169): "precision":
+        # "bfloat16" casts each step's batch payload to bf16 (``_cast``);
+        # parameters, optimizer state and losses stay float32
+        self.compute_dtype = (torch.bfloat16
+                              if str(config.get("precision", "float32")) == "bfloat16"
+                              else None)
         self._restored_best_cost = np.inf
         self._runners: Dict[tuple, Any] = {}
+
+    def _cast(self, batch):
+        """``batch`` with its compute payload in ``compute_dtype``
+        (``Batch.cast_compute``), as ``kgcn_tpu``'s ``Trainer._cast``: a
+        batch type without ``cast_compute`` (the pair engine's) stays as it
+        is."""
+        if self.compute_dtype is not None and hasattr(batch, "cast_compute"):
+            return batch.cast_compute(self.compute_dtype)
+        return batch
+
+    def check_finite(self, cost, grads) -> None:
+        """With ``debug_nan``: raise ``FloatingPointError`` if the step's cost
+        or a gradient is not finite (one read of the device a step)."""
+        if not self.debug_nan:
+            return
+        cost = cost.detach()
+        bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+        if not bool(torch.isfinite(cost).all()) or bad:
+            raise FloatingPointError(
+                f"debug_nan: non-finite {'gradient of ' + ', '.join(bad) if bad else 'cost'}"
+                f" (cost {float(cost)})")
 
     # ---- state ---------------------------------------------------------
     def _generator(self, seed: int) -> torch.Generator:
@@ -259,7 +291,7 @@ class Trainer:
         """One optimizer step → (new state, cost_sum, metrics), on the
         device.  The BN running statistics are updated in copies of the
         state's buffers (the layers update them in place)."""
-        batch = batch.to(self.device)
+        batch = self._cast(batch.to(self.device))
         names = list(state.params)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         stats = {k: v.clone() for k, v in state.batch_stats.items()}
@@ -269,6 +301,7 @@ class Trainer:
                                     allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        self.check_finite(out.cost_opt, grads)
         with torch.no_grad():
             updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
             new_params = {k: state.params[k] + updates[k] for k in names}
@@ -281,7 +314,7 @@ class Trainer:
     def eval_step(self, params, batch_stats, batch: Batch):
         """(prediction, cost_sum, metrics) of one batch, on the device."""
         out = functional_call(
-            self.model, {**params, **batch_stats}, (batch.to(self.device),),
+            self.model, {**params, **batch_stats}, (self._cast(batch.to(self.device)),),
             {"train": False},
         )
         return out.prediction, out.cost_sum, out.metrics
@@ -289,12 +322,18 @@ class Trainer:
     # ---- whole-epoch runners -------------------------------------------
     def _runner(self, kind, key, n_steps, make, xs, keep_alive):
         """The runner of ``kind`` for one batcher's data (``key``) and epoch
-        length, made (and on the card captured) at its first epoch."""
+        length, made (and on the card captured) at its first epoch.  Its
+        step batches are cast (``_cast``) where they are made, inside the
+        step, as ``kgcn_tpu`` casts inside its scanned step."""
         full = (kind, key, n_steps)
         runner = self._runners.get(full)
         if runner is None:
             cls = TrainRunner if kind != "eval" else EvalRunner
-            runner = self._runners[full] = cls(self, n_steps, make, xs, keep_alive)
+
+            def cast_make(i, xs, generator=None):
+                return self._cast(make(i, xs, generator))
+
+            runner = self._runners[full] = cls(self, n_steps, cast_make, xs, keep_alive)
         return runner
 
     def epoch_on_device(self, state: TrainState, batcher, shuffle=True,

@@ -375,7 +375,7 @@ def test_the_kernel_wrapper_checks_its_operands():
         tes.spmm_ell_gpu(idx, w[:, :1], x)
     with pytest.raises(TypeError, match="int32 indices"):
         tes._launch(idx.long(), w, x)
-    with pytest.raises(TypeError, match="float32 weights"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 weights"):
         tes._launch(idx, w.double(), x)
     with pytest.raises(TypeError, match="float32 or bfloat16 x"):
         tes._launch(idx, w, x.double())

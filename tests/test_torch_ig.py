@@ -172,18 +172,29 @@ def test_stream_ig_matches_the_dense_ig(pair):
 
 
 def test_pallas_ell_ig_is_refused(pair):
-    """The ELL arrays bake each slot's weight in: IG on the pallas backend
-    over a batch that carries them raises rather than take another route;
-    without them (the dataset's layout refused) the copies take the
-    edge-list route the pallas training step takes, equal to JAX's."""
+    """IG on the pallas backend, which the port no longer refuses (the
+    test keeps its name).  Without ELL arrays (the dataset's layout
+    refused) the copies take the edge-list route the pallas training step
+    takes, equal to JAX's; with them the copies carry the ELL arrays and
+    their baked slot weights, which the layers read in place of
+    ``edge_weights``: the adjacency's IG is 0 and F(1) − F(0) scales the
+    features alone, as in ``kgcn_tpu`` (``test_visualize_on_ell_backends_
+    writes_the_jax_dumps`` holds the dumps to JAX's on ring graphs)."""
     jbatch, tbatch = _batches(pair, [1])
     g = tbatch.graph.replace(backend="pallas")
     got = tig.integrated_gradients(pair[4], pair[5], tbatch.replace(graph=g), steps=STEPS)
     _close(got, _jax_ig(pair, jbatch, steps=STEPS))
-    ell = torch.zeros((1, g.total_nodes, 1), dtype=torch.int32)
-    g = g.replace(ell_senders=ell, ell_weights=ell.float())
-    with pytest.raises(NotImplementedError, match="not yet ported.*A.5"):
-        tig.integrated_gradients(pair[4], pair[5], tbatch.replace(graph=g), steps=STEPS)
+    from kgcn_tpu_torch.ops.ell_spmm import coo_to_ell_device
+
+    ell, w = coo_to_ell_device(g.senders[0], g.receivers[0], g.edge_weights[0],
+                               g.total_nodes, 8)
+    g = g.replace(ell_senders=ell[None], ell_weights=w[None])
+    igs, check = tig.integrated_gradients(pair[4], pair[5], tbatch.replace(graph=g),
+                                          steps=200)
+    assert not np.any(igs["adjs_IG"])  # the baked weights are what is read
+    assert np.any(igs["features_IG"])
+    # completeness over the features alone
+    assert check["sum_of_IG"] == pytest.approx(check["check_score"], rel=0.05)
 
 
 @pytest.mark.parametrize("smooth,plain", [("smooth_ig", "ig"), ("smooth_grad", "grad")])
@@ -296,9 +307,157 @@ def test_visualize_tiled_config_writes_the_jax_dumps(tmp_path, pair, capsys):
     assert "[spmm] backend: tiled" in capsys.readouterr().out
 
 
-def test_visualize_refuses_the_kg_route(tmp_path):
-    from kgcn_tpu_torch.cli.main import cmd_visualize
+def test_visualize_refuses_the_kg_route(tmp_path, monkeypatch):
+    """The KG route of ``visualize``, which the port no longer refuses (the
+    test keeps its name): ``cmd_visualize`` routes as ``kgcn_tpu``'s
+    (``task: link_prediction``, an ``edge*`` ``visualize_type``, or a
+    node-embedding dataset with KG triples) to ``explain/kg_ig.py``
+    (tests/test_torch_kg_ig.py holds its output to JAX's)."""
+    from kgcn_tpu_torch.cli import main as cli
 
-    cfg, _ = _viz_config(tmp_path, "port", task="link_prediction")
-    with pytest.raises(NotImplementedError, match="not yet ported.*A.10"):
-        cmd_visualize(cfg, device="cpu")
+    calls = []
+    monkeypatch.setattr(cli, "run_kg_visualization",
+                        lambda config, raw=None, device=None: calls.append(raw) or ["kg"])
+    for over in ({"task": "link_prediction"}, {"visualize_type": "edge"}):
+        cfg, _ = _viz_config(tmp_path, f"port{len(calls)}", **over)
+        assert cli.cmd_visualize(cfg, device="cpu") == ["kg"]
+    assert calls == [None, None]
+    # a node-embedding graph dataset without triples stays on the graph route
+    monkeypatch.setattr(cli, "run_visualization",
+                        lambda config, device=None, raw=None: ["graph"])
+    cfg, _ = _viz_config(tmp_path, "port2", with_node_embedding=True)
+    assert cli.cmd_visualize(cfg, device="cpu") == ["graph"] and len(calls) == 2
+
+
+# ---- ELL backends, vector modals, the sequence-embedding layer ---------------------
+
+
+def _ring_viz_both(tmp_path, backend, model):
+    """``kgcn_tpu`` trains ``model`` one epoch on ring6 graphs with
+    ``backend`` and runs ``visualize``; the port runs ``visualize`` on that
+    checkpoint.  → (JAX dump dir, port dump dir, port's stdout)."""
+    from kgcn_tpu.cli.main import main as j_main
+    from kgcn_tpu_torch.cli.main import main as t_main
+    from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+
+    with open(tmp_path / "ring6.jbl", "wb") as f:
+        pickle.dump(make_ring_dataset(num_pairs=20, num_nodes=6, seed=0), f, protocol=4)
+    with open(os.path.join(REPO, "example_config/gin.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"dataset": str(tmp_path / "ring6.jbl"), "spmm_backend": backend,
+                "model.py": model, "epoch": 1, "save_model_path": str(tmp_path / "model"),
+                "visualize_num": 2, "ig_divide_number": STEPS})
+    paths = {}
+    for side in ("jax", "port"):
+        paths[side] = tmp_path / f"{side}.json"
+        paths[side].write_text(json.dumps(dict(cfg, visualize_path=str(tmp_path / side))))
+    with jax_backend(backend):
+        j_main(["train", "--config", str(paths["jax"]), "--cpu"])
+        j_main(["visualize", "--config", str(paths["jax"]), "--cpu"])
+    t_main(["visualize", "--config", str(paths["port"]), "--cpu"])
+    return tmp_path / "jax", tmp_path / "port"
+
+
+@pytest.mark.parametrize("backend,model", [("pallas", "gin"), ("xla", "gin"),
+                                           ("pallas", "gcn")])
+def test_visualize_on_ell_backends_writes_the_jax_dumps(tmp_path, backend, model):
+    """``visualize`` on ring graphs, whose batches carry ELL arrays on
+    ``pallas`` and ``xla``: the port's dumps are ``kgcn_tpu``'s (its
+    checkpoint read through the flax-msgpack reader), keys, shapes and
+    values (rtol 1e-4), the adjacency's IG 0 as there (the ELL arrays'
+    baked weights are what the layers read)."""
+    jdir, tdir = _ring_viz_both(tmp_path, backend, model)
+    names = sorted(os.listdir(jdir))
+    assert len(names) == 2 and sorted(os.listdir(tdir)) == names
+    for name in names:
+        want = joblib.load(jdir / name)
+        with open(tdir / name, "rb") as f:
+            got = pickle.load(f)
+        assert set(got) == set(want)
+        assert not np.any(want["adjs_IG"]) and not np.any(got["adjs_IG"])
+        for key, w in want.items():
+            np.testing.assert_allclose(np.asarray(got[key]), np.asarray(w), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{name} {key}")
+
+
+def _mm_pair(name, data_key):
+    from test_torch_multimodal import DATA, _both
+
+    jm, variables, jb, m, b, _ = _both(name, DATA[data_key](), "classification", bs=4)
+    tvars = {**dict(m.named_parameters()), **dict(m.named_buffers())}
+    return jm, variables, jb, m.eval(), {k: v.detach() for k, v in tvars.items()}, b
+
+
+def test_vector_modal_ig_matches_jax():
+    """The vector modals are scaled and attributed with the features and
+    the adjacency (``gcn_vector_modal``, two modals): ``vector_modal_IG`` and
+    the completeness check as ``kgcn_tpu``'s (rtol 1e-4)."""
+    from kgcn_tpu.explain.ig import integrated_gradients as j_ig
+
+    jm, jvars, jb, m, tvars, b = _mm_pair("gcn_vector_modal", "vm2")
+    want = j_ig(jax.tree_util.Partial(jm.apply), jvars, jb, steps=STEPS)
+    got = tig.integrated_gradients(m, tvars, b, steps=STEPS)
+    _close(got, want)
+    assert len(got[0]["vector_modal_IG"]) == 2
+    for g, w in zip(got[0]["vector_modal_IG"], want[0]["vector_modal_IG"]):
+        assert np.any(w)
+        np.testing.assert_allclose(g, np.asarray(w), **IG_TOL)
+
+
+@pytest.mark.parametrize("target,label_index", [("max", None), ("index", 1)])
+def test_embedded_layer_ig_matches_jax(target, label_index):
+    """IG of the sequence-embedding layer of ``multimodal.json``'s model
+    (``gcn_multimodal`` on example_jbl/multimodal.jbl): the embedded layer,
+    its IG and the check as ``kgcn_tpu``'s ``embedded_layer_ig`` (1e-4)."""
+    from kgcn_tpu.explain.ig import embedded_layer_ig as j_emb
+
+    jm, jvars, jb, m, tvars, b = _mm_pair("gcn_multimodal", "multimodal.jbl")
+    wemb, wig, wcheck = j_emb(jm, jvars, jb, steps=STEPS, target=target,
+                              label_index=label_index)
+    temb, tig_, tcheck = tig.embedded_layer_ig(m, tvars, b, steps=STEPS, target=target,
+                                               label_index=label_index)
+    np.testing.assert_allclose(temb, wemb, rtol=1e-6)
+    assert np.any(wig)
+    np.testing.assert_allclose(tig_, wig, rtol=1e-4, atol=1e-4 * np.abs(wig).max())
+    for key in ("check_score", "sum_of_IG"):
+        np.testing.assert_allclose(tcheck[key], wcheck[key], rtol=1e-4, atol=1e-6)
+
+
+def test_visualize_multimodal_writes_the_jax_dumps(tmp_path):
+    """``visualize`` on ``multimodal.json``: the dumps carry the embedded
+    layer, its IG and check beside the graph's, all as ``kgcn_tpu``'s."""
+    from kgcn_tpu.cli.main import cmd_visualize as j_visualize
+    from kgcn_tpu.runtime import checkpoint as jckpt
+    from kgcn_tpu.runtime.train import Trainer as JTrainer
+    from kgcn_tpu_torch.cli.main import main as t_main
+
+    jm, jvars, jb, _, _, _ = _mm_pair("gcn_multimodal", "multimodal.jbl")
+    with open(os.path.join(REPO, "example_config/multimodal.json")) as f:
+        cfg = json.load(f)
+    cfg.update({"dataset": os.path.join(REPO, cfg["dataset"]), "dropout_rate": 0.0,
+                "save_model_path": str(tmp_path / "model"), "visualize_num": 2,
+                "ig_divide_number": STEPS, "task": "classification",
+                "normalize_adj_flag": True})
+    jtr = JTrainer(jm, cfg, None)
+    state = jtr.init_state(jb, seed=0).replace(params=jvars["params"])
+    os.makedirs(tmp_path / "model")
+    jckpt.save_checkpoint(str(tmp_path / "model" / "model.best.ckpt"),
+                          jax.device_get(jtr.state_tree(state, 0, 0.0)))
+    j_visualize(dict(cfg, visualize_path=str(tmp_path / "jax")))
+    path = tmp_path / "port.json"
+    path.write_text(json.dumps(dict(cfg, visualize_path=str(tmp_path / "port"))))
+    t_main(["visualize", "--config", str(path), "--cpu"])
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert len(names) == 2 and sorted(os.listdir(tmp_path / "port")) == names
+    for name in names:
+        want = joblib.load(tmp_path / "jax" / name)
+        with open(tmp_path / "port" / name, "rb") as f:
+            got = pickle.load(f)
+        assert set(got) == set(want) and "embedded_layer_IG" in got
+        for key, w in want.items():
+            if key == "mol":
+                continue
+            w = np.asarray(w)
+            np.testing.assert_allclose(np.asarray(got[key]), w, rtol=1e-4,
+                                       atol=1e-4 * max(np.abs(w).max(), 1e-2),
+                                       err_msg=f"{name} {key}")

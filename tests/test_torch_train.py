@@ -336,15 +336,24 @@ def test_cli_train_writes_the_jax_runs_files(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """What the port still refuses (A.11's parallel layer and TensorFlow's
+    SavedModel); ``precision`` and the KG route of ``visualize`` now run
+    (tests/test_torch_precision.py, test_torch_kg_ig.py)."""
     from kgcn_tpu_torch.cli.main import main as t_main
 
-    for argv, over in ((["train_cv"], {"fold_parallel": "force"}),
-                       (["visualize"], {"task": "link_prediction"})):
-        cfg = _write_config(tmp_path, "gat.json", epoch=1, **over)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            t_main(argv + ["--config", cfg, "--cpu"])
-    for over in ({"export_savedmodel": str(tmp_path / "m")}, {"mesh": {"data": 2}},
-                 {"precision": "bfloat16"}):
+    cfg = _write_config(tmp_path, "gat.json", epoch=1, fold_parallel="force")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        t_main(["train_cv", "--config", cfg, "--cpu"])
+    for over in ({"export_savedmodel": str(tmp_path / "m")}, {"mesh": {"data": 2}}):
         with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
             t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
                     "--cpu"])
+    from kgcn_tpu_torch.runtime.device import set_precision
+
+    try:
+        for precision in ("bfloat16", "highest", "default"):
+            result = t_main(["train", "--config", _write_config(
+                tmp_path, "gat.json", epoch=1, precision=precision), "--cpu"])
+            assert np.isfinite(result["validation_cost"]), precision
+    finally:
+        set_precision("float32")
