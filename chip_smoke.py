@@ -232,9 +232,13 @@ non-zero exit and no result line:
    started and waited for by this one: torch.profiler, whose records the
    phase's launch counts come from, has been seen to record nothing late
    in a long process) — ``"precision": "bfloat16"`` and the rest of
-   ``visualize``: the bf16 gconv kernel (``kgcn_gconv_bf16``) at phase 3's
-   shapes (the serving path's, a misaligned toy, reaction scale, N 600 and
-   1024 with their split runs, 70 000 graphs of 8 nodes) against its plain
+   ``visualize``: the count of tensor-core instructions (HMMA, from
+   ``cuobjdump -sass``) in the built gconv library's bf16 kernels (more
+   than 0) and its float32 ones (0); the bf16 gconv kernel
+   (``kgcn_gconv_bf16``) at phase 3's shapes (the serving path's, a
+   misaligned toy, reaction scale, N 600 and 1024 with their split runs,
+   70 000 graphs of 8 nodes) and the reaction engine's three call shapes
+   (``ENGINE_GCONV``) against its plain
    version (``gconv_reference`` widened to f32, rounded once), kernel and
    plain each within one bf16 rounding of an f64 sum, two launches bitwise
    equal, its launches as the wrapper counts them equal to
@@ -2609,7 +2613,7 @@ RUNNER_CASES = (("gcn dense", CONFIG, {}), ("gat dense", GAT_CONFIG, {}),
 # wrappers count it)
 _START = r"(?:^|void |\d|namespace\)::)"
 KERNEL_COUNTERS = (
-    (_START + r"(?:gemm_kernel|small_graph_kernel|sum_splits)[^(]*__nv_bfloat16",
+    (_START + r"(?:tc::)?(?:gconv_tc_\w+|sum_splits[^(]*__nv_bfloat16)",
      ("gconv", "gconv_bf16")),
     (_START + r"(?:gemm_kernel|small_graph_kernel|sum_splits)", "gconv"),
     (_START + r"ell_kernel(?:<[^,]*,[^,]*,[^,]*,[^,]*, *false|I\w*?Li\d+ELi\d+ELb0E)",
@@ -4337,9 +4341,13 @@ BF16_STEP_RTOL = 2e-2      # GPU vs CPU bf16 step costs (tests/test_torch_precis
 BF16_EINSUM_TOL = 2e-2
 ONE_BF16_ROUNDING = 2.0 ** -8
 # phase 3's shapes the bf16 gconv is held at (N 600 and 1024 take the split
-# runs, B 70 000 the grid-stride loop of the one-launch design)
+# runs, B 70 000 the grid-stride loop of the one-launch design), and the
+# reaction engine's three GraphConv calls at batch 128 (graphs padded to 256)
 PRECISION_GCONV = ("path layer 1", "path layer 2", "path layer 3", "misaligned",
                    "reaction-scale", "N 600", "N 1024", "B 70 000")
+ENGINE_GCONV = [("engine layer 1", (1, 128, 256, 81, 256)),
+                ("engine layer 2", (1, 128, 256, 256, 256)),
+                ("engine layer 3", (1, 128, 256, 256, 256))]
 KG_IG_TARGETS = 2          # visualize_num of the KG visualize run
 KG_IG_STEPS = 30           # ig_divide_number's default on the KG route
 KG_IG_CHECK_STEPS = 5      # the GPU-vs-CPU target's steps
@@ -4380,16 +4388,48 @@ def within_one_bf16_rounding(what, operands, got):
     return float((got.float() - want.float()).abs().max())
 
 
+def hmma_counts():
+    """(HMMA instructions in the built gconv library's bf16 kernels, in its
+    float32 kernels), from ``cuobjdump -sass``: the bf16 entry runs on the
+    tensor cores, the float32 one (JAX's ``highest``) on FP32 FMAs."""
+    from kgcn_tpu_torch.ops import _build
+
+    lib = _build.build(["gconv"])["gconv"]
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {"bf16": 0, "float32": 0}
+    kernels = {"bf16": 0, "float32": 0}
+    kind = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kind = "bf16" if "gconv_tc_" in line or "__nv_bfloat16" in line else "float32"
+            kernels[kind] += 1
+        elif kind and "HMMA" in line:
+            counts[kind] += 1
+    if not kernels["bf16"] or not kernels["float32"]:
+        raise AssertionError(f"cuobjdump found kernels {kernels} in {lib}")
+    return counts, kernels
+
+
 def precision_gconv_check():
-    """The bf16 gconv against its plain version at ``PRECISION_GCONV``."""
+    """The bf16 gconv against its plain version at ``PRECISION_GCONV`` and
+    the reaction engine's call shapes (``ENGINE_GCONV``), after the count of
+    its tensor-core instructions."""
     import torch
 
     from kgcn_tpu_torch.ops.gconv import gconv, gconv_reference
 
+    counts, kernels = hmma_counts()
+    say(f"gconv HMMA instructions (cuobjdump -sass): bf16 kernels {counts['bf16']} "
+        f"(in {kernels['bf16']}), float32 kernels {counts['float32']} "
+        f"(in {kernels['float32']})")
+    if counts["bf16"] <= 0 or counts["float32"] != 0:
+        raise AssertionError(f"gconv HMMA counts {counts}: want bf16 > 0, float32 0")
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    shapes = dict(GCONV_SHAPES)
+    shapes = dict(GCONV_SHAPES + ENGINE_GCONV)
     rows = []
-    for label in PRECISION_GCONV:
+    for label in PRECISION_GCONV + tuple(label for label, _ in ENGINE_GCONV):
         C, B, N, Fin, Fout = shapes[label]
         bf = torch.bfloat16
         adj = (torch.rand((C, B, N, N), device=DEVICE, generator=gen) * (2.0 / N)).to(bf)

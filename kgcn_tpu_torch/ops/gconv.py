@@ -13,10 +13,11 @@ adj ``[C, B, N, N]``, x ``[B, N, Fin]``, w ``[C, Fin, Fout]``, b ``[C, Fout]``
   hand-written Hopper kernel ``csrc/gconv.cu`` (any N and B: one launch
   per call for molecule-sized graphs, else the projection ``X W_c + b_c``
   into a scratch the wrapper allocates, then the aggregation over it):
-  ``kgcn_gconv_f32`` on float32 operands, ``kgcn_gconv_bf16`` on bf16
-  ones (``"precision": "bfloat16"``: bf16 read, f32 sums, one rounding to
-  bf16 at the output, the Pallas kernel's semantics on bf16 refs); a mix
-  of types raises ``TypeError``.  On CPU tensors it computes
+  ``kgcn_gconv_f32`` on float32 operands (FP32 FMAs, one launch up to 64
+  nodes), ``kgcn_gconv_bf16`` on bf16 ones (``"precision": "bfloat16"``:
+  the Pallas kernel's semantics on bf16 refs, f32 sums and one rounding to
+  bf16 at the output, on the tensor cores, one launch up to 256 nodes); a
+  mix of types raises ``TypeError``.  On CPU tensors it computes
   ``gconv_reference``.  It never falls back from one to the other.
 * The backward is the torch translation of ``_bwd``
   (``pallas_gconv.py:139-152``): einsums for dA, dX, dW and db, as the JAX
@@ -67,7 +68,9 @@ def _check(adj, x, w, b):
         raise ValueError(f"gconv operands on several devices: {devices}")
 
 
-_ENTRIES = {torch.float32: "kgcn_gconv_f32", torch.bfloat16: "kgcn_gconv_bf16"}
+# (entry, its scratch size in floats) by operand type
+_ENTRIES = {torch.float32: ("kgcn_gconv_f32", "kgcn_gconv_f32_scratch_floats"),
+            torch.bfloat16: ("kgcn_gconv_bf16", "kgcn_gconv_bf16_scratch_floats")}
 
 
 def _launch(adj, x, w, b):
@@ -83,23 +86,27 @@ def _launch(adj, x, w, b):
     for name, t in (("adj", adj), ("x", x), ("w", w), ("b", b)):
         if not t.is_contiguous():
             raise ValueError(f"gconv CUDA kernel needs contiguous {name}")
+    if x.dtype == torch.bfloat16:
+        # the bf16 kernel stages rows with 16-byte copies from tensors that
+        # start on a 16-byte boundary: a view that does not is copied
+        adj, x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (adj, x, w))
     C, B, N, _ = adj.shape
     Fin, Fout = w.shape[1], w.shape[2]
     out = torch.empty((B, N, Fout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
     lib = _build.load("gconv")
-    fn = getattr(lib, _ENTRIES[x.dtype])
+    fn, sizer = (getattr(lib, name) for name in _ENTRIES[x.dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-        lib.kgcn_gconv_f32_scratch_floats.argtypes = [ctypes.c_int] * 5
-        lib.kgcn_gconv_f32_scratch_floats.restype = ctypes.c_longlong
+        sizer.argtypes = [ctypes.c_int] * 5
+        sizer.restype = ctypes.c_longlong
     # the projection's (and the split runs') float32 scratch where the
-    # kernel takes its two-launch design (none for molecule-sized graphs);
-    # the same for both types
-    floats = lib.kgcn_gconv_f32_scratch_floats(C, B, N, Fin, Fout)
+    # kernel takes its two-launch design (none for graphs it takes in one
+    # launch)
+    floats = sizer(C, B, N, Fin, Fout)
     scratch = (torch.empty(floats, device=x.device, dtype=torch.float32)
                if floats else None)
     launched = ctypes.c_int(0)

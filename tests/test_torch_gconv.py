@@ -214,6 +214,48 @@ def test_gconv_launch_has_no_size_bound(monkeypatch, shape):
     assert gm.gconv.launches == (2 if N > 64 else 1)  # the kernels it launched
 
 
+def test_gconv_bf16_launch_passes_16_byte_aligned_operands(monkeypatch):
+    """The bf16 entry stages rows with 16-byte copies and refuses operands
+    that do not start on a 16-byte boundary: the wrapper passes such a view
+    as a copy (the same values), an aligned tensor as it is, and counts the
+    launch in ``gconv.launches`` and ``gconv.bf16_launches``."""
+    from kgcn_tpu_torch.ops import _build
+    from kgcn_tpu_torch.ops import gconv as gm
+
+    seen = []
+
+    def kgcn_gconv_bf16(*args):
+        seen.append(args[:3])  # adj, x, w
+        args[12]._obj.value = 1
+        return 0
+
+    kgcn_gconv_bf16.argtypes = None
+    fake = types.SimpleNamespace(
+        kgcn_gconv_bf16=kgcn_gconv_bf16,
+        kgcn_gconv_bf16_scratch_floats=lambda C, B, N, Fin, Fout: 0)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(gm.gconv, "launches", 0)
+    monkeypatch.setattr(gm.gconv, "bf16_launches", 0)
+
+    def view_at(t, offset):  # t's values in a tensor starting `offset` elements in
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+        v = buf[offset:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    adj, x, w, b = (t.to(torch.bfloat16) for t in _op_inputs(C=2, B=3, N=5, Fi=4, Fo=6))
+    ops = [view_at(adj, 1), view_at(x, 8), view_at(w, 3), b]
+    assert [t.data_ptr() % 16 for t in ops[:3]] == [2, 0, 6]
+    gm._launch(*ops)
+    (p_adj, p_x, p_w), = seen
+    assert p_adj % 16 == 0 and p_w % 16 == 0
+    assert p_x == ops[1].data_ptr()  # aligned: passed as it is
+    assert gm.gconv.launches == 1 and gm.gconv.bf16_launches == 1
+
+
 # ---- the custom op (torch.export captures it) ------------------------------
 
 

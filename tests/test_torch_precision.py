@@ -11,6 +11,12 @@ Tolerances, each with its reason:
   2^-8 |ref| + 1e-6`` (both sum in f32 and round once), hence within one
   bf16 ulp of each other (their f32 sums differ in order and can fall on
   either side of a rounding boundary);
+* the bf16 CUDA kernel's arithmetic, emulated on the CPU
+  (``_emulate_bf16_tc``: the f32 projection split into three bf16 terms):
+  within one bf16 rounding of the float64 sum plus two f32 ulps of
+  ``sum |A| |X W + b|`` (``_exact_and_limit``; at 203 and 256 nodes outputs
+  that cancel sit that far from the float64 sum in any f32 summation, the
+  plain version's included, which the test holds to the same bound);
 * against ``gconv_dense`` (the XLA einsum the JAX layers call, whose
   intermediates XLA rounds to bf16 where it chooses): 2e-2 of the output's
   largest magnitude;
@@ -212,6 +218,85 @@ def test_gconv_bf16_against_the_jax_einsum(shape):
         w = np.asarray(w.astype(jnp.float32))
         np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
                                    atol=2e-2 * np.abs(w).max(), err_msg=name)
+
+
+# the bf16 kernel's own arithmetic (csrc/gconv.cu, kgcn_gconv_bf16): the two
+# shapes above, graphs of 203 and 256 nodes (the reaction shapes) at a small
+# batch, and Fin and Fout that are not multiples of 16
+EMULATION_SHAPES = GCONV_SHAPES + [(3, 2, 203, 81, 128), (1, 2, 256, 256, 256),
+                                   (2, 3, 37, 21, 45)]
+
+
+def _emulate_bf16_tc(adj, x, w, b, terms=3):
+    """What the bf16 tensor-core kernel computes, in torch on the CPU: per
+    channel the f32 projection ``X W_c + b_c`` (bf16 products are exact in
+    f32), split into ``terms`` bf16 terms (``hi = bf16(p)``, ``lo = bf16(p -
+    hi)``, ``lo2 = bf16(p - hi - lo)``), each multiplied by the bf16 ``A_c``
+    and summed in f32 into one accumulator, channel by channel; the result
+    rounded to bf16 once.  bf16 tensors in and out."""
+    a, x, w, b = (t.float() for t in (adj, x, w, b))
+    acc = torch.zeros(x.shape[0], x.shape[1], w.shape[2])
+    for c in range(a.shape[0]):
+        rest = x @ w[c] + b[c]
+        for _ in range(terms):
+            part = rest.to(torch.bfloat16).float()
+            rest = rest - part
+            acc = acc + a[c] @ part
+    return acc.to(torch.bfloat16)
+
+
+def _exact_and_limit(arrs):
+    """The f64 sum and the bound held to: one bf16 rounding of it, plus
+    1e-6, plus two f32 ulps of ``sum_c |A_c| |X W_c + b_c|``: where an output
+    cancels (the 203- and 256-node graphs here reach |out| 300 and cross
+    zero), an f32 sum of these terms is that far from the f64 one, the plain
+    version's as much as the kernel's."""
+    adj, x, w, b = (a.astype(np.float64) for a in arrs)
+    p = np.einsum("bmi,cif->cbmf", x, w) + b[:, None, None, :]
+    exact = np.einsum("cbnm,cbmf->bnf", adj, p)
+    scale = np.einsum("cbnm,cbmf->bnf", np.abs(adj), np.abs(p))
+    return exact, ONE_ROUNDING * np.abs(exact) + 1e-6 + 2.0 ** -23 * scale
+
+
+@pytest.mark.parametrize("shape", EMULATION_SHAPES)
+def test_gconv_bf16_tensor_core_emulation_within_one_rounding(shape):
+    """The kernel's arithmetic (``_emulate_bf16_tc``: three bf16 terms of the
+    f32 projection) and the plain version each within one bf16 rounding of
+    the f64 sum (``_exact_and_limit``), and the emulation within two
+    roundings of ``gconv_fused`` on bf16 operands in interpret mode, equal
+    to it in most outputs."""
+    from kgcn_tpu_torch.ops.gconv import gconv
+
+    arrs = _gconv_inputs(shape, seed=7)
+    with pallas_interpret():
+        from kgcn_tpu.ops.pallas_gconv import gconv_fused
+
+        want = gconv_fused(*(jnp.asarray(a, jnp.bfloat16) for a in arrs))
+    want = np.asarray(want.astype(jnp.float32)).astype(np.float64)
+    ops = [torch.from_numpy(a.copy()).to(torch.bfloat16) for a in arrs]
+    emulated = _emulate_bf16_tc(*ops)
+    assert emulated.dtype == torch.bfloat16
+    got = emulated.float().numpy().astype(np.float64)
+    plain = gconv(*ops).float().numpy().astype(np.float64)
+    exact, limit = _exact_and_limit(arrs)
+    for out in (got, plain):
+        assert np.all(np.abs(out - exact) <= limit)
+    assert np.all(np.abs(got - want) <= 2 * limit)
+    assert np.mean(got == want) > 0.95
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 47, 81, 50), (1, 2, 256, 256, 256)])
+def test_gconv_bf16_two_terms_are_not_enough(shape):
+    """Why the kernel splits the f32 projection into three bf16 terms: with
+    two (``hi + lo``, 2^-16 of each value lost) outputs that cancel fall
+    outside one bf16 rounding of the f64 sum, at the serving shape and at
+    N 256; with three they do not."""
+    arrs = _gconv_inputs(shape, seed=7)
+    ops = [torch.from_numpy(a.copy()).to(torch.bfloat16) for a in arrs]
+    exact, limit = _exact_and_limit(arrs)
+    over = {terms: np.abs(_emulate_bf16_tc(*ops, terms=terms).float().numpy()
+                          .astype(np.float64) - exact) > limit for terms in (2, 3)}
+    assert over[2].any() and not over[3].any()
 
 
 def test_gconv_kernel_refuses_a_mix_of_types():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time this checkout of the port against another one on the GPU, in turns.
 
-    python3 tree_compare.py BASE [--out chiprun_out/tree_compare.json] [--parts ell,stream_dw]
+    python3 tree_compare.py BASE [--out chiprun_out/tree_compare.json] [--parts gconv]
 
 BASE is a directory holding another checkout's ``kgcn_tpu_torch`` (for
 example a parent commit unpacked with ``git archive`` into a git-ignored
@@ -26,6 +26,14 @@ only, so that any two checkouts which share them can be compared:
   macro-budget-padded (2 000 nodes) graphs at F 40, 64, 133 and 200, each
   tree building the structures from the same edges and macro count (the
   KG's channels are padded to one macro budget);
+* the dense graph convolution (``ops/gconv.gconv``), float32 and bf16
+  operands, at ``chip_smoke.GCONV_SHAPES`` and the reaction engine's three
+  call shapes (``chip_smoke.ENGINE_GCONV``): the float32 outputs asserted bitwise
+  equal to BASE's, the bf16 ones each within one bf16 rounding of the f64
+  sum; then the captured bf16 training steps of the dense solubility GCN
+  (``example_config/solubility_cls.json``) and of the reaction engine
+  (``chip_smoke.REACTION`` through ``cli.sparse``'s model), each tree's
+  whole-epoch runner in the order base, new, new, base;
 * training steps of GIN (pallas, ring6 data) and GAT (tiled,
   ``example_config/gat.json``): two trainers of BASE (A and B) and one of
   this tree (N) from one seed, stepped in rotation on the same host batches,
@@ -47,6 +55,7 @@ import pickle
 import re
 import shutil
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -57,7 +66,8 @@ DEVICE = "cuda"
 SCALE = (100_000, 1_000_000)  # the SDDMM's uniform graph: nodes, edges
 V_ELL = 100_000               # the ELL case at scale: V rows of K 10
 SMALL_WIDTHS = (40, 64, 133, 200)  # the stream weight gradient's small structures
-PARTS = ("ell", "sddmm", "stream_dw", "steps")
+PARTS = ("ell", "sddmm", "stream_dw", "gconv", "steps")
+SOLUBILITY_CONFIG = os.path.join(ROOT, "example_config", "solubility_cls.json")
 
 
 def say(msg):
@@ -76,8 +86,11 @@ def renamed_copy(base):
                 p = os.path.join(d, f)
                 with open(p) as fh:
                     src = fh.read()
+                # the package and its custom ops' namespace (one registry a
+                # process: two trees' ``kgcn_torch::gconv`` would be one op)
+                src = re.sub(r"\bkgcn_tpu_torch\b", "kgcn_tpu_torch_base", src)
                 with open(p, "w") as fh:
-                    fh.write(re.sub(r"\bkgcn_tpu_torch\b", "kgcn_tpu_torch_base", src))
+                    fh.write(re.sub(r"\bkgcn_torch\b", "kgcn_torch_base", src))
     sys.path.insert(0, WORK)
 
 
@@ -89,10 +102,10 @@ def packages(base):
     out = {}
     for tag, name in (("base", "kgcn_tpu_torch_base"), ("new", "kgcn_tpu_torch")):
         mods = {m: importlib.import_module(f"{name}.{m}") for m in (
-            "ops._build", "ops.spmm", "ops.tiled_spmm", "ops.stream_spmm",
-            "data.batcher", "data.dataset",
+            "ops._build", "ops.spmm", "ops.tiled_spmm", "ops.stream_spmm", "ops.gconv",
+            "data.batcher", "data.dataset", "data.tfrecord",
             "data.synthetic", "runtime.backend", "runtime.config", "runtime.train",
-            "models.registry")}
+            "runtime.resident", "models.registry", "cli.sparse")}
         if DEVICE == "cuda":  # every kernel, one compiler process a source
             mods["ops._build"].build()
         out[tag] = mods
@@ -253,6 +266,101 @@ def stream_dw_kernels(P, rows):
                        in_turns(fns, 10 if len(row) > 500_000 else 50))
 
 
+def gconv_kernels(P, rows):
+    """Each tree's gconv at float32 and bf16, in turns; float32 outputs
+    bitwise equal, bf16 ones each within one bf16 rounding of the f64 sum."""
+    import math
+
+    import torch
+
+    from chip_smoke import ENGINE_GCONV, GCONV_SHAPES, within_one_bf16_rounding
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for label, (C, B, N, Fin, Fout) in list(GCONV_SHAPES) + ENGINE_GCONV:
+        adj = torch.rand((C, B, N, N), device=DEVICE, generator=gen) * (2.0 / N)
+        x = torch.rand((B, N, Fin), device=DEVICE, generator=gen)
+        w = torch.randn((C, Fin, Fout), device=DEVICE, generator=gen) / math.sqrt(Fin)
+        b = torch.randn((C, Fout), device=DEVICE, generator=gen) * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            ops = [t.to(dt) for t in (adj, x, w, b)]
+            fns = {tag: (lambda tag=tag, ops=ops: P[tag]["ops.gconv"].gconv(*ops))
+                   for tag in ("base", "new")}
+            got = {tag: fn() for tag, fn in fns.items()}
+            if dt == torch.float32:
+                if not torch.equal(got["base"], got["new"]):
+                    raise AssertionError(f"gconv float32 {label}: base and new differ")
+                check = "bitwise equal to base"
+            else:
+                for tag in ("base", "new"):
+                    within_one_bf16_rounding(f"gconv bf16 {label} {tag}", ops, got[tag])
+                diff = float((got["base"].float() - got["new"].float()).abs().max())
+                check = f"each within one bf16 rounding of the f64 sum; |base - new| {diff:.3g}"
+            name = str(dt).replace("torch.", "")
+            say(f"gconv {name} {label} {(C, B, N, Fin, Fout)}: {check}")
+            report(rows, f"gconv {name} {label}", in_turns(fns, 20 if B * N > 10000 else 100))
+
+
+def captured_bf16_steps(P, rows, workdir):
+    """The captured bf16 steps of the dense solubility GCN and of the
+    reaction engine, each tree's whole-epoch runner from seed 0; epochs in
+    the order base, new, new, base (``chip_smoke.epoch_numbers``: wall ms a
+    step, device busy ms a step, idle share)."""
+    import glob
+
+    import numpy as np
+
+    from chip_smoke import REACTION, epoch_numbers, sparse_config, write_molecules
+
+    pattern, _ = write_molecules(workdir, "reaction", REACTION)
+    os.makedirs(os.path.join(workdir, "reaction_bf16"))
+    cfg_r, _ = sparse_config(workdir, "reaction_bf16", pattern, REACTION,
+                             precision="bfloat16")
+    runs = {}
+    for tag in ("base", "new"):
+        mods = P[tag]
+        cfg = config(mods, SOLUBILITY_CONFIG, dropout_rate=0.0, precision="bfloat16")
+        ds, info = mods["data.dataset"].load_jbl(cfg["dataset"], cfg)
+        be = mods["runtime.backend"].resolve(dict(cfg), info, log=False)
+        train, _, _, _ = mods["data.dataset"].split_dataset(
+            ds, cfg["validation_data_rate"], seed=int(cfg["seed"]),
+            shuffle=bool(cfg["shuffle_data"]))
+        rb = mods["runtime.resident"].ResidentBatcher(
+            train, info, int(cfg["batch_size"]), seed=0, backend=be, device=DEVICE)
+        model = mods["models.registry"].build_model(cfg["model.py"], info, cfg)
+        runs.setdefault("gcn dense solubility bf16", {})[tag] = (
+            mods["runtime.train"].Trainer(model, cfg, info, device=DEVICE), rb)
+        ds, info = mods["data.tfrecord"].load_tfrecord_dataset(sorted(glob.glob(pattern)),
+                                                               cfg_r)
+        be = mods["runtime.backend"].resolve(dict(cfg_r), info, log=False)
+        train = ds.subset(np.arange(ds.num)[np.arange(ds.num) % 5 != 0])
+        rb = mods["runtime.resident"].ResidentBatcher(train, info, REACTION["batch"], seed=0,
+                                                      backend=be, device=DEVICE)
+        model = mods["cli.sparse"]._model(cfg_r, info)
+        runs.setdefault("reaction bf16", {})[tag] = (
+            mods["runtime.train"].Trainer(model, cfg_r, info, device=DEVICE), rb)
+    for what, trees in runs.items():
+        numbers = {"base": [], "new": []}
+        states = {tag: tr.init_state(0) for tag, (tr, _) in trees.items()}
+        for tag in ("base", "new", "new", "base"):
+            trainer, rb = trees[tag]
+
+            def run(tag=tag, tr=trainer, rb=rb):
+                states[tag] = tr.run_epoch(states[tag], rb, epoch=0)[0]
+            wall, _, busy, idle = epoch_numbers(run, rb.num_batches)
+            numbers[tag].append(dict(wall_ms=wall, busy_ms=busy, idle=idle))
+        rows.append(dict(what=f"captured step {what}", steps=rb.num_batches, **numbers))
+        say(f"captured step {what} ({rb.num_batches} steps an epoch; base, new, new, base): "
+            + "; ".join(f"{tag} " + ", ".join(
+                f"wall {n['wall_ms']:.4f} busy {n['busy_ms']:.4f} idle {n['idle']:.4f}"
+                for n in numbers[tag]) for tag in ("base", "new")))
+
+
+def gconv_part(P, rows):
+    gconv_kernels(P, rows)
+    with tempfile.TemporaryDirectory(prefix="tree_compare_") as workdir:
+        captured_bf16_steps(P, rows, workdir)
+
+
 def step_walls(P, rows, runs=3):
     import numpy as np
     import torch
@@ -338,7 +446,8 @@ def main():
     if set(parts) - set(PARTS):
         ap.error(f"--parts: unknown {sorted(set(parts) - set(PARTS))}")
     rows = []
-    for name, fn in zip(PARTS, (ell_kernels, sddmm_kernels, stream_dw_kernels, step_walls)):
+    for name, fn in zip(PARTS, (ell_kernels, sddmm_kernels, stream_dw_kernels, gconv_part,
+                                step_walls)):
         if name in parts:
             fn(P, rows)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
