@@ -9,7 +9,12 @@ in the stream: one byte giving a padding length, that many padding bytes
 objects are a nested pickle instead of raw bytes.
 
 ``load`` rebuilds those arrays with a ``pickle`` unpickler subclass, so the
-port reads every ``.jbl`` in the repository without joblib.  Like any pickle,
+port reads every ``.jbl`` in the repository without joblib.  The molecules
+that ``kgcn_tpu``'s chemistry tools pickle into ``mol_info``
+(``kgcn_tpu.data.molparse.Molecule``) are read as the port's own
+``kgcn_tpu_torch.data.molparse`` classes, whose pickled state is the same;
+any other class of ``kgcn_tpu`` in a stream raises ``UnpicklingError``
+rather than import ``kgcn_tpu`` (and with it JAX).  Like any pickle,
 a ``.jbl`` file can run code when it is read: load only files you trust.
 """
 from __future__ import annotations
@@ -24,6 +29,47 @@ import numpy as np
 _PICKLE_PROTO = b"\x80"         # protocol 2+ streams start with PROTO
 _ZLIB_PREFIX = b"\x78"          # zlib header (joblib's "zlib" compressor)
 _WRAPPER = ("joblib.numpy_pickle", "NumpyArrayWrapper")
+# kgcn_tpu's classes that the port reads as its own (same pickled state)
+_JAX_PACKAGE = "kgcn_tpu"
+_PORTED_CLASSES = {("kgcn_tpu.data.molparse", "Molecule"): "Molecule",
+                   ("kgcn_tpu.data.molparse", "Atom"): "Atom"}
+
+
+def _find_class(module, name, find):
+    """The class a stream names: ``kgcn_tpu``'s molparse classes as the
+    port's, any other ``kgcn_tpu`` class or joblib object refused, the rest
+    through ``find``."""
+    if module.split(".")[0] == _JAX_PACKAGE:
+        ported = _PORTED_CLASSES.get((module, name))
+        if ported is None:
+            raise pickle.UnpicklingError(
+                f"{module}.{name} in .jbl stream: a class of kgcn_tpu that "
+                "the port does not read (only kgcn_tpu.data.molparse's "
+                "Molecule and Atom map onto the port's own classes)"
+            )
+        from kgcn_tpu_torch.data import molparse
+
+        return getattr(molparse, ported)
+    if module.startswith("joblib"):
+        raise pickle.UnpicklingError(
+            f"unsupported joblib object {module}.{name} in .jbl stream "
+            "(only NumpyArrayWrapper arrays are read)"
+        )
+    return find(module, name)
+
+
+class _JoblibArrays(Exception):
+    """A plain-pickle read met a joblib array wrapper."""
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """The C unpickler, for streams without joblib arrays (the port's own
+    plain pickles): it stops at the first array wrapper."""
+
+    def find_class(self, module, name):
+        if (module, name) == _WRAPPER:
+            raise _JoblibArrays
+        return _find_class(module, name, super().find_class)
 
 
 class _ArrayWrapper:
@@ -71,12 +117,7 @@ class _JblUnpickler(pickle._Unpickler):
     def find_class(self, module, name):
         if (module, name) == _WRAPPER:
             return _ArrayWrapper
-        if module.startswith("joblib"):
-            raise pickle.UnpicklingError(
-                f"unsupported joblib object {module}.{name} in .jbl stream "
-                "(only NumpyArrayWrapper arrays are read)"
-            )
-        return super().find_class(module, name)
+        return _find_class(module, name, super().find_class)
 
     def load_build(self):
         super().load_build()
@@ -100,7 +141,10 @@ def loads(raw: bytes) -> Any:
             f"(starts 0x80) or a zlib one (starts 0x78), got {raw[:4]!r} "
             "(gzip/bz2/lzma-compressed joblib files are not read)"
         )
-    return _JblUnpickler(io.BytesIO(raw)).load()
+    try:
+        return _PlainUnpickler(io.BytesIO(raw)).load()
+    except _JoblibArrays:
+        return _JblUnpickler(io.BytesIO(raw)).load()
 
 
 def load(path: str) -> Any:

@@ -125,3 +125,118 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path, where):
                        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+DATA_PREPARATION = ("kgcn_tpu_torch.data.molparse", "kgcn_tpu_torch.data.featurizer",
+                    "kgcn_tpu_torch.cli.chem", "kgcn_tpu_torch.cli.chem_summary",
+                    "kgcn_tpu_torch.cli.cv_splitter", "kgcn_tpu_torch.cli.data_join",
+                    "kgcn_tpu_torch.knime", "kgcn_tpu_torch.knime.helpers")
+
+
+def test_data_preparation_modules_import_without_jax_or_joblib():
+    """The data-preparation modules and the KNIME helpers are in the package
+    and import with JAX, joblib and kgcn_tpu blocked."""
+    r = _run(f"""
+        import importlib, pkgutil
+        import kgcn_tpu_torch
+        names = {{m.name for m in pkgutil.walk_packages(
+            kgcn_tpu_torch.__path__, "kgcn_tpu_torch.")}}
+        want = {DATA_PREPARATION!r}
+        assert set(want) <= names, sorted(set(want) - names)
+        for name in want:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_a_kgcn_tpu_chem_dataset_loads_without_kgcn_tpu(tmp_path):
+    """A ``.jbl`` that ``kgcn_tpu``'s ``chem`` wrote (joblib, ``mol_info``
+    holding ``kgcn_tpu.data.molparse.Molecule`` objects) loads through the
+    port's ``load_jbl`` with kgcn_tpu, JAX and joblib blocked: its
+    molecules are the port's, with the same state."""
+    import joblib
+
+    from kgcn_tpu.cli.chem import main as chem
+
+    smi = tmp_path / "mols.smi"
+    smi.write_text("CCO\nc1ccccc1C(=O)[O-]\nc1cc[nH]c1\n[NH4+].[Cl-]\n")
+    out = tmp_path / "chem.jbl"
+    chem(["--smiles", str(smi), "-o", str(out)])
+    want = [m.__getstate__() for m in joblib.load(out)["mol_info"]["obj_list"]]
+    with open(out, "rb") as f:
+        assert b"kgcn_tpu.data.molparse" in f.read()
+    r = _run(f"""
+        from kgcn_tpu_torch.data import jbl, molparse
+        from kgcn_tpu_torch.data.dataset import load_jbl
+        ds, info = load_jbl({str(out)!r})
+        mols = info.mol_info["obj_list"]
+        assert ds.num == 4 and all(type(m) is molparse.Molecule for m in mols)
+        assert [m.__getstate__() for m in mols] == {want!r}
+        assert mols[1].GetAtomWithIdx(1).GetIsAromatic()
+        raw = jbl.load({str(out)!r})
+        assert type(raw["mol_info"]["obj_list"][0]) is molparse.Molecule
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_other_kgcn_tpu_classes_in_a_stream_are_refused():
+    """A stream that names any other class of kgcn_tpu raises
+    ``UnpicklingError`` naming it, and imports nothing of kgcn_tpu."""
+    r = _run("""
+        import pickle
+        from kgcn_tpu_torch.data import jbl
+        for module, name in (("kgcn_tpu.graph.batch", "GraphBatch"),
+                             ("kgcn_tpu.data.dataset", "DatasetInfo"),
+                             ("kgcn_tpu", "Trainer"),
+                             ("kgcn_tpu.data.molparse", "parse_smiles")):
+            raw = b"\\x80\\x02c" + f"{module}\\n{name}\\n".encode() + b"."
+            try:
+                jbl.loads(raw)
+            except pickle.UnpicklingError as e:
+                assert f"{module}.{name}" in str(e), e
+            else:
+                raise AssertionError(f"{module}.{name} was read")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_data_preparation_runs_without_a_gpu(tmp_path):
+    """``cli.chem`` touches no device: it runs with no GPU visible and no
+    ``--cpu`` flag (it has none), as do ``cv_splitter``, ``data_join`` and
+    ``chem_summary`` on its output, with JAX, joblib and kgcn_tpu blocked."""
+    smi = tmp_path / "mols.smi"
+    smi.write_text("CCO\nc1ccccc1O\nCC(=O)Nc1ccccc1\nC1CCCCC1N\nc1ccncc1Cl\nCCS\n")
+    r = _run(f"""
+        import os
+        from kgcn_tpu_torch.cli import chem, chem_summary, cv_splitter, data_join
+        from kgcn_tpu_torch.data import jbl
+        d = {str(tmp_path)!r}
+        chem.main(["--smiles", os.path.join(d, "mols.smi"), "--morgan-fingerprint",
+                   "-o", os.path.join(d, "out", "chem.jbl")])
+        cv_splitter.main(["--input", os.path.join(d, "out", "chem.jbl"), "--output-dir",
+                          os.path.join(d, "folds"), "--fold", "3"])
+        data_join.main(["--input", os.path.join(d, "folds", "chem.fold0.train.jbl"),
+                        os.path.join(d, "folds", "chem.fold0.test.jbl"),
+                        "--output", os.path.join(d, "joined.jbl")])
+        chem_summary.main(["-p", os.path.join(d, "joined.jbl")])
+        assert len(jbl.load(os.path.join(d, "joined.jbl"))["adj"]) == 6
+        import torch
+        assert not torch.cuda.is_available()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
