@@ -169,8 +169,17 @@ def _not_ported(what: str, item: str):
 
 
 def _prepare(config, dataset_key="dataset", test_mode=False):
-    """Dataset, info and the resolved backend (pinned in the config)."""
+    """Dataset, info and the resolved backend (pinned in the config).  The
+    config's ``"param"`` (a dict, or the path of a JSON file; ``cli/opt.py``
+    sets it on every trial) goes into ``info.param``, as in ``kgcn_tpu``'s
+    ``_prepare`` (``kgcn_tpu/cli/main.py:77-82``)."""
     ds, info = load_jbl(config[dataset_key], config, test_mode=test_mode)
+    if config.get("param"):
+        param = config["param"]
+        if isinstance(param, str):
+            with open(param) as f:
+                param = json.load(f)
+        info.param = param
     return ds, info, backend_mod.resolve(config, info)
 
 

@@ -163,11 +163,20 @@ def epoch_permutation(n: int, seed: int, epoch: Optional[int] = None,
 
 
 class Batcher:
-    """Yields fixed-shape ``Batch``es from a host Dataset."""
+    """Yields fixed-shape ``Batch``es from a host Dataset.
+
+    The tiled and stream structures' settings are pinned by the first
+    batch unless given: ``tiling`` (ts, tr, chunk), ``locality`` (a flag per
+    channel) and ``chunk_budget`` together for ``tiled``, ``macro_budget``
+    for ``stream`` (an exported program's traced ones).  A given budget is
+    never grown: a batch that needs more raises ``ValueError``."""
 
     def __init__(self, ds: Dataset, info: DatasetInfo, batch_size: int, *,
                  edge_budget: Optional[int] = None, seed: int = 0,
-                 backend: Optional[Backend] = None, epsilon_dim: int = 0):
+                 backend: Optional[Backend] = None, epsilon_dim: int = 0,
+                 tiling: Optional[tuple] = None, locality: Optional[tuple] = None,
+                 chunk_budget: Optional[int] = None,
+                 macro_budget: Optional[int] = None):
         self.ds = ds
         self.info = info
         self.batch_size = int(batch_size)
@@ -179,12 +188,17 @@ class Batcher:
         self.epsilon_dim = int(epsilon_dim)
         self.backend = backend or Backend()
         # tiled: (ts, tr, chunk), locality flags and the chunk budget are
-        # pinned by the first batch, so every batch has the same shapes
-        self._tiled_cfg = None
-        self._tiled_loc = None
-        self._tiled_budget = None
-        # stream: the macro budget is pinned by the first batch likewise
-        self._stream_budget = None
+        # pinned by the first batch unless given, so every batch has the
+        # same shapes
+        if (tiling is None) != (chunk_budget is None) or (tiling is None) != (
+                locality is None):
+            raise ValueError("tiling, locality and chunk_budget are given together")
+        self._tiled_cfg = tiling
+        self._tiled_loc = locality
+        self._tiled_budget = chunk_budget
+        # stream: the macro budget likewise
+        self._stream_budget = macro_budget
+        self._fixed = (chunk_budget is not None, macro_budget is not None)
         # ELL: the per-graph arrays, built at the first batch (None when the
         # gate refuses the dataset)
         self._ell = None
@@ -374,7 +388,8 @@ class Batcher:
         """Per-channel tiled structures.  The first batch is a probe: its
         tiling and locality decisions are pinned, and the chunk budget is
         set to 1.25× its largest chunk count (either direction), rounded up
-        to a multiple of 8; a later batch that overflows it doubles it."""
+        to a multiple of 8; a later batch that overflows it doubles it
+        (a given budget raises)."""
         F = int(self.info.feature_dim or 128)
         if self._tiled_cfg is None:
             probe = graph.with_tiled(feature_dim=F)
@@ -392,13 +407,15 @@ class Batcher:
                                         chunk_budget=self._tiled_budget,
                                         feature_dim=F, locality=self._tiled_loc)
             except ValueError:
+                if self._fixed[0]:
+                    raise
                 self._tiled_budget *= 2
 
     def _attach_stream(self, graph: GraphBatch) -> GraphBatch:
         """Per-channel stream structures, weights baked in.  The first batch
         is a probe: the macro budget is set to 1.25× its largest macro count
         (either direction), at least one more; a later batch that overflows
-        it doubles it."""
+        it doubles it (a given budget raises)."""
         if self._stream_budget is None:
             probe = graph.with_stream()
             budget = max(
@@ -410,6 +427,8 @@ class Batcher:
             try:
                 return graph.with_stream(macro_budget=self._stream_budget)
             except ValueError:
+                if self._fixed[1]:
+                    raise
                 self._stream_budget *= 2
 
     def _prepare_ell(self) -> None:

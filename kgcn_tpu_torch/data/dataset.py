@@ -48,6 +48,8 @@ class DatasetInfo:
     class_weight: Optional[np.ndarray] = None
     edge_budget_per_graph: int = 0
     mol_info: Optional[Any] = None
+    # hyper-parameters of a trial (the config's "param"; cli/opt.py)
+    param: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass

@@ -27,7 +27,9 @@ shared, float32 or bf16).
   x's dtype (as the Pallas kernel: f32 accumulate, out in x's dtype).  For
   one float32 channel it is ``spmm_ell`` itself.
 * ``SpmmEll`` is the counterpart of the custom VJP ``spmm_ell_ad``
-  (``pallas_spmm.py:107-140``): dx by ``spmm_ell_dx_gpu``, dw by
+  (``pallas_spmm.py:107-140``), the custom op ``kgcn_torch::ell_spmm``
+  (``register_fake`` for ``torch.export``, ``register_autograd`` for the
+  gradient): dx by ``spmm_ell_dx_gpu``, dw by
   ``einsum("vf,vkf->vk", g, x[idx])`` per channel, computed only when the
   weights need a gradient (the layers' adjacency weights are constants, so
   training never asks).
@@ -233,11 +235,50 @@ spmm_ell_gpu.launches = 0
 spmm_ell_dx_gpu.launches = 0
 
 
-class SpmmEll(torch.autograd.Function):
-    """Differentiable ELL product (JAX ``spmm_ell_ad``): forward by
-    ``spmm_ell_gpu``; dx by ``spmm_ell_dx_gpu`` over ``transpose`` (the
-    batch's sender-grouped slot lists, or None: built on the card when
-    needed); dw only when asked for; the indices get no gradient."""
+@torch.library.custom_op("kgcn_torch::ell_spmm", mutates_args=())
+def _ell_op(idx: torch.Tensor, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The op: ``spmm_ell_gpu`` (the kernel for CUDA tensors, the plain
+    version for CPU tensors).  Its backward builds the transpose on the
+    tensors' device (``ell_transpose_device``)."""
+    return spmm_ell_gpu(idx, w, x)
+
+
+@_ell_op.register_fake
+def _ell_fake(idx, w, x):
+    return x.new_empty((idx.shape[-2], x.shape[-1]))
+
+
+def _ell_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _ell_backward(ctx, g):
+    idx, w, x = ctx.saved_tensors
+    dw, dx = _grads(idx, w, x, g, None, *ctx.needs_input_grad[1:3])
+    return None, dw, dx
+
+
+def _grads(idx, w, x, g, transpose, need_w, need_x):
+    """(dw, dx) of the ELL product, each only when asked for: dx by
+    ``spmm_ell_dx_gpu`` over ``transpose`` (built on the card when None),
+    ``dw[c,v,k] = ⟨g[v], x_c[idx[c,v,k]]⟩``."""
+    dw = dx = None
+    if need_x:
+        dx = spmm_ell_dx_gpu(idx, w, g, tuple(x.shape), transpose).to(x.dtype)
+    if need_w:
+        i3, _ = _channels(idx, w)
+        xs = x.unbind(0) if x.dim() == 3 else (x,) * i3.shape[0]
+        xg = torch.stack([xc[ic.long()] for xc, ic in zip(xs, i3)])
+        dw = torch.einsum("vf,cvkf->cvk", g.to(torch.float32),
+                          xg.to(torch.float32)).reshape(w.shape).to(w.dtype)
+    return dw, dx
+
+
+_ell_op.register_autograd(_ell_backward, setup_context=_ell_setup)
+
+
+class _SpmmEllFn(torch.autograd.Function):
+    """The autograd Function of ``SpmmEll`` (eager calls)."""
 
     @staticmethod
     def forward(ctx, idx, w, x, transpose=None):
@@ -248,18 +289,25 @@ class SpmmEll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, w, x = ctx.saved_tensors
-        need_w, need_x = ctx.needs_input_grad[1:3]
-        dw = dx = None
-        if need_x:
-            dx = spmm_ell_dx_gpu(idx, w, g, tuple(x.shape), ctx.transpose).to(x.dtype)
-        if need_w:
-            # dw[c,v,k] = ⟨g[v], x_c[idx[c,v,k]]⟩
-            i3, _ = _channels(idx, w)
-            xs = x.unbind(0) if x.dim() == 3 else (x,) * i3.shape[0]
-            xg = torch.stack([xc[ic.long()] for xc, ic in zip(xs, i3)])
-            dw = torch.einsum("vf,cvkf->cvk", g.to(torch.float32),
-                              xg.to(torch.float32)).reshape(w.shape).to(w.dtype)
+        dw, dx = _grads(idx, w, x, g, ctx.transpose, *ctx.needs_input_grad[1:3])
         return (None, dw, dx) + (None,) * (len(ctx.needs_input_grad) - 3)
+
+
+class SpmmEll:
+    """Differentiable ELL product (JAX ``spmm_ell_ad``): forward by
+    ``spmm_ell_gpu``; dx by ``spmm_ell_dx_gpu`` over ``transpose`` (the
+    batch's sender-grouped slot lists, or None: built on the card when
+    needed); dw only when asked for; the indices get no gradient.  Eager
+    calls run the autograd Function ``_SpmmEllFn``; a trace
+    (``torch.export``) records the custom op ``kgcn_torch::ell_spmm``, the
+    same forward launch (its backward builds the transpose on the card)."""
+
+    @staticmethod
+    def apply(idx, w, x, transpose=None):
+        if torch.compiler.is_compiling():
+            _check(idx, w, x)
+            return _ell_op(idx, w, x)
+        return _SpmmEllFn.apply(idx, w, x, transpose)
 
 
 def ell_transpose_device(idx, w, num_rows: int):

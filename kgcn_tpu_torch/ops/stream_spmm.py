@@ -15,6 +15,11 @@ JAX package chooses them (``stream_spmm``):
   weight gradient ``dw[slot] = ⟨cdt(dy[r_slot]), cdt(x[s_slot])⟩`` when it
   is asked for (``_StreamIota``, JAX ``_core``).
 
+Under a trace (``torch.export``, ``runtime/export.py``) the routes are the
+custom ops ``kgcn_torch::stream_scatter_mat`` and
+``kgcn_torch::stream_scatter`` (``register_fake``, ``register_autograd``),
+one call each, with the autograd Functions' launches.
+
 Host side (NumPy): ``build_stream`` sorts the edges by receiver, cuts the
 receivers into ``tr_w``-row windows, pads every window to whole sub-chunks
 of ``chunk`` slots, groups ``wb`` windows into an output block and the
@@ -48,12 +53,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from kgcn_tpu_torch.ops import _build
+from kgcn_tpu_torch.ops import _build, pytrees
 from kgcn_tpu_torch.ops.tiled_spmm import is_bf16
 
 
@@ -673,13 +678,18 @@ class _StreamIota(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         wT_slots, x = ctx.saved_tensors
-        dy = dy.to(torch.float32).contiguous()
-        dw = dx = None
-        if ctx.needs_input_grad[0]:
-            dw = stream_dw(ctx.ss, x, dy, ctx.bf16)
-        if ctx.needs_input_grad[2]:
-            dx = stream_scatter(ctx.ss.transpose, wT_slots, dy, ctx.bf16)
+        dw, dx = _iota_grads(ctx.ss, wT_slots, x, dy, ctx.bf16,
+                             ctx.needs_input_grad[0], ctx.needs_input_grad[2])
         return dw, None, dx, None, None
+
+
+def _iota_grads(ss, wT_slots, x, dy, bf16, need_w, need_x):
+    """(dw, dx) of the iota route, each only when asked for: the weight
+    gradient kernel, and the scatter on the transpose structure."""
+    dy = dy.to(torch.float32).contiguous()
+    dw = stream_dw(ss, x, dy, bf16) if need_w else None
+    dx = stream_scatter(ss.transpose, wT_slots, dy, bf16) if need_x else None
+    return dw, dx
 
 
 class _StreamStatic(torch.autograd.Function):
@@ -695,6 +705,112 @@ class _StreamStatic(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return stream_scatter_mat(ctx.ss.transpose, dy.to(torch.float32).contiguous()), None
+
+
+# The custom ops kgcn_torch::stream_scatter (the iota route) and
+# kgcn_torch::stream_scatter_mat (the one-hot route): what a trace
+# (``torch.export``) records in place of ``_StreamIota`` and
+# ``_StreamStatic``, with the same launches forward and backward; eager
+# calls keep the autograd Functions (as ops they made a GCN step on the
+# stream loop 1.8 ms slower, H100 80GB HBM3 at 700 W, ``tree_compare.py``).
+# A ``StreamCOO`` and its ``StreamPlan`` go in as the structure's pytree
+# leaves, both directions (the backward's dx runs on the transpose), and
+# its tree spec as a string (``ops/pytrees.py``).  A plan's lengths are its
+# arrays' shapes.
+
+_CHILDREN = ("slot_sender", "r_loc", "slot_src", "sub_wid", "macro_rb", "macro_first",
+             "plan", "t_from_f", "w_slots", "oh", "transpose")
+_PLAN_CHILDREN = ("entries", "pieces", "splits", "empty_rows", "arrivals")
+
+
+def register_pytrees() -> None:
+    """Register ``StreamCOO`` and ``StreamPlan`` with torch's pytree (once):
+    the meta and a plan's piece size are contexts; a plan's partial rows
+    come back at their bound, two a piece."""
+    pytrees.register(StreamCOO, "kgcn_tpu_torch.StreamCOO",
+                     lambda s: (_CHILDREN, [getattr(s, n) for n in _CHILDREN]),
+                     lambda s: dataclasses.astuple(s.meta),
+                     lambda values, ctx: StreamCOO(meta=StreamMeta(*ctx),
+                                                   **dict(zip(_CHILDREN, values))))
+    pytrees.register(StreamPlan, "kgcn_tpu_torch.StreamPlan",
+                     lambda p: (_PLAN_CHILDREN, [getattr(p, n) for n in _PLAN_CHILDREN]),
+                     lambda p: (p.piece,),
+                     lambda values, ctx: StreamPlan(
+                         piece=ctx[0], n_parts=2 * values[1].shape[0],
+                         **dict(zip(_PLAN_CHILDREN, values))))
+
+
+def _out_fake(x, arrays, spec):
+    num_receivers = pytrees.from_op_args(arrays, spec).meta.num_receivers
+    return x.new_empty((num_receivers, x.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("kgcn_torch::stream_scatter", mutates_args=())
+def _stream_op(w_slots: torch.Tensor, wT_slots: torch.Tensor, x: torch.Tensor,
+               arrays: List[Optional[torch.Tensor]], spec: str, bf16: bool) -> torch.Tensor:
+    """``out = A(w) x`` over slot-aligned weights (JAX ``_core``): the
+    iota-route kernel for CUDA tensors, the plain version for CPU tensors."""
+    return stream_scatter(pytrees.from_op_args(arrays, spec), w_slots, x, bf16)
+
+
+@_stream_op.register_fake
+def _stream_fake(w_slots, wT_slots, x, arrays, spec, bf16):
+    return _out_fake(x, arrays, spec)
+
+
+def _stream_setup(ctx, inputs, output):
+    w_slots, wT_slots, x, arrays, spec, bf16 = inputs
+    ctx.spec, ctx.bf16 = spec, bf16
+    ctx.save_for_backward(wT_slots, x, *arrays)
+
+
+def _stream_backward(ctx, dy):
+    wT_slots, x, *arrays = ctx.saved_tensors
+    dw, dx = _iota_grads(pytrees.from_op_args(arrays, ctx.spec), wT_slots, x, dy, ctx.bf16,
+                         ctx.needs_input_grad[0], ctx.needs_input_grad[2])
+    return dw, None, dx, None, None, None
+
+
+_stream_op.register_autograd(_stream_backward, setup_context=_stream_setup)
+
+
+@torch.library.custom_op("kgcn_torch::stream_scatter_mat", mutates_args=())
+def _stream_mat_op(x: torch.Tensor, arrays: List[Optional[torch.Tensor]],
+                   spec: str) -> torch.Tensor:
+    """Static-weight route over the materialised one-hots (JAX
+    ``_core_static``): the one-hot kernel for CUDA tensors, the plain
+    version for CPU tensors; the weights are constants."""
+    return stream_scatter_mat(pytrees.from_op_args(arrays, spec), x)
+
+
+@_stream_mat_op.register_fake
+def _stream_mat_fake(x, arrays, spec):
+    return _out_fake(x, arrays, spec)
+
+
+def _stream_mat_setup(ctx, inputs, output):
+    x, arrays, spec = inputs
+    ctx.spec = spec
+    ctx.save_for_backward(*arrays)
+
+
+def _stream_mat_backward(ctx, dy):
+    ss = pytrees.from_op_args(ctx.saved_tensors, ctx.spec)
+    return stream_scatter_mat(ss.transpose, dy.to(torch.float32).contiguous()), None, None
+
+
+_stream_mat_op.register_autograd(_stream_mat_backward, setup_context=_stream_mat_setup)
+
+
+def _op_args(ss):
+    register_pytrees()
+    return pytrees.op_args(ss)
+
+
+def _static(x, ss):
+    if torch.compiler.is_compiling():
+        return _stream_mat_op(x, *_op_args(ss))
+    return _StreamStatic.apply(x, ss)
 
 
 def stream_spmm(ss: StreamCOO, w_slots=None, x=None, *, wT_slots=None,
@@ -713,7 +829,7 @@ def stream_spmm(ss: StreamCOO, w_slots=None, x=None, *, wT_slots=None,
     bf16 = is_bf16(compute_dtype)
     if (w_slots is None and ss.oh is not None and ss.transpose.oh is not None
             and bf16):
-        return _StreamStatic.apply(x.to(torch.float32), ss)
+        return _static(x.to(torch.float32), ss)
     if w_slots is None:
         if ss.w_slots is None:
             raise ValueError("no weights given or baked in")
@@ -722,8 +838,10 @@ def stream_spmm(ss: StreamCOO, w_slots=None, x=None, *, wT_slots=None,
             wT_slots = ss.transpose.w_slots
     if wT_slots is None:
         wT_slots = transpose_w_slots(ss, w_slots)
-    return _StreamIota.apply(w_slots.to(torch.float32), wT_slots.to(torch.float32),
-                             x.to(torch.float32), ss, bf16)
+    args = (w_slots.to(torch.float32), wT_slots.to(torch.float32), x.to(torch.float32))
+    if torch.compiler.is_compiling():
+        return _stream_op(*args, *_op_args(ss), bf16)
+    return _StreamIota.apply(*args, ss, bf16)
 
 
 def stream_spmm_edges(ss: StreamCOO, weights, x, *, compute_dtype="bfloat16"):
@@ -774,4 +892,4 @@ def stream_spmm_baked(bs: BakedStream, x):
     """Static-weight product through a baked structure: the static route."""
     if x.shape[0] != bs.meta.num_senders:
         raise ValueError(f"x rows {x.shape[0]} != num_senders {bs.meta.num_senders}")
-    return _StreamStatic.apply(x.to(torch.float32), bs.ss)
+    return _static(x.to(torch.float32), bs.ss)

@@ -6,7 +6,9 @@ structure (``TiledCOO``) and the same two device operations,
 * ``tiled_spmm(te, weights, x)`` — ``out[r] = Σ_e w_e · x[s_e]``, with a
   custom backward (``_TiledSpMM``): dx is the same kernel on the transpose
   structure and d(weights) is the SDDMM, as the JAX custom VJP ``_core``
-  (``tiled_spmm.py:477-508``) computes them;
+  (``tiled_spmm.py:477-508``) computes them; under a trace
+  (``torch.export``) the custom op ``kgcn_torch::tiled_spmm``, one call
+  with the same forward and backward;
 * ``tiled_sddmm(te, a, b)`` — ``out[e] = ⟨a[r_e], b[s_e]⟩``, per edge.
 
 Host side (per batch): ``build_tiled`` groups the edges by (receiver tile,
@@ -42,12 +44,12 @@ import ctypes
 import dataclasses
 import math
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from kgcn_tpu_torch.ops import _build
+from kgcn_tpu_torch.ops import _build, pytrees
 
 
 def _cdiv(a, b):
@@ -321,10 +323,23 @@ class TiledPlan:
     counts: tuple
     offsets: tuple
     n_parts: int
-    buf: torch.Tensor
+    buf: Optional[torch.Tensor]
     seconds: float = 0.0
+    views: Optional[tuple] = None
 
     ARRAYS = ("entries", "starts", "pieces", "splits", "empty_rows", "arrivals")
+
+    @classmethod
+    def of_arrays(cls, arrays) -> "TiledPlan":
+        """A plan over separate arrays (``ARRAYS`` order) instead of one
+        buffer: the custom op's and the exported program's form, whose
+        counts are the arrays' shapes and whose partial rows take their
+        bound, two a piece (the first row and the last)."""
+        entries, starts, pieces, splits, empty_rows, _ = arrays
+        n_pieces = pieces.shape[0]
+        return cls(piece=0, counts=(entries.shape[1], n_pieces, splits.shape[0],
+                                    empty_rows.shape[0]),
+                   offsets=(), n_parts=2 * n_pieces, buf=None, views=tuple(arrays))
 
     def shape(self, name) -> tuple:
         n_real, n_pieces, n_split, n_empty = self.counts
@@ -333,6 +348,8 @@ class TiledPlan:
                 "empty_rows": (n_empty,), "arrivals": (n_split,)}[name]
 
     def array(self, name) -> torch.Tensor:
+        if self.views is not None:
+            return self.views[self.ARRAYS.index(name)]
         shape = self.shape(name)
         o = self.offsets[self.ARRAYS.index(name)]
         return self.buf[o:o + math.prod(shape)].view(shape)
@@ -346,10 +363,14 @@ class TiledPlan:
 
     def pointers(self) -> list:
         """Each array's device address, in ``ARRAYS`` order."""
+        if self.views is not None:
+            return [v.data_ptr() for v in self.views]
         base = self.buf.data_ptr()
         return [base + 4 * o for o in self.offsets]
 
     def to(self, device) -> "TiledPlan":
+        if self.views is not None:
+            return dataclasses.replace(self, views=tuple(v.to(device) for v in self.views))
         return dataclasses.replace(self, buf=self.buf.to(device))
 
 
@@ -598,9 +619,10 @@ def _check_plan(te: TiledCOO, device, kernel):
     if plan is None:
         raise ValueError(f"the tiled {kernel} kernel needs the structure's plan "
                          "(TiledCOO.to a CUDA device attaches it)")
-    if plan.buf.dtype != torch.int32 or plan.buf.device != device:
-        raise ValueError(f"TiledPlan.buf must be int32 on {device} (got "
-                         f"{plan.buf.dtype} on {plan.buf.device})")
+    for t in ((plan.buf,) if plan.views is None else plan.views):
+        if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f"TiledPlan arrays must be contiguous int32 on {device} "
+                             f"(got {t.dtype} on {t.device})")
     return plan
 
 
@@ -683,13 +705,83 @@ class _TiledSpMM(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         weights, x = ctx.saved_tensors
-        g = g.to(torch.float32).contiguous()
-        dw = dx = None
-        if ctx.needs_input_grad[0]:
-            dw = _sddmm(ctx.te, x, g, ctx.bf16)
-        if ctx.needs_input_grad[1]:
-            dx = _spmm(ctx.te.transpose, weights, g, ctx.bf16)
-        return dw, dx, None, None
+        return (*_grads(ctx.te, weights, x, g, ctx.bf16, *ctx.needs_input_grad[:2]),
+                None, None)
+
+
+def _grads(te, weights, x, g, bf16, need_w, need_x):
+    """(d weights, dx), each only when asked for: the SDDMM and the SpMM
+    on the transpose structure."""
+    g = g.to(torch.float32).contiguous()
+    dw = _sddmm(te, x, g, bf16) if need_w else None
+    dx = _spmm(te.transpose, weights, g, bf16) if need_x else None
+    return dw, dx
+
+
+# ---------------------------------------------------------------------------
+# the custom op kgcn_torch::tiled_spmm
+#
+# What a trace (``torch.export``, ``runtime/export.py``) records in place of
+# ``_TiledSpMM``: the same launches, forward and backward.  Eager calls keep
+# the autograd Function, whose dispatch costs the host a fraction of the
+# op's (its list arguments, their packing and the registered autograd made
+# a GAT step on the tiled streaming loop 2.3 ms slower, H100 80GB HBM3 at
+# 700 W, ``tree_compare.py``).  A ``TiledCOO`` and its ``TiledPlan`` are
+# dataclasses, which an op schema cannot take: the op takes the
+# structure's pytree leaves (both directions: the backward's dx runs on
+# the transpose) and its tree spec as a string (``ops/pytrees.py``).  A
+# plan's counts are its arrays' shapes, so nothing in the op reads a host
+# value of the card, and a traced program takes plans of any length.
+
+_CHILDREN = ("s_loc", "r_loc", "slot_src", "chunk_rt", "chunk_st", "transpose",
+             "node_perm", "edge_slot", "node_inv", "plan")
+
+
+def register_pytrees() -> None:
+    """Register ``TiledCOO`` and ``TiledPlan`` with torch's pytree (once):
+    the meta is a structure's context; a plan's children are its arrays,
+    and it comes back as ``TiledPlan.of_arrays`` (the partial-row scratch
+    sized by the bound of two a piece)."""
+    pytrees.register(TiledCOO, "kgcn_tpu_torch.TiledCOO",
+                     lambda t: (_CHILDREN, [getattr(t, n) for n in _CHILDREN]),
+                     lambda t: dataclasses.astuple(t.meta),
+                     lambda values, ctx: TiledCOO(meta=TiledMeta(*ctx),
+                                                  **dict(zip(_CHILDREN, values))))
+    pytrees.register(TiledPlan, "kgcn_tpu_torch.TiledPlan",
+                     lambda p: (TiledPlan.ARRAYS, [p.array(n) for n in TiledPlan.ARRAYS]),
+                     lambda p: None,
+                     lambda values, _: TiledPlan.of_arrays(values))
+
+
+@torch.library.custom_op("kgcn_torch::tiled_spmm", mutates_args=())
+def _tiled_spmm_op(weights: torch.Tensor, x: torch.Tensor,
+                   arrays: List[Optional[torch.Tensor]], spec: str,
+                   bf16: bool) -> torch.Tensor:
+    """The op: the SpMM kernel for CUDA tensors (it walks the plan), the
+    plain version for CPU tensors.  weights ``[E]`` and x float32."""
+    return _spmm(pytrees.from_op_args(arrays, spec), weights, x, bf16)
+
+
+@_tiled_spmm_op.register_fake
+def _tiled_spmm_fake(weights, x, arrays, spec, bf16):
+    num_receivers = pytrees.from_op_args(arrays, spec).meta.num_receivers
+    return x.new_empty((num_receivers, x.shape[1]), dtype=torch.float32)
+
+
+def _tiled_setup(ctx, inputs, output):
+    weights, x, arrays, spec, bf16 = inputs
+    ctx.spec, ctx.bf16 = spec, bf16
+    ctx.save_for_backward(weights, x, *arrays)
+
+
+def _tiled_backward(ctx, g):
+    weights, x, *arrays = ctx.saved_tensors
+    dw, dx = _grads(pytrees.from_op_args(arrays, ctx.spec), weights, x, g, ctx.bf16,
+                    *ctx.needs_input_grad[:2])
+    return dw, dx, None, None, None
+
+
+_tiled_spmm_op.register_autograd(_tiled_backward, setup_context=_tiled_setup)
 
 
 def tiled_spmm(te: TiledCOO, weights, x, *, compute_dtype="bfloat16"):
@@ -705,7 +797,13 @@ def tiled_spmm(te: TiledCOO, weights, x, *, compute_dtype="bfloat16"):
     bf16 = is_bf16(compute_dtype)
     if te.node_perm is not None:
         x = x.index_select(0, te.node_perm.long())
-    out = _TiledSpMM.apply(weights, x, te, bf16)
+    if torch.compiler.is_compiling():
+        # a trace (torch.export) records the custom op, one call
+        register_pytrees()
+        out = _tiled_spmm_op(weights.to(torch.float32), x.to(torch.float32),
+                             *pytrees.op_args(te), bf16)
+    else:
+        out = _TiledSpMM.apply(weights, x, te, bf16)
     if te.node_perm is not None:
         out = out.index_select(0, te.node_inv.long())
     return out

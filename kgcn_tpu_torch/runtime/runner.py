@@ -43,6 +43,19 @@ import torch
 from torch.func import functional_call
 
 WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
+# one capture stream a device: cuBLAS keeps a workspace for each stream it
+# has run on, for the life of the process, so a new stream a capture would
+# hold one more workspace for every runner a process makes (HPO and NAS
+# make one a trial)
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every capture on ``device`` runs on."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
 
 
 def _copy_into(dst, src) -> None:
@@ -121,7 +134,7 @@ class _Steps:
 
     def _capture(self) -> None:
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):

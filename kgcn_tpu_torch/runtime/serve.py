@@ -9,8 +9,8 @@
   splits the prediction rows back per request (``kgcn-tpu-serve
   --dynamic-batching``).
 * ``ExportPredictor`` serves a ``torch.export`` artifact
-  (``runtime/export.py``): parameters baked in, batch and node shapes fixed
-  by the trace.
+  (``runtime/export.py``) of any backend: parameters baked in, batch and
+  node shapes and the structures' budgets fixed by the trace.
 
 ``cli/serve.py`` wraps them in an HTTP JSON API.  Each runs on the GPU
 unless given ``device="cpu"``.
@@ -31,6 +31,7 @@ from kgcn_tpu_torch.data.dataset import build_dataset
 from kgcn_tpu_torch.graph.batch import pad_edge_budget
 from kgcn_tpu_torch.models.registry import build_model
 from kgcn_tpu_torch.runtime import export as export_mod
+from kgcn_tpu_torch.runtime.backend import Backend
 from kgcn_tpu_torch.runtime.device import device_from_arg
 from kgcn_tpu_torch.runtime.train import Trainer
 
@@ -392,9 +393,15 @@ class ExportPredictor:
     parameters are baked in, and the batch and node shapes are the traced
     ones, read from the artifact's input signature (``traced_inputs``, as
     ``kgcn_tpu``'s ``_traced_shape``).  A request is padded into chunks of
-    the traced batch; the dense adjacency is built per chunk, so any edge
-    count fits.  A request whose inputs differ from the signature (another
-    set of fields, more nodes, other per-graph widths) raises
+    the traced batch, each built as the trainer's ``Batcher`` builds a
+    batch of the traced backend: on ``dense`` the dense adjacency (any edge
+    count fits); on ``tiled`` and ``stream`` the edge lists at the traced
+    edge budget and the structures with the traced tiling and chunk or
+    macro budget, their plans built on the move to the card (a plan's
+    lengths are dynamic in the program); on ``pallas``/``xla`` the ELL
+    arrays padded to the traced slot count.  A request whose inputs differ
+    from the signature (another set of fields, more nodes, other per-graph
+    widths, more edges, chunks, macros or ELL slots than traced) raises
     ``ValueError``.  ``config``: the training config (the dataset flags
     ``build_dataset`` reads).  Runs on the GPU unless ``device="cpu"``."""
 
@@ -405,10 +412,11 @@ class ExportPredictor:
         self._path = path
         self._ep = export_mod.load_exported(path, self.device)
         self._fn = self._ep.module()
-        (args, _), self._spec = export_mod.traced_inputs(self._ep)
+        (args, _), self._spec, self._shapes = export_mod.traced_inputs(self._ep)
         self._traced = args[0]
         g = self._traced.graph
         self.batch_size, self.max_nodes = int(g.n_graph), int(g.max_nodes)
+        self.backend = Backend(g.backend, g.compute_dtype)
         labels = self._traced.labels
         self.label_dim = int(labels.shape[1]) if labels is not None else 1
         self._lock = threading.Lock()
@@ -423,19 +431,55 @@ class ExportPredictor:
         if spec != self._spec or given != [w is not None for w in want]:
             raise ValueError(
                 "the request's batch does not fit the exported signature: its "
-                "modalities/optional fields must match what the model was "
-                f"exported with ({sum(given)} arrays, the signature "
-                f"{sum(w is not None for w in want)})")
+                "modalities/optional fields and its structures' budgets must "
+                f"match what the model was exported with ({sum(given)} arrays, the "
+                f"signature {sum(w is not None for w in want)})")
         out = []
-        for leaf, w in zip(leaves, want):
+        for leaf, w, shape in zip(leaves, want, self._shapes):
             if isinstance(leaf, torch.Tensor):
-                if tuple(leaf.shape) != tuple(w.shape):
+                if len(leaf.shape) != len(shape) or any(
+                        d is not None and d != n for d, n in zip(shape, leaf.shape)):
                     raise ValueError(f"request array of shape {tuple(leaf.shape)} where "
                                      f"the exported signature has {tuple(w.shape)}")
                 leaf = leaf.to(w.dtype)
             out.append(leaf)
         (args, _) = torch.utils._pytree.tree_unflatten(out, spec)
         return args[0]
+
+    def _batcher(self, ds, info) -> Batcher:
+        """A ``Batcher`` that builds the traced backend's batches: the traced
+        edge budget, and on ``tiled``/``stream`` the traced tiling, locality
+        and chunk budget or macro budget pinned."""
+        g, bs = self._traced.graph, self.batch_size
+        if g.senders is None:  # dense: the adjacency, any edge count
+            return Batcher(ds, info, bs, edge_budget=pad_edge_budget(
+                max(info.edge_budget_per_graph, 1) * bs))
+        pinned = {}
+        if g.tiled_adj is not None:
+            m = g.tiled_adj[0].meta
+            pinned = dict(tiling=(m.ts, m.tr, m.chunk), chunk_budget=m.n_chunks,
+                          locality=tuple(t.node_perm is not None for t in g.tiled_adj))
+        if g.stream_adj is not None:
+            pinned = dict(macro_budget=g.stream_adj[0].meta.n_macros)
+        return Batcher(ds, info, bs, edge_budget=int(g.senders.shape[1]),
+                       backend=self.backend, **pinned)
+
+    def _fit_ell(self, batch):
+        """The batch's ELL arrays padded to the traced slot count K (a slot
+        of weight 0 adds nothing); more slots than traced raise
+        ``ValueError``."""
+        want, g = self._traced.graph.ell_senders, batch.graph
+        if want is None or g.ell_senders is None:
+            return batch
+        K, k = int(want.shape[2]), int(g.ell_senders.shape[2])
+        if k > K:
+            raise ValueError(f"request graphs need {k} ELL slots a node; the program "
+                             f"was exported for {K}")
+        if k < K:
+            pad = (0, K - k)
+            g = g.replace(ell_senders=torch.nn.functional.pad(g.ell_senders, pad),
+                          ell_weights=torch.nn.functional.pad(g.ell_weights, pad))
+        return batch.replace(graph=g)
 
     def predict(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         t0 = time.time()
@@ -449,13 +493,13 @@ class ExportPredictor:
         # the program was traced WITH label arrays: feed zeros
         ds = Predictor._ensure_labels(ds, self.label_dim)
         bs = self.batch_size
-        b = Batcher(ds, info, bs, edge_budget=pad_edge_budget(
-            max(info.edge_budget_per_graph, 1) * bs))
+        b = self._batcher(ds, info)
         preds = []
         with self._lock:
             for start in range(0, ds.num, bs):
                 idx = np.arange(start, min(start + bs, ds.num))
-                batch = export_mod.export_batch(b.make_batch(idx).to(self.device))
+                batch = self._fit_ell(b.make_batch(idx)).to(self.device)
+                batch = export_mod.export_batch(batch)
                 with torch.no_grad():
                     out = self._fn(self._coerce(batch))
                 preds.append(out[:len(idx)].cpu().numpy())

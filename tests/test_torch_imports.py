@@ -240,3 +240,58 @@ def test_data_preparation_runs_without_a_gpu(tmp_path):
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+TOOLS = ("kgcn_tpu_torch.tools.hpo", "kgcn_tpu_torch.tools.nas",
+         "kgcn_tpu_torch.tools.estimators", "kgcn_tpu_torch.tools.graph_kernels",
+         "kgcn_tpu_torch.tools.active_learning", "kgcn_tpu_torch.runtime.timing",
+         "kgcn_tpu_torch.cli.opt", "kgcn_tpu_torch.cli.gk")
+
+
+def test_tools_import_and_run_without_jax_joblib_or_sklearn(tmp_path):
+    """The tools (HPO, NAS, the estimators, graph kernels, active learning,
+    timing, ``cli.opt`` and ``cli.gk``) are in the package and import with
+    JAX, joblib, scikit-learn and kgcn_tpu blocked; ``cli.gk`` and an SVC
+    active-learning loop run so on the host, and ``cli.opt`` and
+    ``nas.search`` refuse to run without a GPU unless the CPU is asked
+    for."""
+    r = _run(f"""
+        import importlib, json, pickle, pkgutil
+        import numpy as np
+        import kgcn_tpu_torch
+        names = {{m.name for m in pkgutil.walk_packages(
+            kgcn_tpu_torch.__path__, "kgcn_tpu_torch.")}}
+        want = {TOOLS!r}
+        assert set(want) <= names, sorted(set(want) - names)
+        for name in want:
+            importlib.import_module(name)
+        from kgcn_tpu_torch.cli import gk, opt
+        from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+        from kgcn_tpu_torch.data.dataset import build_dataset
+        from kgcn_tpu_torch.tools import active_learning, nas
+        path = {str(tmp_path / "ring.jbl")!r}
+        with open(path, "wb") as f:
+            pickle.dump(make_ring_dataset(num_pairs=10, num_nodes=8), f)
+        gk.main(["--dataset", path, "--folds", "3"])
+        rng = np.random.RandomState(0)
+        X = (rng.rand(60, 32) < 0.3).astype(float)
+        y = (X[:, :4].sum(1) > 1).astype(int)
+        accs, _ = active_learning.run_loop(X[:40], y[:40], X[40:], y[40:], initial=8,
+                                           batch=4, iterations=2)
+        assert len(accs) == 3
+        ds, info = build_dataset(make_ring_dataset(num_pairs=4, num_nodes=6), {{}})
+        for fn in (lambda: opt.main(["--config", "example_config/synth.json",
+                                     "--domain", "example_config/synth.json"]),
+                   lambda: nas.search(ds, ds, info, {{"epoch": 1}}, max_iter=1)):
+            try:
+                fn()
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), e
+            else:
+                raise AssertionError("ran without a GPU")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")

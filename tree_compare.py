@@ -34,12 +34,14 @@ only, so that any two checkouts which share them can be compared:
   (``example_config/solubility_cls.json``) and of the reaction engine
   (``chip_smoke.REACTION`` through ``cli.sparse``'s model), each tree's
   whole-epoch runner in the order base, new, new, base;
-* training steps of GIN (pallas, ring6 data) and GAT (tiled,
-  ``example_config/gat.json``): two trainers of BASE (A and B) and one of
-  this tree (N) from one seed, stepped in rotation on the same host batches,
-  each step timed from the move to the card to a synchronise; the medians of
-  the paired differences N − A and B − A (the method's A/A spread), and the
-  host's batch assembly (``make_batch``, its ELL or tiled part) per batch.
+* training steps of GIN (pallas, ring6 data), GAT (tiled,
+  ``example_config/gat.json``) and GCN (stream, batch 1, 16 ring graphs of
+  300 nodes): two trainers of BASE (A and B) and one of this tree (N) from
+  one seed, stepped in rotation on the same host batches, each step timed
+  from the move to the card to a synchronise; the medians of the paired
+  differences N − A and B − A (the method's A/A spread), and the host's
+  batch assembly (``make_batch``, its ELL or tiled part) per batch; after
+  the steps N's parameters are asserted bitwise equal to A's.
 
 Device times are ``chip_smoke.device_ms`` (torch.profiler, every CUDA
 kernel of the call) taken in the order base, new, new, base.  Prints one
@@ -62,6 +64,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "tree_compare")
 GIN_CONFIG = os.path.join(ROOT, "example_config", "gin.json")
 GAT_CONFIG = os.path.join(ROOT, "example_config", "gat.json")
+GCN_CONFIG = os.path.join(ROOT, "example_config", "synth.json")
 DEVICE = "cuda"
 SCALE = (100_000, 1_000_000)  # the SDDMM's uniform graph: nodes, edges
 V_ELL = 100_000               # the ELL case at scale: V rows of K 10
@@ -361,13 +364,26 @@ def gconv_part(P, rows):
         captured_bf16_steps(P, rows, workdir)
 
 
+def ring300_file():
+    """16 ring graphs of 300 nodes (the stream case's data)."""
+    path = os.path.join(WORK, "ring300.jbl")
+    if not os.path.exists(path):
+        from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+
+        with open(path, "wb") as f:
+            pickle.dump(make_ring_dataset(num_pairs=8, num_nodes=300, seed=0), f, protocol=4)
+    return path
+
+
 def step_walls(P, rows, runs=3):
     import numpy as np
     import torch
 
     for name, src, over in (
             ("gin pallas ring6", GIN_CONFIG, dict(dataset=ring6_file(), spmm_backend="pallas")),
-            ("gat tiled", GAT_CONFIG, dict(spmm_backend="tiled"))):
+            ("gat tiled", GAT_CONFIG, dict(spmm_backend="tiled")),
+            ("gcn stream ring300", GCN_CONFIG, dict(dataset=ring300_file(), batch_size=1,
+                                                    spmm_backend="stream"))):
         trees = {}
         for key, tag in (("A", "base"), ("B", "base"), ("N", "new")):
             mods = P[tag]
@@ -392,6 +408,12 @@ def step_walls(P, rows, runs=3):
                     if r:
                         t["walls"].append(time.perf_counter() - t0)
                         t["moves"].append(t1 - t0)
+        # the same steps from one seed: this tree's state bitwise BASE's
+        bitwise = all(torch.equal(trees["N"]["state"].params[k], trees["A"]["state"].params[k])
+                      for k in trees["A"]["state"].params)
+        if not bitwise:
+            raise AssertionError(f"step wall {name}: the state after the same steps "
+                                 "differs from BASE's")
         w = {k: np.asarray(t["walls"]) * 1e3 for k, t in trees.items()}
         host = {}
         for key in ("A", "N", "N", "A"):  # host batch assembly, in turns
@@ -407,7 +429,7 @@ def step_walls(P, rows, runs=3):
             host.setdefault(key, []).append(((time.perf_counter() - t0) / k * 1e3,
                                              (tb.ell_seconds + tb.tiled_seconds - part0)
                                              / k * 1e3))
-        row = dict(what=f"step wall {name}", steps=len(w["N"]),
+        row = dict(what=f"step wall {name}", steps=len(w["N"]), bitwise_equal_to_base=bitwise,
                    median_ms={k: float(np.median(v)) for k, v in w.items()},
                    new_minus_A=float(np.median(w["N"] - w["A"])),
                    B_minus_A=float(np.median(w["B"] - w["A"])),
@@ -419,7 +441,8 @@ def step_walls(P, rows, runs=3):
             f"{row['median_ms']['N']:.4f} ms; N - A {row['new_minus_A']:+.4f}, B - A "
             f"{row['B_minus_A']:+.4f} (A/A); move median A {row['move_ms']['A']:.4f} N "
             f"{row['move_ms']['N']:.4f}; host batch ms (all, its ELL/tiled part) base "
-            f"{host['A']} new {host['N']}")
+            f"{host['A']} new {host['N']}; the state after the same steps bitwise equal "
+            "to BASE's")
 
 
 def main():
