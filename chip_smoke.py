@@ -312,10 +312,32 @@ non-zero exit and no result line:
    same artifact on this machine's CPU, and so are the logits before the
    softmax (the 700-node rings' answers are pinned at 0 and 1), relative
    to the largest logit, against the port's model run eagerly;
-19. summary — one JSON line of kernel numbers, then the result line.
+19. parallel, in a rank of its own: ``phase_in_child`` starts
+   ``python -m kgcn_tpu_torch.parallel.launch --nprocs 1 -- python3
+   chip_smoke.py --phase19 WORKDIR`` (the NCCL group of one rank on this
+   card; alone: that command after phases 1, 2 and 8 on WORKDIR) —
+   ``train`` of solubility_cls.json's GCN at full width (dropout 0, 2
+   epochs) with ``mesh {"data": 1}`` bitwise equal (per-epoch costs, final
+   parameters) to the same config without ``mesh``, its gconv launches
+   exact (the data-parallel steps run eagerly: a forward's kernels a step
+   and an evaluated batch), its costs within TRAJECTORY_RTOL of the same
+   run on this machine's CPU (gloo), one epoch at ``"precision":
+   "bfloat16"`` (the bf16 gconv launched); the same for gin.json on ring6
+   with ``pallas`` (the ELL kernel and its dx kernel, phase 10's counts);
+   the big-graph KG trainer on phase 8's KG (``mesh``, gcn, dim 128):
+   one step's loss and gradients against ``KGLinkPredictor`` on the same
+   weights (stream kernels, f32 payload) within 1e-4 of the largest
+   magnitude, ring equal to allgather, ``fit_resident`` 2 epochs, the
+   sharded checkpoint restored bitwise, ``cli.main train``/``retrain``/
+   ``infer``, a step's wall and the peak device memory; ``train_cv`` with
+   ``fold_parallel: "force"`` (5 folds of 320 molecules, 2 epochs) GPU vs
+   CPU per fold (TRAJECTORY_RTOL); the trial pool on ``cuda:0`` twice
+   (each trial bitwise equal to itself alone); ``tools/bench_scaling``
+   (kg step, world 1) prints its line; the phase's wall;
+20. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
-5, 6, 8, 10, 11, 12, 14, 15, 16, 17 and 18) and read just after; the summary's
+5, 6, 8, 10, 11, 12, 14, 15, 16, 17, 18 and 19) and read just after; the summary's
 ``launches`` add up the tiled GCN, tiled GAT and dense GCN training runs
 and the serve run, the KG runs (train and infer) for the stream kernels,
 the ring runs (train and infer) for the ELL kernel, phase 11's resident
@@ -325,6 +347,9 @@ phase 14's (gconv: the served kgcn_tpu checkpoint, the dynamic batcher's
 device calls, the export and its program's run, multimodal training) and
 phase 15's (gconv: the sparse, pair and VAE engines' training and
 inference; the tiled SpMM: the sparse engine beyond 256 nodes) and
+phase 19's (gconv and its bf16 entry, the ELL kernel and its dx kernel:
+the data-parallel runs; the stream scatter: the big-graph checkpoint's
+``infer``; the fold-parallel and pool runs' warm-up and capture) and
 phase 16's (the bf16 runs; gconv_bf16 counts them alone) and phase 17's
 (gconv: the chem dataset's captured ``train`` and ``infer``, the KNIME
 dataset's streaming ``train``) and phase 18's (gconv: the HPO trials, the
@@ -5008,7 +5033,7 @@ def explain_gcnv(workdir):
     say(f"gcnv: {made}")
 
 
-def phase_in_child(flag, workdir, timeout=900):
+def phase_in_child(flag, workdir, timeout=900, ranks=None):
     """A phase in a process of its own (``python3 chip_smoke.py FLAG
     WORKDIR``, ``child_main``) on this card and ``workdir``: a fresh CUDA
     context.  In a process that has run phases 3-15, torch.profiler has
@@ -5016,11 +5041,14 @@ def phase_in_child(flag, workdir, timeout=900):
     window after phase 15, 1 of 3 after phase 8), and phases 16 and 17 read
     launch counts from it.  The child writes its results to
     ``workdir/<flag>.json``; it is waited for, and killed at ``timeout``.
-    Returns those results."""
+    Returns those results.  ``ranks``: the child is started as that many
+    ranks of ``kgcn-torch-launch`` (one GPU a rank, NCCL)."""
     out = os.path.join(workdir, f"{flag.strip('-')}.json")
     sys.stdout.flush()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, workdir],
-                          timeout=timeout)
+    launcher = [] if ranks is None else [
+        sys.executable, "-m", "kgcn_tpu_torch.parallel.launch", "--nprocs", str(ranks), "--"]
+    proc = subprocess.run(launcher + [sys.executable, os.path.abspath(__file__), flag,
+                                      workdir], timeout=timeout, cwd=ROOT)
     if proc.returncode != 0:
         raise AssertionError(f"{flag} exited with code {proc.returncode}")
     with open(out) as f:
@@ -5036,13 +5064,24 @@ def phase_precision_process(workdir, timeout=900):
 
 
 def child_main(flag, workdir):
-    """The child of ``phase_in_child``: phase 16, 17 or 18 on ``workdir``."""
+    """The child of ``phase_in_child``: phase 16, 17, 18 or 19 on ``workdir``."""
     import torch
 
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false")
         sys.exit(2)
+    if flag == "--phase19":
+        from kgcn_tpu_torch.parallel import mesh as pmesh
+        from kgcn_tpu_torch.parallel.launch import initialize_from_env
+
+        if not initialize_from_env(cpu=False):
+            raise AssertionError("phase 19 runs as a rank of kgcn-torch-launch")
+        launches, numbers = phase_parallel(workdir)
+        with open(os.path.join(workdir, "phase19.json"), "w") as f:
+            json.dump({"launches": launches, "numbers": numbers}, f)
+        pmesh.finalize()
+        return
     if flag == "--phase16":
         rows, launches = phase_precision(workdir)
         res = {"rows": rows, "launches": launches}
@@ -5886,6 +5925,309 @@ def phase_tools(workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the parallel layer, its ranks started by kgcn-torch-launch
+
+PARALLEL_CV_MOLECULES = 320   # solubility_cls.json's first molecules, spread
+PARALLEL_CV_FOLDS = 5
+POOL_TRIALS = ({"learning_rate": 0.01, "batch_size": 32},
+               {"learning_rate": 0.003, "batch_size": 16})
+BIG_GRAPH_TOL = 1e-4         # of the largest magnitude: stream kernels vs segment sums
+BIG_GRAPH_STEPS = 5           # timed big-graph steps
+BENCH_KG = ("40943", "86835", "128")  # bench_scaling's kg step: WN18RR's nodes, edges, dim
+
+
+def _same_bits(label, a, b):
+    """Two trees (nested dicts of tensors, or lists of floats) equal bit for
+    bit."""
+    import torch
+
+    bad = []
+
+    def walk(x, y, at):
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                bad.append(f"{at} keys")
+            for k in x:
+                walk(x[k], y.get(k), f"{at}.{k}")
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and torch.equal(x.cpu(), y.cpu())):
+                bad.append(at)
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y) or any(p != q for p, q in zip(x, y)):
+                bad.append(at)
+        elif x != y:
+            bad.append(at)
+
+    walk(a, b, "")
+    if bad:
+        raise AssertionError(f"{label}: not bitwise equal at {bad[:5]}")
+
+
+def _last_params(cfg):
+    from kgcn_tpu_torch.runtime import checkpoint as ckpt
+
+    return ckpt.load_checkpoint(os.path.join(cfg["save_model_path"],
+                                             "model.last.ckpt"))["params"]
+
+
+def _cfg_of(workdir, name):
+    with open(os.path.join(workdir, name, "config.json")) as f:
+        return json.load(f)
+
+
+def parallel_dp(workdir, label, src, per_forward, dx_per_step, epochs, cpu_check, **over):
+    """``train`` with ``mesh {"data": 1}`` (the data-parallel trainer over
+    the NCCL group of one rank) against the same config without ``mesh``
+    (the single-device trainer, captured): per-epoch training costs and the
+    final parameters bitwise; the mesh run's kernel launches exact (its
+    steps run eagerly: ``per_forward`` a step and an evaluated batch,
+    ``dx_per_step`` ELL dx kernels a step); with ``cpu_check`` the mesh
+    run's costs on this machine's CPU (gloo) within TRAJECTORY_RTOL."""
+    name = f"dp_{label}"
+    mesh, counts, steps, evals, out = train_run(workdir, name, src, epochs,
+                                                mesh={"data": 1}, **over)
+    if over.get("spmm_backend") == "pallas" and "[spmm] backend: pallas" not in out:
+        raise AssertionError(f"{name}: did not take the ELL route")
+    single, _, _, _, _ = train_run(workdir, f"{name}_single", src, epochs, **over)
+    _same_bits(f"{name}: per-epoch training costs, mesh vs single device", mesh, single)
+    _same_bits(f"{name}: final parameters, mesh vs single device",
+               _last_params(_cfg_of(workdir, name)),
+               _last_params(_cfg_of(workdir, f"{name}_single")))
+    say(f"-- {name}: mesh {{'data': 1}} bitwise equal to the single-device run "
+        f"(costs {mesh})")
+    kernel = "gconv" if dx_per_step is None else "ell_spmm"
+    want = {kernel: per_forward * (steps + evals)}
+    if dx_per_step is not None:
+        want["ell_spmm_dx"] = dx_per_step * steps
+    _expect(f"train {name} (mesh, eager steps)", counts, want)
+    if cpu_check:
+        cpu, _, _, _, _ = train_run(workdir, f"{name}_cpu", src, epochs, cpu=True,
+                                    mesh={"data": 1}, **over)
+        rel = [abs(a - b) / abs(b) for a, b in zip(mesh, cpu)]
+        say(f"-- {name}: GPU {mesh} CPU (gloo) {cpu} relative {rel}")
+        if max(rel) > TRAJECTORY_RTOL:
+            raise AssertionError(f"{name}: GPU and CPU costs differ by {max(rel)}")
+    return counts
+
+
+def parallel_big_graph(workdir):
+    """The big-graph KG trainer on phase 8's WN18RR-shaped KG at world 1:
+    one step's loss and gradients against the single-device
+    ``KGLinkPredictor`` on the same weights (the stream kernels, float32
+    payload) within BIG_GRAPH_TOL of the largest magnitude, the ring halo
+    equal to the allgather one; ``fit_resident`` (2 epochs); the sharded
+    checkpoint round trip bitwise; ``cli.main train`` (mesh), ``retrain``
+    and ``infer``; a step's wall time and the peak device memory.  Returns
+    the infer's launches."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.models.kg import sample_negatives
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel.big_graph import EMBED, from_kg_dataset
+
+    cfg, path = kg_config(workdir, "kg_big_graph", mesh={"data": 1},
+                          tiled_compute_dtype="float32", epoch=2)
+    cfg.pop("label_batch_size")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    L = KG_OVERRIDES["label_batch_size"]
+    ll = sample_negatives(np.concatenate([ds.label_list[0][:L]] * 2, axis=1).astype(np.int32),
+                          np.arange(info.all_node_num, dtype=np.int32),
+                          np.random.RandomState(0))
+    say(f"-- big graph: {info.all_node_num} entities, {info.adj_channel_num} relations, "
+        f"{len(ds.label_list[0])} training triples, dim {cfg['embedding_dim']}, "
+        f"{cfg['kg_encoder']} encoder")
+    grads, losses = {}, {}
+    for strategy in ("ring", "allgather"):
+        bg = from_kg_dataset(ds, info, dict(cfg, halo_strategy=strategy))
+        state = bg.init_state(seed=0)
+        grads[strategy] = bg.gradients(state, ll)
+        losses[strategy] = bg.evaluate(state, ll)["cost"]
+    _same_bits("big graph: ring vs allgather gradients",
+               {k: torch.from_numpy(v) for k, v in grads["ring"].items()},
+               {k: torch.from_numpy(v) for k, v in grads["allgather"].items()})
+    if losses["ring"] != losses["allgather"]:
+        raise AssertionError(f"big graph: ring loss {losses}")
+    kb, _, _ = kg_batcher(dict(cfg, label_batch_size=L), device=bg.device)
+    model = build_model("kg_distmult", info, cfg).to(bg.device)
+    params = {k: v.to(bg.device).requires_grad_(True)
+              for k, v in bg.to_flax_variables(state)["params"].items()}
+    dev_ll = torch.from_numpy(ll).to(bg.device)
+    batch = kb.graph_batch.replace(label_list=dev_ll[None],
+                                   label_valid=torch.ones(1, L, device=bg.device))
+    out = functional_call(model, params, (batch,), {"train": True})
+    names = list(params)
+    want = dict(zip(names, [g.cpu().numpy() for g in torch.autograd.grad(
+        out.cost_opt, [params[k] for k in names])]))
+    cost = float(out.cost_opt.detach())
+    loss_gap = abs(losses["ring"] - cost) / abs(cost)
+    worst = 0.0
+    for k, w in want.items():
+        got = grads["ring"][k][:w.shape[0]] if k == EMBED else grads["ring"][k]
+        gap = float(np.max(np.abs(got - w))) / max(float(np.max(np.abs(w))), 1e-30)
+        worst = max(worst, gap)
+    say(f"-- big graph vs KGLinkPredictor (stream, f32), one step: loss {losses['ring']} vs "
+        f"{cost} (relative {loss_gap:.3g}); gradients' largest gap "
+        f"{worst:.3g} of the largest magnitude (limit {BIG_GRAPH_TOL})")
+    if loss_gap > BIG_GRAPH_TOL or worst > BIG_GRAPH_TOL:
+        raise AssertionError("big graph: the step disagrees with KGLinkPredictor")
+    bg = from_kg_dataset(ds, info, cfg)
+    state = bg.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = bg.train_step(state, ll)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BIG_GRAPH_STEPS):
+        state, m = bg.train_step(state, ll)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / BIG_GRAPH_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    say(f"-- big graph step (label slice {L}, world 1): {step_ms:.3f} ms wall, peak device "
+        f"memory {peak} bytes; cost {m['cost']:.6g}")
+    state, hist = bg.fit_resident(state, ds.label_list[0], epochs=2, seed=0)
+    if not np.isfinite([h["train_cost"] for h in hist]).all():
+        raise AssertionError(f"big graph fit_resident: {hist}")
+    ck = os.path.join(workdir, "kg_big_graph", "roundtrip.ckpt")
+    bg.save(ck, state)
+    back = bg.restore(ck, bg.init_state(seed=1))
+    _same_bits("big graph: the sharded checkpoint", state, back)
+    say(f"-- big graph fit_resident: {hist}; sharded checkpoint restored bitwise")
+    out, _, _, wall = _cli(["train", "--config", path])
+    if "model.big_graph.ckpt" not in out or not os.path.exists(
+            os.path.join(cfg["save_model_path"], "model.last.ckpt")):
+        raise AssertionError(f"big graph train: {out[-2000:]}")
+    re_cfg = dict(cfg, retrain=os.path.join(cfg["save_model_path"], "model.big_graph.ckpt"),
+                  save_model_path=cfg["save_model_path"] + "_retrain", epoch=1)
+    re_path = os.path.join(workdir, "kg_big_graph", "retrain.json")
+    with open(re_path, "w") as f:
+        json.dump(re_cfg, f)
+    re_out, _, _, _ = _cli(["train", "--config", re_path])
+    if f"[LOAD] {re_cfg['retrain']}" not in re_out:
+        raise AssertionError(f"big graph retrain: {re_out[-2000:]}")
+    out, result, counts, iwall = _cli(["infer", "--config", path])
+    if not 0.0 <= result["mrr"] <= 1.0 or result["num_test_triples"] <= 0:
+        raise AssertionError(f"big graph infer: {result}")
+    say(f"-- big graph cli: train {wall:.2f} s, retrain resumed, infer {iwall:.2f} s "
+        f"{json.dumps(result)}")
+    return counts, {"step_ms": step_ms, "peak_bytes": peak}
+
+
+def parallel_fold_cv(workdir):
+    """``train_cv`` with ``fold_parallel: "force"`` at world 1 on the GPU and
+    on the CPU: each fold's test cost within TRAJECTORY_RTOL."""
+    import numpy as np
+
+    from kgcn_tpu_torch.data import jbl
+
+    data = jbl.load(DATASET)
+    idx = np.linspace(0, len(data["label"]) - 1, PARALLEL_CV_MOLECULES).astype(np.int64)
+    sub = {k: ([v[i] for i in idx] if isinstance(v, list) else
+               v[idx] if isinstance(v, np.ndarray) and v.ndim and len(v) == len(data["label"])
+               else v) for k, v in data.items()}
+    path = os.path.join(workdir, "cv_subset.jbl")
+    with open(path, "wb") as f:
+        pickle.dump(sub, f, protocol=4)
+    results = {}
+    for side, cpu in (("gpu", False), ("cpu", True)):
+        cfg, cpath = _write_config(workdir, f"cv_force_{side}", CONFIG, epoch=2,
+                                   dropout_rate=0.0, fold_parallel="force",
+                                   **{"k-fold_num": PARALLEL_CV_FOLDS})
+        cfg["dataset"] = path
+        cfg["save_info_cv"] = os.path.join(os.path.dirname(cpath), "info_cv.json")
+        with open(cpath, "w") as f:
+            json.dump(cfg, f)
+        out, results[side], counts, wall = _cli(["train_cv", "--config", cpath], cpu=cpu)
+        if f"[fold_parallel] {PARALLEL_CV_FOLDS} folds over 1 rank(s)" not in out:
+            raise AssertionError(f"train_cv force ({side}): {out[-2000:]}")
+        say(f"-- train_cv fold_parallel force ({side}): {wall:.2f} s")
+        if side == "gpu":
+            gpu_counts = counts
+    g = [f["test_cost"] for f in results["gpu"]["folds"]]
+    c = [f["test_cost"] for f in results["cpu"]["folds"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(g, c)]
+    say(f"-- fold-parallel per-fold test costs GPU {g} CPU {c} relative {rel}")
+    if len(g) != PARALLEL_CV_FOLDS or max(rel) > TRAJECTORY_RTOL:
+        raise AssertionError("fold-parallel CV: GPU and CPU folds differ")
+    return gpu_counts
+
+
+def parallel_trial_pool(workdir):
+    """DeviceTrialPool with the card twice: each trial's objective bitwise
+    equal to the same trial run alone."""
+    from kgcn_tpu_torch.cli.main import _prepare
+    from kgcn_tpu_torch.tools.parallel_trials import DeviceTrialPool
+
+    cfg = _load_config(CONFIG, dropout_rate=0.0, epoch=2)
+    ds, info, backend = _prepare(cfg)
+
+    def pool(devices):
+        return DeviceTrialPool(cfg, ds, info, devices=devices, backend=backend)
+
+    _zero_counts()
+    t0 = time.time()
+    together = pool([DEVICE + ":0"] * 2).run_batch(list(POOL_TRIALS))
+    wall = time.time() - t0
+    counts = _counts()
+    alone = [pool([DEVICE + ":0"]).run_batch([p])[0] for p in POOL_TRIALS]
+    _same_bits("trial pool: two trials at once vs each alone", together, alone)
+    say(f"-- trial pool (cuda:0 twice): objectives {together} bitwise equal to each "
+        f"trial alone; {wall:.2f} s for the round")
+    return counts
+
+
+def phase_parallel(workdir):
+    """Phase 19, in a rank started by ``kgcn-torch-launch --nprocs 1`` (the
+    NCCL group of one rank).  Returns (launches, numbers)."""
+    import torch.distributed as dist
+
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+    from kgcn_tpu_torch.tools import bench_scaling
+
+    phase(19, "parallel: kgcn-torch-launch (NCCL, world 1), data-parallel mesh training, "
+              "the big-graph KG trainer, fold-parallel CV, the trial pool")
+    t_phase = time.time()
+    if pmesh.world_size() != 1 or "nccl" not in str(dist.get_backend()):
+        raise AssertionError(f"phase 19 runs in a world of {pmesh.world_size()} over "
+                             f"{dist.get_backend()}")
+    launches = {k: 0 for k in _counted()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    per_forward = gconv_kernels_a_forward(_load_config(CONFIG))
+    say(f"first forward done at {time.time() - t_phase:.1f} s of the phase")
+    add(parallel_dp(workdir, "gcn", CONFIG, per_forward, None, 2, True, dropout_rate=0.0))
+    _, counts, _, _, _ = train_run(workdir, "dp_gcn_bf16", CONFIG, 1, falling=False,
+                                   mesh={"data": 1}, dropout_rate=0.0, precision="bfloat16")
+    if counts["gconv_bf16"] <= 0:
+        raise AssertionError(f"the bf16 mesh run launched {counts}")
+    add(counts)
+    say(f"dp done at {time.time() - t_phase:.1f} s of the phase")
+    add(parallel_dp(workdir, "gin_pallas", GIN_CONFIG, 2, 1, 2, False,
+                    dataset=ring6_file(workdir), spmm_backend="pallas", make_plot=False))
+    say(f"dp gin done at {time.time() - t_phase:.1f} s of the phase")
+    counts, numbers = parallel_big_graph(workdir)
+    add(counts)
+    say(f"big graph done at {time.time() - t_phase:.1f} s of the phase")
+    add(parallel_fold_cv(workdir))
+    say(f"fold-parallel CV done at {time.time() - t_phase:.1f} s of the phase")
+    add(parallel_trial_pool(workdir))
+    nodes, edges, dim = BENCH_KG
+    bench_scaling.main(["--workload", "kg_step", "--nodes", nodes, "--edges", edges,
+                        "--features", dim])
+    numbers["wall_s"] = time.time() - t_phase
+    say(f"parallel phase wall {numbers['wall_s']:.1f} s; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    return launches, numbers
+
+
 def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_rows):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
     the served batch's three GraphConv calls, float32 and, for its bf16
@@ -6065,10 +6407,17 @@ def main():
         for k, v in tools.items():
             launches[k] += v
         say(f"tools and export done at {time.time() - t_start:.1f} s")
+        parallel = phase_in_child("--phase19", workdir, ranks=1)
+        for k, v in parallel["launches"].items():
+            launches[k] += v
+        say(f"parallel done at {time.time() - t_start:.1f} s: {parallel['numbers']}")
 
     import torch
 
-    phase(19, "summary")
+    phase(20, "summary")
+    if min(parallel["launches"][k] for k in ("gconv", "gconv_bf16", "ell_spmm",
+                                              "ell_spmm_dx")) <= 0:
+        raise AssertionError(f"the parallel paths launched {parallel['launches']}")
     if tools["gconv"] <= 0 or min(tools[k] for k in ("tiled_spmm", "stream_scatter",
                                                      "ell_spmm")) <= 0:
         raise AssertionError(f"the tools and export paths launched {tools}")
@@ -6094,7 +6443,8 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] in ("--phase16", "--phase17", "--phase18"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--phase16", "--phase17", "--phase18",
+                                              "--phase19"):
         child_main(sys.argv[1], sys.argv[2])
     else:
         main()

@@ -75,9 +75,15 @@ dataset with KG triples) to the embedding IG of ``explain/kg_ig.py``, any
 other to ``explain/ig.py`` (with the IG of the vector modals and of the
 sequence-embedding layer where the dataset has them).
 
-Not ported yet, each raising "not yet ported" with its ROADMAP.md item:
-``mesh`` (data parallel; KG: the sharded and resident training, A.11) and
-``fold_parallel`` ``"force"`` (A.11).  The
+``mesh`` (``{"data": N}``, ``batch_size`` per rank) trains data parallel
+over the N ranks of ``kgcn-torch-launch --nprocs N`` (``parallel/dp.py``;
+N must equal the world size, a plain process is a world of one); on a KG
+it trains the edge-partitioned big-graph trainer (``parallel/
+big_graph.py``: the sharded checkpoint ``model.big_graph.ckpt`` beside
+the single-device ``last`` one, ``retrain`` from it).  ``fold_parallel``
+``"force"`` (or ``"auto"`` in a world of more than one) trains fold f of
+``train_cv`` on rank f mod W (``parallel/cv.py``).  Rank 0 writes the
+result files.  The
 sparse, pair and VAE engines have their own entry points, as in
 ``kgcn_tpu``: ``cli/sparse.py``, ``cli/pair.py`` and ``cli/gen.py``.  ``export_savedmodel`` (a TensorFlow SavedModel)
 is refused: it needs TensorFlow, which the port does not use.
@@ -102,6 +108,10 @@ from kgcn_tpu_torch.explain.ig import run_visualization
 from kgcn_tpu_torch.explain.kg_ig import run_kg_visualization
 from kgcn_tpu_torch.models.kg import KGBatcher
 from kgcn_tpu_torch.models.registry import build_model
+from kgcn_tpu_torch.parallel import cv as pcv
+from kgcn_tpu_torch.parallel import dp as pdp
+from kgcn_tpu_torch.parallel import mesh as pmesh
+from kgcn_tpu_torch.parallel.launch import initialize_from_env
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime import checkpoint as ckpt
 from kgcn_tpu_torch.runtime import resident
@@ -111,17 +121,6 @@ from kgcn_tpu_torch.runtime.export import export_model
 from kgcn_tpu_torch.runtime.metrics import compute_metrics
 from kgcn_tpu_torch.runtime.train import Trainer
 from kgcn_tpu_torch.tools import plots
-
-
-def fold_parallel_flag(config) -> str:
-    """Config ``fold_parallel`` as 'off' | 'force' | 'auto' (``kgcn_tpu``'s
-    ``parallel/cv.fold_parallel_flag``)."""
-    flag = config.get("fold_parallel", "auto")
-    if flag in (False, "false", "off", 0, "0"):
-        return "off"
-    if flag in (True, "true", "force", 1, "1"):
-        return "force"
-    return "auto"
 
 
 class NumpyEncoder(json.JSONEncoder):
@@ -138,6 +137,8 @@ class NumpyEncoder(json.JSONEncoder):
 
 
 def _save_json(path: str, payload: Dict[str, Any]) -> None:
+    if not pmesh.is_main_process():
+        return
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -148,6 +149,8 @@ def _save_json(path: str, payload: Dict[str, Any]) -> None:
 
 def save_prediction(filename: str, prediction) -> None:
     """CSV prediction dump, one row per example (reference: gcn.py:59-81)."""
+    if not pmesh.is_main_process():
+        return
     d = os.path.dirname(filename)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -161,11 +164,6 @@ def save_prediction(filename: str, prediction) -> None:
 def _metric_name(task: str) -> str:
     return ("mse" if task == "regression"
             else "gmfe" if task == "regression_gmfe" else "accuracy")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not yet ported to kgcn_tpu_torch "
-                              f"(ROADMAP.md {item})")
 
 
 def _prepare(config, dataset_key="dataset", test_mode=False):
@@ -199,8 +197,7 @@ def cmd_train_kg(config, ds, info, backend, device) -> Dict[str, Any]:
     slices with negatives resampled every step, one line per epoch, the
     ``last`` checkpoint, ``save_info_train``."""
     if config.get("mesh"):
-        _not_ported("sharded KG training (config 'mesh': kgcn_tpu's "
-                    "_train_kg_sharded and its resident fit)", "A.11")
+        return _train_kg_sharded(config, ds, info, device)
     model = build_model(_kg_model_name(config), info, config)
     trainer = Trainer(model, config, info, device=device)
     seed = int(config.get("seed", 0))
@@ -224,6 +221,64 @@ def cmd_train_kg(config, ds, info, backend, device) -> Dict[str, Any]:
                           trainer.state_tree(state, 0, 0.0))
     print(f"[SAVE] {path}")
     result = {"train_time": train_time, "ranking_accuracy": best_acc}
+    if config.get("save_info_train"):
+        _save_json(config["save_info_train"], result)
+    return result
+
+
+def _train_kg_sharded(config, ds, info, device) -> Dict[str, Any]:
+    """Big-graph KG training over the ranks (config ``mesh``; ``kgcn_tpu``'s
+    ``_train_kg_sharded``): the table and the adjacency partitioned by
+    ``parallel/big_graph.py``; ``fit_resident`` (negatives drawn on the
+    device, one read-back) unless ``device_resident`` is off or a
+    ``label_batch_size`` asks for slices (``fit``).  Writes the sharded
+    checkpoint ``model.big_graph.ckpt`` (``retrain`` resumes from it) and,
+    for ``kg_layers`` 0 or 2, the single-device ``last`` checkpoint that
+    ``infer`` reads."""
+    from kgcn_tpu_torch.parallel.big_graph import from_kg_dataset
+
+    mesh = pmesh.make_mesh(dict(config["mesh"]))
+    bg = from_kg_dataset(ds, info, config, device=device)
+    seed = int(config.get("seed", 0))
+    state = bg.init_state(seed=seed)
+    if config.get("retrain"):
+        state = bg.restore(config["retrain"], state)
+        print(f"[LOAD] {config['retrain']}")
+    ll = np.asarray(ds.label_list[0], np.int32)
+    epochs = int(config.get("epoch", 50))
+    mode = config.get("preference_pair_mode", "both")
+    t0 = time.time()
+    if resident.resident_flag(config) != "off" and not config.get("label_batch_size"):
+        state, history = bg.fit_resident(state, ll, epochs=epochs, pair_mode=mode,
+                                         seed=seed)
+    else:
+        state, history = bg.fit(state, ll, epochs=epochs, pair_mode=mode, seed=seed,
+                                label_batch_size=config.get("label_batch_size"))
+    train_time = time.time() - t0
+    for rec in history:
+        print(f"epoch {rec['epoch']}, training cost {rec['train_cost']:.6g} "
+              f"(rank acc={rec['train_accuracy']:.4g})")
+    print(f"training time: {train_time}[sec] ({mesh.shape} mesh, {bg.strategy} halo)")
+    model_dir = config.get("save_model_path") or "model"
+    path = bg.save(os.path.join(model_dir, "model.big_graph.ckpt"), state)
+    print(f"[SAVE] {path}")
+    if bg.num_layers in (0, 2):
+        variables = bg.to_flax_variables(state)
+        if pmesh.is_main_process():
+            model = build_model(_kg_model_name(config), info, config)
+            trainer = Trainer(model, config, info, device="cpu")
+            sd = trainer.init_state(seed)
+            sd.params = {k: v.clone() for k, v in variables["params"].items()}
+            path = ckpt.save_tree(ckpt.ckpt_name(model_dir, "last"),
+                                  trainer.state_tree(sd, 0, 0.0))
+            print(f"[SAVE] {path}")
+        pmesh.barrier()
+    else:
+        print(f"[ckpt] kg_layers={bg.num_layers} has no single-device equivalent; "
+              "use the big-graph checkpoint for resume (infer requires kg_layers "
+              "in {0, 2})")
+    best = max((rec["train_accuracy"] for rec in history), default=0.0)
+    result = {"train_time": train_time, "ranking_accuracy": best}
     if config.get("save_info_train"):
         _save_json(config["save_info_train"], result)
     return result
@@ -348,21 +403,34 @@ def _maybe_resident(config, ds, info, bs, backend, device, seed=0):
 
 def _fit_once(config, train_ds, valid_ds, info, backend, device,
               fold: Optional[int] = None, seed: Optional[int] = None):
-    """The single-device branch of ``kgcn_tpu``'s ``_fit_once``: the batches
-    shuffled from ``seed`` (0 when None), the parameters drawn from it (the
-    config's seed when None), the checkpoints named by ``fold``."""
-    if config.get("mesh"):
-        _not_ported("data-parallel training (config 'mesh')", "A.11")
+    """``kgcn_tpu``'s ``_fit_once``: the batches shuffled from ``seed`` (0
+    when None), the parameters drawn from it (the config's seed when None),
+    the checkpoints named by ``fold``.  With ``mesh`` the trainer is the
+    data-parallel ``DPTrainer`` and the batchers are this rank's views
+    (``batch_size`` per rank; the validation batches streamed, as there)."""
     bs = int(config["batch_size"])
     model = build_model(config["model.py"], info, config)
-    trainer = Trainer(model, config, info, device=device)
-    tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,
-                          seed=seed or 0)
-          or Batcher(train_ds, info, bs, seed=seed or 0, backend=backend))
-    vb = None
-    if valid_ds is not None and valid_ds.num > 0:
-        vb = (_maybe_resident(config, valid_ds, info, bs, backend, trainer.device)
-              or Batcher(valid_ds, info, bs, backend=backend))
+    if config.get("mesh"):
+        mesh = pmesh.make_mesh(dict(config["mesh"]))
+        trainer = pdp.DPTrainer(model, config, info, device=device, mesh=mesh)
+        rb = _maybe_resident(config, train_ds, info, bs, backend, trainer.device,
+                             seed=seed or 0)
+        tb = (pdp.ShardedResidentBatcher(rb, mesh.size) if rb is not None else
+              pdp.ShardedBatcher(Batcher(train_ds, info, bs, seed=seed or 0,
+                                         backend=backend), mesh.size))
+        vb = None
+        if valid_ds is not None and valid_ds.num > 0:
+            vb = pdp.ShardedBatcher(Batcher(valid_ds, info, bs, backend=backend),
+                                    mesh.size)
+    else:
+        trainer = Trainer(model, config, info, device=device)
+        tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,
+                              seed=seed or 0)
+              or Batcher(train_ds, info, bs, seed=seed or 0, backend=backend))
+        vb = None
+        if valid_ds is not None and valid_ds.num > 0:
+            vb = (_maybe_resident(config, valid_ds, info, bs, backend, trainer.device)
+                  or Batcher(valid_ds, info, bs, backend=backend))
     state = trainer.init_state(seed if seed is not None else int(config.get("seed", 0)))
     if config.get("retrain"):
         state = trainer.restore(config["retrain"])
@@ -373,6 +441,8 @@ def _fit_once(config, train_ds, valid_ds, info, backend, device,
 
 def _save_serve_info(config, info) -> None:
     """The sidecar the serving runtime reads beside the checkpoints."""
+    if not pmesh.is_main_process():
+        return
     model_dir = config.get("save_model_path") or "model"
     payload = {
         "model.py": config.get("model.py", "gcn"),
@@ -448,7 +518,7 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
         if config.get("save_info_valid"):
             _save_json(config["save_info_valid"], result)
 
-    if config.get("export_model"):
+    if config.get("export_model") and pmesh.is_main_process():
         bs = int(config["batch_size"])
         sample = Batcher(train_ds, info, bs, backend=backend).make_batch(
             np.arange(min(bs, train_ds.num)))
@@ -464,7 +534,7 @@ def cmd_train(config, device=None) -> Dict[str, Any]:
             "validation_acc": [h.get("validation_accuracy") for h in hist],
             "train_time": train_time,
         })
-    if config.get("make_plot"):
+    if config.get("make_plot") and pmesh.is_main_process():
         plots.plot_cost(config, fit_info["history"])
         if vb is not None and valid_ds.labels is not None and task not in (
                 "regression", "regression_gmfe", "link_prediction"):
@@ -478,11 +548,11 @@ def cmd_train_cv(config, device=None) -> Dict[str, Any]:
     gcn.py:355-524): fold ``f`` trains on the other folds from seed
     ``seed + f``, validating on its own test fold (the best checkpoint is
     restored), then evaluates that fold: its cost, the task metric and the
-    battery, and the summary's mean and spread of the task metric."""
+    battery, and the summary's mean and spread of the task metric.  Where
+    ``parallel/cv.fold_parallel_enabled`` admits it, the folds train on
+    the ranks at once (``FoldParallelCV``), each on ``kgcn_tpu``'s
+    fold-parallel schedule."""
     device = device_from_arg(device)
-    if fold_parallel_flag(config) == "force":
-        _not_ported("fold_parallel 'force' (the folds trained at once across "
-                    "devices, kgcn_tpu/parallel/cv.py)", "A.11")
     ds, info, backend = _prepare(config)
     k = int(config.get("k-fold_num", 2))
     strat = None
@@ -491,14 +561,23 @@ def cmd_train_cv(config, device=None) -> Dict[str, Any]:
     seed = int(config.get("seed", 0))
     folds = kfold_indices(ds.num, k, seed=seed, stratify=strat)
     metric_name = _metric_name(config.get("task", ""))
+    parallel = None
+    if pcv.fold_parallel_enabled(config, ds, info, k, backend):
+        parallel = pcv.run_fold_parallel_cv(config, info, ds, folds, backend=backend,
+                                            device=device)
     fold_results = []
     for fold, (train_idx, test_idx) in enumerate(folds):
         print(f"[fold {fold}] train={len(train_idx)} test={len(test_idx)}")
         train_ds, test_ds = ds.subset(train_idx), ds.subset(test_idx)
-        trainer, state, _, _ = _fit_once(config, train_ds, test_ds, info, backend,
-                                         device, fold=fold, seed=seed + fold)
-        ev = trainer.evaluate(state, Batcher(test_ds, info, int(config["batch_size"]),
-                                             backend=backend), "test_")
+        if parallel is not None:
+            trainer, state, _ = parallel[fold]
+        else:
+            trainer, state, _, _ = _fit_once(config, train_ds, test_ds, info, backend,
+                                             device, fold=fold, seed=seed + fold)
+        test_b = Batcher(test_ds, info, int(config["batch_size"]), backend=backend)
+        if isinstance(trainer, pdp.DPTrainer):  # the sharded test evaluation
+            test_b = pdp.ShardedBatcher(test_b, trainer.mesh.size)
+        ev = trainer.evaluate(state, test_b, "test_")
         entry = {
             "fold": fold,
             "test_cost": ev["cost"],
@@ -590,7 +669,8 @@ def main(argv=None):
     if args.profile:
         overrides["profile"] = True
     config = load_config(args.config, overrides)
-    if args.save_config:
+    initialize_from_env(args.cpu)
+    if args.save_config and pmesh.is_main_process():
         save_config(config, args.save_config)
     device = "cpu" if args.cpu else None
     # the switches of kgcn_tpu's main() (kgcn_tpu/cli/main.py:681-716):
@@ -621,3 +701,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    pmesh.finalize()  # not on a failure: the others may be waiting in a collective

@@ -15,9 +15,13 @@ best param and config and the history are written to ``--output-dir``
 On the GPU each trial frees its trainer, captured step graphs and static
 buffers before the next (``gc.collect`` and the caching allocator
 emptied), and prints its peak device memory, reset per trial.  With
-``--parallel-trials > 1`` and one visible device the trials run one at a
-time, as in ``kgcn_tpu``; several devices need the parallel layer, which
-the port does not have yet (ROADMAP.md A.11).
+``--parallel-trials k`` (k > 1) and several devices (the visible GPUs, or
+``--trial-devices cuda:0,cuda:1`` / ``cpu,cpu``: a device may repeat) k
+trials train at once, one a device (``tools/parallel_trials.
+DeviceTrialPool``, proposals from ``tools/hpo.optimize_parallel``), where
+the resident gate admits the dataset, as ``kgcn_tpu``'s ``_maybe_pool``;
+on one device, or a dataset the gate declines, they run one at a time
+(said).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import copy
 import gc
 import json
 import os
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -79,20 +84,37 @@ def trial_end(device) -> None:
         print(f"[opt] trial peak device memory: {peak} bytes")
 
 
-def sequential_only(parallel_trials: int, device) -> None:
-    """``--parallel-trials``: on one visible device (or the CPU) the trials
-    run one at a time, as ``kgcn_tpu`` runs them there; several devices
-    need the trial pool of the parallel layer, not yet ported."""
-    if int(parallel_trials or 1) <= 1:
-        return
-    on_cpu = device is not None and torch.device(device).type == "cpu"
-    if on_cpu or torch.cuda.device_count() < 2:
-        print("[opt] single device — sequential trials")
-        return
-    from kgcn_tpu_torch.cli.main import _not_ported
+def trial_devices(device, listed: Optional[str] = None) -> List[str]:
+    """The devices of parallel trials: ``listed`` (comma-separated), else
+    the visible GPUs (the CPU alone with ``--cpu``)."""
+    from kgcn_tpu_torch.tools.parallel_trials import visible_devices
 
-    _not_ported("trials on several devices (kgcn_tpu's DeviceTrialPool, "
-                "tools/parallel_trials.py)", "A.11")
+    if listed:
+        return [d.strip() for d in listed.split(",") if d.strip()]
+    if device is not None and torch.device(device).type == "cpu":
+        return ["cpu"]
+    return visible_devices()
+
+
+def maybe_pool(base, parallel_trials: int, devices: List[str]):
+    """The trial pool, or None for sequential trials (``parallel_trials``
+    ≤ 1, one device, or a dataset the resident gate declines; the last two
+    said), as ``kgcn_tpu``'s ``_maybe_pool``.  Building the pool raises on
+    failure."""
+    if int(parallel_trials or 1) <= 1:
+        return None
+    if len(devices) < 2:
+        print("[opt] single device — sequential trials")
+        return None
+    from kgcn_tpu_torch.cli.main import _prepare
+    from kgcn_tpu_torch.runtime.resident import resident_enabled
+    from kgcn_tpu_torch.tools.parallel_trials import DeviceTrialPool
+
+    ds, info, backend = _prepare(base)
+    if not resident_enabled(base, ds, info, backend):
+        print("[opt] dataset not device-resident — sequential trials")
+        return None
+    return DeviceTrialPool(base, ds, info, devices=devices, backend=backend)
 
 
 def main(argv=None):
@@ -106,26 +128,38 @@ def main(argv=None):
     p.add_argument("--parallel-trials", type=int, default=1,
                    help="trials trained concurrently, one per device (one "
                         "device: sequential)")
+    p.add_argument("--trial-devices", default=None,
+                   help="devices of the parallel trials, comma-separated "
+                        "(default: the visible GPUs)")
     args = p.parse_args(argv)
     from kgcn_tpu_torch.runtime.config import load_config
     from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
-    from kgcn_tpu_torch.tools.hpo import Domain, optimize
+    from kgcn_tpu_torch.tools.hpo import Domain, optimize, optimize_parallel
+
+    from kgcn_tpu_torch.parallel.launch import initialize_from_env
 
     base = load_config(args.config)
+    initialize_from_env(args.cpu)
     set_precision(base.get("precision", "float32"))
     device = "cpu" if args.cpu else None
     device_from_arg(device)  # no GPU and no --cpu: raise before any trial
     domain = Domain.from_json(args.domain)
-    sequential_only(args.parallel_trials, device)
+    devices = trial_devices(device, args.trial_devices)
+    pool = maybe_pool(base, args.parallel_trials, devices)
+    if pool is not None:
+        k = min(args.parallel_trials, len(devices))
+        print(f"[opt] {k} trials per round, one per device ({devices[:k]})")
+        best_params, best_value, history = optimize_parallel(
+            pool.run_batch, domain, max_iter=args.max_itr, batch=k, seed=args.seed)
+    else:
+        def objective(params):
+            try:
+                return run_trial(base, params, device)
+            finally:
+                trial_end(device)
 
-    def objective(params):
-        try:
-            return run_trial(base, params, device)
-        finally:
-            trial_end(device)
-
-    best_params, best_value, history = optimize(
-        objective, domain, max_iter=args.max_itr, seed=args.seed)
+        best_params, best_value, history = optimize(
+            objective, domain, max_iter=args.max_itr, seed=args.seed)
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.output_dir, "best_param.json"), "w") as f:
         json.dump(best_params, f, indent=2)

@@ -14,8 +14,9 @@ trains fold ``--fold`` of the modulo split (example ``i`` validates in fold
 ``Trainer`` (the resident runner where the gate admits the data, else the
 streaming loop), then reports the validation cost, accuracy and top-k
 rates (``save_info_valid``); ``train_cv`` runs every fold, one after
-another on the one card (``fold_parallel`` ``"auto"``, as the port's
-``cli.main train_cv``); ``infer`` restores ``load_model`` (default
+another, or with ``fold_parallel`` ``"force"`` (``"auto"`` in a world of
+more than one rank) the folds over the ranks (``parallel/cv.py``, as
+``kgcn_tpu/cli/sparse.py:182-198``); ``infer`` restores ``load_model`` (default
 ``model.0.best.ckpt``; a checkpoint of the port or one ``kgcn_tpu``
 wrote) and reports on ``test_dataset`` (``save_info_test``), with the
 predictions as a plain pickle at ``prediction_output``.  A ``tasks_file``
@@ -23,8 +24,9 @@ lists the task names, one a line.  Runs on the GPU unless ``--cpu``.
 
 ``"precision": "bfloat16"`` casts each step's payload to bf16 (the
 dense aggregation runs the bf16 gconv kernel), as ``kgcn_tpu``'s trainer
-does.  Not ported: ``mesh`` (data parallel over devices, ROADMAP.md A.11)
-and ``fold_parallel`` ``"force"`` (A.11).
+does.  ``mesh`` (``{"data": N}``) trains data parallel over the N ranks of
+``kgcn-torch-launch --nprocs N`` (``parallel/dp.py``; ``batch_size`` per
+rank), rank 0 writing the files.
 """
 from __future__ import annotations
 
@@ -37,10 +39,14 @@ import time
 
 import numpy as np
 
-from kgcn_tpu_torch.cli.main import _maybe_resident, _not_ported, fold_parallel_flag
+from kgcn_tpu_torch.cli.main import _maybe_resident
 from kgcn_tpu_torch.data.batcher import Batcher
 from kgcn_tpu_torch.data.tfrecord import load_tfrecord_dataset
 from kgcn_tpu_torch.models.sparse import SparseGCN
+from kgcn_tpu_torch.parallel import cv as pcv
+from kgcn_tpu_torch.parallel import dp as pdp
+from kgcn_tpu_torch.parallel import mesh as pmesh
+from kgcn_tpu_torch.parallel.launch import initialize_from_env
 from kgcn_tpu_torch.runtime import backend as backend_mod
 from kgcn_tpu_torch.runtime.config import load_config
 from kgcn_tpu_torch.runtime.device import device_from_arg, set_precision
@@ -92,7 +98,7 @@ def _report(config, ev, tag):
         out[f"{tag}_accuracy"] = m[f"{tag}_accuracy"]
     print(json.dumps(out))
     path = config.get(f"save_info_{tag}")
-    if path:
+    if path and pmesh.is_main_process():
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump(out, f, indent=2)
@@ -103,18 +109,28 @@ def _report(config, ev, tag):
 def cmd_train(config, fold: int = 0, device=None):
     """Train fold ``fold``; returns (state, trainer, info, validation
     evaluation)."""
-    if config.get("mesh"):
-        _not_ported("data-parallel sparse training (config 'mesh')", "A.11")
     device = device_from_arg(device)
     ds, info, backend = _load(config)
     tr_idx, va_idx = split_fold(ds.num, fold, int(config.get("num_folds", 5)))
     train_ds, valid_ds = ds.subset(tr_idx), ds.subset(va_idx)
-    trainer = Trainer(_model(config, info), config, info, device=device)
     bs = int(config["batch_size"])
     seed = int(config.get("seed", 0))
-    tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device, seed=seed)
-          or Batcher(train_ds, info, bs, seed=seed, backend=backend))
-    vb = Batcher(valid_ds, info, bs, backend=backend)
+    if config.get("mesh"):
+        mesh = pmesh.make_mesh(dict(config["mesh"]))
+        trainer = pdp.DPTrainer(_model(config, info), config, info, device=device,
+                                mesh=mesh)
+        rb = _maybe_resident(config, train_ds, info, bs, backend, trainer.device,
+                             seed=seed)
+        tb = (pdp.ShardedResidentBatcher(rb, mesh.size) if rb is not None else
+              pdp.ShardedBatcher(Batcher(train_ds, info, bs, seed=seed, backend=backend),
+                                 mesh.size))
+        vb = pdp.ShardedBatcher(Batcher(valid_ds, info, bs, backend=backend), mesh.size)
+    else:
+        trainer = Trainer(_model(config, info), config, info, device=device)
+        tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,
+                              seed=seed)
+              or Batcher(train_ds, info, bs, seed=seed, backend=backend))
+        vb = Batcher(valid_ds, info, bs, backend=backend)
     state = trainer.init_state(seed)
     t0 = time.time()
     state, _ = trainer.fit(state, tb, vb, fold=fold)
@@ -125,12 +141,28 @@ def cmd_train(config, fold: int = 0, device=None):
 
 
 def cmd_train_cv(config, device=None):
-    """Every fold of the modulo split, one after another."""
-    if fold_parallel_flag(config) == "force":
-        _not_ported("fold_parallel 'force' (the folds trained at once across "
-                    "devices, kgcn_tpu/parallel/cv.py)", "A.11")
+    """Every fold of the modulo split: over the ranks where the
+    fold-parallel gate admits it (the dataset is loaded first only when
+    ``fold_parallel_plausible``), else one after another."""
+    num_folds = int(config.get("num_folds", 5))
+    if pcv.fold_parallel_plausible(config):
+        ds, info, backend = _load(config)
+        folds = [split_fold(ds.num, f, num_folds) for f in range(num_folds)]
+        if pcv.fold_parallel_enabled(config, ds, info, num_folds, backend):
+            print(f"[fold_parallel] {num_folds} folds over the ranks")
+            runs = pcv.run_fold_parallel_cv(config, info, ds, folds, backend=backend,
+                                            device=device, model=_model(config, info))
+            results = []
+            for fold, (trainer, state, _) in enumerate(runs):
+                print(f"=== fold {fold} ===")
+                vb = Batcher(ds.subset(folds[fold][1]), info, int(config["batch_size"]),
+                             backend=backend)
+                ev = trainer.evaluate(state, vb, "valid_")
+                _report(config, ev, "valid")
+                results.append(ev)
+            return results
     results = []
-    for fold in range(int(config.get("num_folds", 5))):
+    for fold in range(num_folds):
         print(f"=== fold {fold} ===")
         results.append(cmd_train(config, fold=fold, device=device)[3])
     return results
@@ -166,6 +198,7 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = p.parse_args(argv)
     config = load_config(args.config)
+    initialize_from_env(args.cpu)
     set_precision(config.get("precision", "float32"))  # as cli.main's main()
     device = "cpu" if args.cpu else None
     if "tasks_file" in config and os.path.exists(config["tasks_file"]):
@@ -180,3 +213,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    pmesh.finalize()  # not on a failure: the others may be waiting in a collective

@@ -1,0 +1,10 @@
+"""The port's parallel layer over ``torch.distributed`` — the counterpart
+of ``kgcn_tpu/parallel``: the launcher (``launch.py``), the mesh and its
+collectives (``mesh.py``), data-parallel training (``dp.py``),
+fold-parallel cross-validation (``cv.py``), the edge-partitioned
+aggregation (``edge_partition.py``) and the big-graph KG trainer with
+sharded checkpoints (``big_graph.py``).
+
+One process drives one device (PyTorch's idiom; ``kgcn_tpu`` runs one
+controller over many devices): NCCL between GPU ranks, one rank a GPU,
+gloo between CPU ranks."""

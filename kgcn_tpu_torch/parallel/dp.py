@@ -1,0 +1,226 @@
+"""Data-parallel training over the ranks — the counterpart of
+``kgcn_tpu/parallel/dp.py`` (``shard_map`` + ``psum`` there).
+
+Each rank holds the whole model (parameters replicated: every rank draws
+them from the same seed or restores the same file) and trains on its own
+rows of each global step: rank r takes rows ``r·B:(r+1)·B`` of the step's
+``D·B`` examples, as device r does under ``kgcn_tpu``'s ``ShardedBatcher``
+and ``ShardedResidentBatcher`` (a trailing rank's rows may be padding).
+After the backward, ONE all-reduce of one flat float32 buffer carries the
+step's gradients and BN statistics (then divided by D: their mean, as
+``pmean`` gives) and its cost sum and metrics (their sum, ``psum``), so
+every rank applies the same update.  ``DistributedDataParallel`` is not
+used: it broadcasts buffers from rank 0, where ``kgcn_tpu`` averages the BN
+statistics.  Dropout draws from the rank's generator, seeded from (seed,
+rank); rank 0's is the single-device trainer's.
+
+The steps run eagerly (the resident runner without its CUDA graph, or the
+streaming loop): a captured step with the all-reduce inside is ROADMAP.md
+A.2.  Rank 0 writes the run's checkpoints; the others wait at a barrier.
+``evaluate`` gathers the ranks' predictions and flattens them in
+``kgcn_tpu``'s order (per step, rank-major, padding dropped)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from kgcn_tpu_torch.parallel import mesh as pmesh
+from kgcn_tpu_torch.runtime import checkpoint as ckpt
+from kgcn_tpu_torch.runtime.metrics import aggregate_metrics
+from kgcn_tpu_torch.runtime.train import Trainer, TrainState
+
+RANK_SEED_STRIDE = 1_000_003  # rank r's dropout generator: seed + r·stride
+
+
+def _counts(n: int, bs: int):
+    return [min(bs, n - s) for s in range(0, n, bs)]
+
+
+class ShardedBatcher:
+    """Rank ``rank``'s view of a streaming ``Batcher``: each global step of
+    ``num_shards · batch_size`` examples (the wrapped batcher's epoch
+    order) yields this rank's rows as one local batch."""
+
+    def __init__(self, batcher, num_shards: int, rank: Optional[int] = None):
+        self.b = batcher
+        self.num_shards = int(num_shards)
+        self.rank = pmesh.rank() if rank is None else int(rank)
+        self.ds = batcher.ds
+        self.global_batch = batcher.batch_size * self.num_shards
+
+    @property
+    def batch_size(self) -> int:
+        return self.global_batch
+
+    @property
+    def valid_per_epoch(self) -> int:
+        return self.ds.num
+
+    def batch_valid_counts(self):
+        return _counts(self.ds.num, self.global_batch)
+
+    def rows(self, idx: np.ndarray) -> np.ndarray:
+        per = self.b.batch_size
+        return np.asarray(idx)[self.rank * per:(self.rank + 1) * per]
+
+    def make_batch(self, idx: np.ndarray):
+        self.last_valid = len(idx)
+        return self.b.make_batch(self.rows(idx))
+
+    def batches(self, shuffle: bool = True, epoch=None):
+        idx = self.b.epoch_indices(shuffle, epoch=epoch)
+        for start in range(0, len(idx), self.global_batch):
+            yield self.make_batch(idx[start:start + self.global_batch])
+
+
+class ShardedResidentBatcher:
+    """Rank ``rank``'s view of a ``ResidentBatcher``: the epoch schedule is
+    ``kgcn_tpu``'s ``[S, D, B]`` and this rank trains column ``rank`` of
+    it, gathered on its device from the resident dataset."""
+
+    def __init__(self, rb, num_shards: int, rank: Optional[int] = None):
+        self.rb = rb
+        self.num_shards = int(num_shards)
+        self.rank = pmesh.rank() if rank is None else int(rank)
+        self.ds = rb.ds
+        self.device_data = rb.device_data
+        self.global_batch = rb.batch_size * self.num_shards
+
+    @property
+    def batch_size(self) -> int:
+        return self.global_batch
+
+    @property
+    def valid_per_epoch(self) -> int:
+        return self.ds.num
+
+    def batch_valid_counts(self):
+        return _counts(self.ds.num, self.global_batch)
+
+    def _columns(self, idx: np.ndarray):
+        D, B = self.num_shards, self.rb.batch_size
+        S = max(-(-len(idx) // (D * B)), 1)
+        sched = np.zeros(S * D * B, np.int32)
+        sched[:len(idx)] = idx
+        valid = (np.arange(S * D * B) < len(idx)).astype(np.float32)
+        return (np.ascontiguousarray(sched.reshape(S, D, B)[:, self.rank]),
+                np.ascontiguousarray(valid.reshape(S, D, B)[:, self.rank]))
+
+    def epoch_schedule(self, shuffle: bool = True, epoch=None):
+        """This rank's ``[S, B]`` schedule and validity of one epoch."""
+        return self._columns(self.rb.epoch_indices(shuffle, epoch=epoch))
+
+    def make_batch(self, idx: np.ndarray):
+        self.last_valid = len(idx)
+        sched, valid = self._columns(np.asarray(idx))
+        return self.rb._gather(sched[0], valid[0])
+
+    def batches(self, shuffle: bool = True, epoch=None):
+        sched, valid = self.epoch_schedule(shuffle, epoch=epoch)
+        for s in range(sched.shape[0]):
+            yield self.rb._gather(sched[s], valid[s])
+
+
+def _flat_sum(tensors, device) -> torch.Tensor:
+    """The tensors' float32 values in one buffer, summed over the ranks."""
+    flat = torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in tensors])
+    return pmesh.all_reduce_sum_(flat)
+
+
+def _split(flat: torch.Tensor, like):
+    out, at = [], 0
+    for t in like:
+        n = t.numel()
+        out.append(flat[at:at + n].view(t.shape).to(t.dtype))
+        at += n
+    return out
+
+
+class DPTrainer(Trainer):
+    """The port's ``Trainer`` with its steps reduced across the ranks of
+    ``mesh`` (``parallel/mesh.make_mesh``)."""
+
+    def __init__(self, model, config, info=None, device=None, tx=None, *,
+                 mesh: pmesh.Mesh):
+        super().__init__(model, config, info, device=device, tx=tx, capture=False)
+        self.mesh = mesh
+        self.world = mesh.size
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return super()._generator(int(seed) + RANK_SEED_STRIDE * self.mesh.rank)
+
+    def reduce_step(self, grads, batch_stats, cost_sum, metrics):
+        """One all-reduce: gradients and BN statistics averaged, the cost
+        sum and metrics summed."""
+        names = list(grads)
+        stat_names = list(batch_stats)
+        metric_names = list(metrics)
+        mean_part = [grads[k] for k in names] + [batch_stats[k] for k in stat_names]
+        sum_part = [cost_sum] + [metrics[k] for k in metric_names]
+        flat = _flat_sum(mean_part + sum_part, self.device)
+        n_mean = sum(t.numel() for t in mean_part)
+        flat[:n_mean].div_(self.world)
+        values = _split(flat, mean_part + sum_part)
+        new_grads = dict(zip(names, values[:len(names)]))
+        with torch.no_grad():
+            for k, v in zip(stat_names, values[len(names):len(mean_part)]):
+                batch_stats[k].copy_(v)
+        sums = values[len(mean_part):]
+        return new_grads, sums[0], dict(zip(metric_names, sums[1:]))
+
+    def save_tree(self, path: str, tree: ckpt.Tree) -> str:
+        if pmesh.is_main_process():
+            ckpt.save_tree(path, tree)
+        pmesh.barrier()
+        return path
+
+    @torch.no_grad()
+    def evaluate(self, state: TrainState, batcher, key_prefix: str = ""):
+        """Every global step of ``batcher`` (a sharded batcher, or one that
+        wraps it): this rank's predictions, the costs and metrics summed
+        over the ranks in one all-reduce, the predictions of every rank
+        gathered and flattened per step in rank order without padding, as
+        ``kgcn_tpu``'s ``DPTrainer.evaluate``."""
+        preds, pads, costs, metric_list = [], [], [], []
+        for batch in batcher.batches(shuffle=False):
+            pred, cost_sum, metrics = self.eval_step(state.params, state.batch_stats, batch)
+            preds.append({k: v.cpu().numpy() for k, v in pred.items()}
+                         if isinstance(pred, dict) else pred.cpu().numpy())
+            pads.append(batch.pad_mask.cpu().numpy())
+            costs.append(cost_sum)
+            metric_list.append(metrics)
+        names = list(metric_list[0]) if metric_list else []
+        parts = costs + [m[k] for m in metric_list for k in names]
+        if parts:
+            summed = _split(_flat_sum(parts, self.device), parts)
+            costs = [float(c) for c in summed[:len(costs)]]
+            rest = summed[len(costs):]
+            metric_list = [{k: rest[i * len(names) + j].cpu().numpy()
+                            for j, k in enumerate(names)} for i in range(len(metric_list))]
+        every = pmesh.host_view((preds, pads))
+        flat_preds, n_total = [], 0
+        for s in range(len(preds)):
+            keep = np.concatenate([p[1][s] for p in every]) > 0
+            n_total += int(keep.sum())
+            if isinstance(preds[s], dict):
+                flat_preds.append({k: np.concatenate([p[0][s][k] for p in every])[keep]
+                                   for k in preds[s]})
+            else:
+                flat_preds.append(np.concatenate([p[0][s] for p in every])[keep])
+        agg = aggregate_metrics(metric_list, n_total, self.config.get("task", ""),
+                                key_prefix)
+        if flat_preds and isinstance(flat_preds[0], dict):
+            prediction = {k: np.concatenate([p[k] for p in flat_preds])
+                          for k in flat_preds[0]}
+        elif flat_preds:
+            prediction = np.concatenate(flat_preds)
+        else:
+            prediction = None
+        return {
+            "cost": float(np.sum(costs)) / max(n_total, 1),
+            "metrics": agg or {},
+            "prediction": prediction,
+            "num": n_total,
+        }

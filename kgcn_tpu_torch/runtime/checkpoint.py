@@ -17,7 +17,10 @@ also reads the JAX package's flax-msgpack checkpoints (``runtime/
 flax_msgpack.py``, ``convert.tree_from_jax``) and returns them as the
 port's tree, so ``Trainer.restore``, ``infer``, ``retrain`` and the
 ``Predictor`` take a checkpoint that ``kgcn_tpu`` wrote wherever they take
-one of the port.  Its orbax directories (``save_sharded``) are not read.
+one of the port.  Its orbax directories (``save_sharded``) are not read
+(ROADMAP.md A.11); the port's own sharded checkpoint of the big-graph KG
+trainer is a ``torch.distributed.checkpoint`` directory, which
+``parallel/big_graph.BigGraphKGTrainer.restore`` reads.
 """
 from __future__ import annotations
 
@@ -66,6 +69,11 @@ def load_checkpoint(path: str, model=None, tx=None) -> Tree:
     optimizer, brings the training state along).  Raises FileNotFoundError
     for a missing file and ValueError for a file that is neither, or an
     orbax directory."""
+    if os.path.isfile(os.path.join(path, ".metadata")):
+        raise ValueError(
+            f"{path} is a sharded big-graph checkpoint (torch.distributed.checkpoint, "
+            "parallel/big_graph.py): resume it with the config's 'mesh' and "
+            "'retrain'; infer reads the model.last.ckpt written beside it")
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is an orbax checkpoint directory (kgcn_tpu's save_sharded "

@@ -33,8 +33,10 @@ def set_precision(precision) -> None:
 
 
 def resolve_device(cpu: bool = False) -> torch.device:
-    """``cuda:0``, or the CPU when ``cpu`` is true.  Raises when no CUDA
-    device is visible and the CPU was not asked for.
+    """The current CUDA device (``cuda:0``, or this rank's GPU under
+    ``kgcn-torch-launch``, which makes it current), or the CPU when ``cpu``
+    is true.  Raises when no CUDA device is visible and the CPU was not
+    asked for.
 
     Float32 library products follow ``set_precision`` (full float32, TF32
     off, unless a config chose ``"default"`` or ``"bfloat16"``), matching
@@ -49,7 +51,7 @@ def resolve_device(cpu: bool = False) -> torch.device:
             "no CUDA device visible: kgcn_tpu_torch runs on the GPU unless "
             "the CPU is asked for explicitly (device='cpu' / --cpu)"
         )
-    return torch.device("cuda:0")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def device_from_arg(device) -> torch.device:

@@ -260,6 +260,8 @@ class TrainRunner(_Runner):
                                     allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
                  for k, g in zip(self.names, grads)}
+        grads, cost_sum, metrics = t.reduce_step(grads, self.stats, out.cost_sum,
+                                                 out.metrics)
         t.check_finite(out.cost_opt, grads)  # debug_nan only (eager steps)
         with torch.no_grad():
             row = self.table.index_select(0, i)[0]
@@ -267,7 +269,7 @@ class TrainRunner(_Runner):
             for k in self.names:
                 self.params[k].add_(updates[k])
             _copy_into(self.opt, opt)
-            self._record(i, out.cost_sum, out.metrics)
+            self._record(i, cost_sum, metrics)
             i.add_(1)
 
     def run(self, state, xs: Sequence[np.ndarray]):

@@ -287,6 +287,17 @@ class Trainer:
         return self.state_from_tree(tree, seed=int(self.config.get("seed", 0)))
 
     # ---- steps ---------------------------------------------------------
+    def reduce_step(self, grads, batch_stats, cost_sum, metrics):
+        """A step's gradients, BN statistics (updated in place), cost sum
+        and metrics as the update and the records take them: this device's
+        own here; ``parallel/dp.DPTrainer`` reduces them across ranks."""
+        return grads, cost_sum, metrics
+
+    def save_tree(self, path: str, tree: ckpt.Tree) -> str:
+        """Write a checkpoint of ``fit`` (``DPTrainer``: rank 0 writes, the
+        others wait)."""
+        return ckpt.save_tree(path, tree)
+
     def train_step(self, state: TrainState, batch: Batch):
         """One optimizer step → (new state, cost_sum, metrics), on the
         device.  The BN running statistics are updated in copies of the
@@ -301,14 +312,16 @@ class Trainer:
                                     allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        grads, cost_sum, metrics = self.reduce_step(grads, stats, out.cost_sum,
+                                                    out.metrics)
         self.check_finite(out.cost_opt, grads)
         with torch.no_grad():
             updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
             new_params = {k: state.params[k] + updates[k] for k in names}
         new_state = dataclasses.replace(state, params=new_params, batch_stats=stats,
                                         opt_state=opt_state, step=state.step + 1)
-        metrics = {k: v.detach() for k, v in out.metrics.items()}
-        return new_state, out.cost_sum.detach(), metrics
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return new_state, cost_sum.detach(), metrics
 
     @torch.no_grad()
     def eval_step(self, params, batch_stats, batch: Batch):
@@ -353,6 +366,15 @@ class Trainer:
                                   xs, const)
         return runner.run(state, xs)
 
+    def eval_on_device(self, state: TrainState, batcher):
+        """A resident batcher's evaluation through the evaluation runner →
+        (predictions ``{name: [S, B, ...]}``, costs ``[S]``, metrics
+        ``{name: [S, ...]}``), left on the device, nothing read back."""
+        xs = batcher.epoch_schedule(shuffle=False)
+        dd = batcher.device_data
+        runner = self._runner("eval", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
+        return runner.run(state.params, state.batch_stats, xs)
+
     def _run_epoch_runner(self, state, batcher, shuffle, epoch):
         state, costs, metrics = self.epoch_on_device(state, batcher, shuffle, epoch)
         names = list(metrics)
@@ -364,10 +386,7 @@ class Trainer:
     def _evaluate_resident(self, state: TrainState, batcher, key_prefix=""):
         """The whole evaluation through the resident evaluation runner;
         padding rows trimmed by ``batch_valid_counts``."""
-        xs = batcher.epoch_schedule(shuffle=False)
-        dd = batcher.device_data
-        runner = self._runner("eval", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
-        preds, costs, metrics = runner.run(state.params, state.batch_stats, xs)
+        preds, costs, metrics = self.eval_on_device(state, batcher)
         names, keys = list(metrics), list(preds)
         costs, *values = read_back(costs, *(metrics[k] for k in names),
                                    *(preds[k] for k in keys))
@@ -494,13 +513,13 @@ class Trainer:
                 if valid_cost < best_cost:
                     best_cost = valid_cost
                     best_epoch = epoch
-                    ckpt.save_tree(ckpt.ckpt_name(model_dir, "best", fold),
+                    self.save_tree(ckpt.ckpt_name(model_dir, "best", fold),
                                    self.state_tree(state, epoch, best_cost))
             history.append(row)
 
             save_path = None
             if save_interval and (epoch + 1) % save_interval == 0:
-                save_path = ckpt.save_tree(
+                save_path = self.save_tree(
                     ckpt.ckpt_name(model_dir, f"{epoch + 1:05d}", fold),
                     self.state_tree(state, epoch, best_cost),
                 )
@@ -541,7 +560,7 @@ class Trainer:
             log("[abort] skipping the 'last' checkpoint (non-finite state); "
                 "resume from an interval/best checkpoint instead")
         else:
-            ckpt.save_tree(ckpt.ckpt_name(model_dir, "last", fold), last_tree)
+            self.save_tree(ckpt.ckpt_name(model_dir, "last", fold), last_tree)
         return state, {
             "history": history,
             "best_epoch": best_epoch,

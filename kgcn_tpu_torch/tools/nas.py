@@ -114,12 +114,16 @@ def build_from_params(params: Dict, info) -> SearchedGCN:
 
 
 def search(train_ds, valid_ds, info, config, max_iter: int = 10, seed: int = 0,
-           log=print, parallel: int = 1, device=None):
+           log=print, parallel: int = 1, device=None, devices=None):
     """NAS loop: each candidate trains ``config["epoch"]`` epochs (default
     10) and reports its validation cost (inf once an epoch's cost is not
     finite) → (best params, best value, history), as ``tools/hpo.optimize``.
-    ``device``: None for the GPU (raises without one) or "cpu"."""
-    from kgcn_tpu_torch.cli.opt import sequential_only, trial_end
+    ``device``: None for the GPU (raises without one) or "cpu".
+    ``parallel`` > 1 on several devices (``devices``, default the visible
+    GPUs; a device may repeat) trains that many candidates at once, one a
+    device (``tools/parallel_trials.DeviceTrialPool``, proposals from
+    ``tools/hpo.optimize_parallel``)."""
+    from kgcn_tpu_torch.cli.opt import trial_devices, trial_end
     from kgcn_tpu_torch.data.batcher import Batcher
     from kgcn_tpu_torch.runtime import optim
     from kgcn_tpu_torch.runtime.device import device_from_arg
@@ -127,7 +131,19 @@ def search(train_ds, valid_ds, info, config, max_iter: int = 10, seed: int = 0,
 
     device = device_from_arg(device)
     if int(parallel or 1) > 1:
-        sequential_only(parallel, device)
+        devices = list(devices) if devices is not None else trial_devices(device)
+        if len(devices) > 1:
+            from kgcn_tpu_torch.tools.hpo import optimize_parallel
+            from kgcn_tpu_torch.tools.parallel_trials import DeviceTrialPool
+
+            pool = DeviceTrialPool(dict(config), train_ds, info, valid_ds=valid_ds,
+                                   model_builder=lambda cfg, params, inf:
+                                       build_from_params(params, inf),
+                                   devices=devices)
+            k = min(int(parallel), len(devices))
+            log(f"[nas] {k} candidates per round, one per device")
+            return optimize_parallel(pool.run_batch, Domain(NAS_DOMAIN), max_iter=max_iter,
+                                     batch=k, seed=seed, log=log)
         log("[nas] single device — sequential candidates")
 
     # batchers are data-only — built once, not per candidate (only the

@@ -166,16 +166,55 @@ def test_train_cv_matches_jax(tmp_path, monkeypatch, src, data, n, metric):
             "model.1.last.ckpt"} <= names
 
 
-def test_train_cv_refuses_fold_parallel_force(tmp_path):
+def test_train_cv_refuses_fold_parallel_force(tmp_path, monkeypatch, capsys):
+    """``fold_parallel: "force"`` (which the port no longer refuses) trains
+    the folds through ``parallel/cv.FoldParallelCV`` in a world of one and
+    writes the sequential protocol's files (the folds' checkpoints, the
+    summary's keys, each fold's test predictions); from kgcn_tpu's initial
+    states its folds' test costs are kgcn_tpu's fold-parallel ones (1e-4:
+    two folds of one epoch of Adam steps)."""
+    from kgcn_tpu.cli.main import cmd_train_cv as j_train_cv
+    from kgcn_tpu.runtime.config import load_config as j_config
+    from kgcn_tpu.runtime.train import Trainer as JTrainer
     from kgcn_tpu_torch.cli.main import cmd_train_cv
+    from kgcn_tpu_torch.runtime.config import load_config as t_config
+    from kgcn_tpu_torch.runtime.train import Trainer as TTrainer
 
-    path = _cv_config(tmp_path, "port", "synth.json",
-                      os.path.join(REPO, "example_jbl/synthetic.jbl"))
-    with open(path) as f:
-        cfg = json.load(f)
-    cfg["fold_parallel"] = "force"
-    with pytest.raises(NotImplementedError, match="not yet ported.*A.11"):
-        cmd_train_cv(cfg, device="cpu")
+    dataset = os.path.join(REPO, "example_jbl/synthetic.jbl")
+    initial = {}
+    j_init = JTrainer.init_state
+
+    def record(self, sample, seed=0):
+        state = j_init(self, sample, seed=seed)
+        initial[seed] = params_from_jax(jax.device_get(state.params),
+                                        jax.device_get(state.batch_stats))
+        return state
+
+    monkeypatch.setattr(JTrainer, "init_state", record)
+    jcfg = j_config(_cv_config(tmp_path, "jax", "synth.json", dataset))
+    jcfg["fold_parallel"] = "force"
+    with jax_backend("dense"):
+        want = j_train_cv(jcfg)
+    monkeypatch.setattr(TTrainer, "init_state",
+                        lambda self, seed=0: self.state_from_tree(initial[seed], seed=seed))
+    results = {}
+    for side, flag in (("sequential", False), ("port", "force")):
+        cfg = t_config(_cv_config(tmp_path, side, "synth.json", dataset))
+        cfg["fold_parallel"] = flag
+        results[side] = cmd_train_cv(cfg, device="cpu")
+    assert "[fold_parallel] 2 folds over 1 rank(s)" in capsys.readouterr().out
+    got, seq = results["port"], results["sequential"]
+    assert set(got) == set(seq) == set(want)
+    for side in ("port", "sequential"):
+        assert sorted(os.listdir(tmp_path / side / "model")) == [
+            "model.0.best.ckpt", "model.0.last.ckpt", "model.1.best.ckpt",
+            "model.1.last.ckpt"]
+        assert sorted(f for f in os.listdir(tmp_path / side) if f != "model") == [
+            "config.json", "info_cv.json", "result_cv.json", "result_test.fold0.csv",
+            "result_test.fold1.csv"]
+    for g, s_, w in zip(got["folds"], seq["folds"], want["folds"]):
+        assert set(g) == set(s_) == set(w)
+        np.testing.assert_allclose(g["test_cost"], w["test_cost"], rtol=1e-4, atol=1e-4)
 
 
 def test_make_plot_writes_the_jax_plots(tmp_path):

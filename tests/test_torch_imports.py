@@ -56,6 +56,13 @@ def test_every_module_imports_without_jax():
                    "kgcn_tpu_torch.cli.sparse", "kgcn_tpu_torch.cli.pair",
                    "kgcn_tpu_torch.cli.gen"}
         assert engines <= set(names), sorted(engines - set(names))
+        parallel = {"kgcn_tpu_torch.parallel", "kgcn_tpu_torch.parallel.launch",
+                    "kgcn_tpu_torch.parallel.mesh", "kgcn_tpu_torch.parallel.dp",
+                    "kgcn_tpu_torch.parallel.cv", "kgcn_tpu_torch.parallel.edge_partition",
+                    "kgcn_tpu_torch.parallel.big_graph",
+                    "kgcn_tpu_torch.tools.parallel_trials",
+                    "kgcn_tpu_torch.tools.bench_scaling", "kgcn_tpu_torch.data.sampling"}
+        assert parallel <= set(names), sorted(parallel - set(names))
         print(len(names))
     """)
     assert r.returncode == 0, r.stderr
@@ -107,6 +114,24 @@ def test_entry_points_refuse_to_run_without_a_gpu():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+def test_launcher_refuses_gpu_ranks_without_a_gpu():
+    """``kgcn-torch-launch`` without ``--cpu`` refuses a machine with no
+    GPU before it starts a rank; with ``--cpu`` the same job runs."""
+    r = _run("""
+        from kgcn_tpu_torch.parallel.launch import main
+        try:
+            main(["--nprocs", "2", "--", sys.executable, "-c", "print('rank ran')"])
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("launched GPU ranks without a GPU")
+        assert main(["--nprocs", "2", "--cpu", "--", sys.executable, "-c", "pass"]) == 0
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok") and "rank ran" not in r.stdout
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -497,7 +497,9 @@ def test_kg_cli_refuses_what_is_not_ported(tmp_path):
     with open(tmp_path / "kg.jbl", "wb") as f:
         pickle.dump(_kg300(), f, protocol=4)
     _, path = _kg_config(tmp_path, tmp_path / "kg.jbl", mesh={"data": 2})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # sharded KG training is ported (tests/test_torch_big_graph.py); a mesh
+    # of 2 in a world of one is refused, naming the launcher
+    with pytest.raises(ValueError, match="world of 1.*kgcn-torch-launch --nprocs 2"):
         t_main(["train", "--config", path, "--cpu"])
 
 

@@ -336,18 +336,24 @@ def test_cli_train_writes_the_jax_runs_files(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """What the port still refuses (A.11's parallel layer and TensorFlow's
-    SavedModel); ``precision`` and the KG route of ``visualize`` now run
-    (tests/test_torch_precision.py, test_torch_kg_ig.py)."""
+    """What the port still refuses (TensorFlow's SavedModel; a ``mesh``
+    larger than the world, naming the launcher); ``fold_parallel``
+    ``"force"``, ``precision`` and the KG route of ``visualize`` now run
+    (tests/test_torch_fold_parallel.py, test_torch_precision.py,
+    test_torch_kg_ig.py)."""
     from kgcn_tpu_torch.cli.main import main as t_main
 
-    cfg = _write_config(tmp_path, "gat.json", epoch=1, fold_parallel="force")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_main(["train_cv", "--config", cfg, "--cpu"])
-    for over in ({"export_savedmodel": str(tmp_path / "m")}, {"mesh": {"data": 2}}):
-        with pytest.raises(NotImplementedError, match="not yet ported|not ported"):
-            t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1, **over),
-                    "--cpu"])
+    cfg = _write_config(tmp_path, "gat.json", epoch=1, fold_parallel="force",
+                        **{"k-fold_num": 2})
+    summary = t_main(["train_cv", "--config", cfg, "--cpu"])
+    assert [f["fold"] for f in summary["folds"]] == [0, 1]
+    assert {"model.0.best.ckpt", "model.1.last.ckpt"} <= set(os.listdir(tmp_path / "model"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_main(["train", "--config", _write_config(
+            tmp_path, "gat.json", epoch=1, export_savedmodel=str(tmp_path / "m")), "--cpu"])
+    with pytest.raises(ValueError, match="world of 1.*kgcn-torch-launch --nprocs 2"):
+        t_main(["train", "--config", _write_config(tmp_path, "gat.json", epoch=1,
+                                                   mesh={"data": 2}), "--cpu"])
     from kgcn_tpu_torch.runtime.device import set_precision
 
     try:
