@@ -334,10 +334,28 @@ non-zero exit and no result line:
    CPU per fold (TRAJECTORY_RTOL); the trial pool on ``cuda:0`` twice
    (each trial bitwise equal to itself alone); ``tools/bench_scaling``
    (kg step, world 1) prints its line; the phase's wall;
-20. summary — one JSON line of kernel numbers, then the result line.
+20. tensor and pipeline parallel and kgcn_tpu's orbax checkpoints, in a
+   rank of its own as phase 19 (``--phase20 WORKDIR``) —
+   ``parallel/tp.TPTrainer`` at ``{"model": 1}`` on solubility_mt.json's
+   multitask tower (its three 256-wide layers sharded at min_dim 128,
+   column-parallel over the NCCL group of one; dropout 0, 2 streaming
+   epochs) bitwise equal to the single-device Trainer run eagerly
+   (per-epoch costs, final parameters), a forward's gconv kernels a step,
+   within TRAJECTORY_RTOL of the same run on this machine's CPU, one epoch
+   at ``"precision": "bfloat16"`` (the bf16 entry); ``parallel/pp.PPTrainer``
+   at ``{"pipe": 1}`` (k 4, hidden 64, M 4) on 32 solubility molecules of
+   both classes: the logits within 1e-5 of ``sequential_logits`` on the
+   CPU (the plain gconv; of the largest), k·M gconv calls a forward, 20 Adam steps at lr 0.02 within
+   TRAJECTORY_RTOL of the CPU's; the committed orbax checkpoint of
+   kgcn_tpu's big-graph trainer (tests/fixtures/jax_orbax_big_graph,
+   written over 4 devices) restored into BigGraphKGTrainer by
+   ``runtime/orbax.py`` bitwise against its ``.npy`` arrays (the read's
+   MB/s), ``cli.main train`` with ``retrain`` (1 epoch) and ``infer`` (the
+   stream scatter); the phase's wall;
+21. summary — one JSON line of kernel numbers, then the result line.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
-5, 6, 8, 10, 11, 12, 14, 15, 16, 17, 18 and 19) and read just after; the summary's
+5, 6, 8, 10, 11, 12, 14, 15, 16, 17, 18, 19 and 20) and read just after; the summary's
 ``launches`` add up the tiled GCN, tiled GAT and dense GCN training runs
 and the serve run, the KG runs (train and infer) for the stream kernels,
 the ring runs (train and infer) for the ELL kernel, phase 11's resident
@@ -350,6 +368,8 @@ inference; the tiled SpMM: the sparse engine beyond 256 nodes) and
 phase 19's (gconv and its bf16 entry, the ELL kernel and its dx kernel:
 the data-parallel runs; the stream scatter: the big-graph checkpoint's
 ``infer``; the fold-parallel and pool runs' warm-up and capture) and
+phase 20's (gconv and its bf16 entry: the TP and PP runs; the stream
+scatter: the ``infer`` after the orbax restore) and
 phase 16's (the bf16 runs; gconv_bf16 counts them alone) and phase 17's
 (gconv: the chem dataset's captured ``train`` and ``infer``, the KNIME
 dataset's streaming ``train``) and phase 18's (gconv: the HPO trials, the
@@ -5064,21 +5084,23 @@ def phase_precision_process(workdir, timeout=900):
 
 
 def child_main(flag, workdir):
-    """The child of ``phase_in_child``: phase 16, 17, 18 or 19 on ``workdir``."""
+    """The child of ``phase_in_child``: phase 16, 17, 18, 19 or 20 on
+    ``workdir``."""
     import torch
 
     sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false")
         sys.exit(2)
-    if flag == "--phase19":
+    if flag in ("--phase19", "--phase20"):
         from kgcn_tpu_torch.parallel import mesh as pmesh
         from kgcn_tpu_torch.parallel.launch import initialize_from_env
 
         if not initialize_from_env(cpu=False):
-            raise AssertionError("phase 19 runs as a rank of kgcn-torch-launch")
-        launches, numbers = phase_parallel(workdir)
-        with open(os.path.join(workdir, "phase19.json"), "w") as f:
+            raise AssertionError(f"{flag} runs as a rank of kgcn-torch-launch")
+        run = phase_parallel if flag == "--phase19" else phase_parallel_models
+        launches, numbers = run(workdir)
+        with open(os.path.join(workdir, f"{flag.strip('-')}.json"), "w") as f:
             json.dump({"launches": launches, "numbers": numbers}, f)
         pmesh.finalize()
         return
@@ -6228,6 +6250,261 @@ def phase_parallel(workdir):
     return launches, numbers
 
 
+TP_CONFIG = os.path.join(ROOT, "example_config", "solubility_mt.json")
+TP_EPOCHS = 2
+PP_SHAPE = dict(layers_per_stage=4, hidden=64, microbatches=4)  # PPConfig's width
+PP_STEPS = 20
+PP_LR = 0.02
+PP_TOL = 1e-5                # the pipeline's logits vs sequential_logits, of the largest
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "jax_orbax_big_graph")
+
+
+def _epochs(trainer, batcher, epochs):
+    """(per-epoch training costs, the final state) of ``epochs`` streaming
+    epochs from seed 0, counts set to 0 first."""
+    state = trainer.init_state(seed=0)
+    _zero_counts()
+    costs = []
+    for e in range(epochs):
+        state, cost, _, _ = trainer.run_epoch(state, batcher, shuffle=True, epoch=e)
+        costs.append(cost)
+    return costs, state
+
+
+def models_tp():
+    """TPTrainer at ``{"model": 1}`` on solubility_mt.json's multitask
+    tower (dropout 0): bitwise the single-device Trainer run eagerly, its
+    gconv launches a forward's a step, within TRAJECTORY_RTOL of the same
+    run on this machine's CPU, and one bf16 epoch.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+    from kgcn_tpu_torch.parallel.tp import TPTrainer
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg = _load_config(TP_CONFIG, dropout_rate=0.0)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    bs = int(cfg["batch_size"])
+    steps = TP_EPOCHS * -(-ds.num // bs)
+    mesh = pmesh.make_mesh({"model": 1})
+
+    def tp(dev, c=cfg):
+        return TPTrainer(build_model(c["model.py"], info, c), c, info, device=dev, mesh=mesh,
+                         min_dim=128)
+
+    per_forward = gconv_kernels_a_forward(cfg)
+    trainer = tp(DEVICE)
+    sharded = sorted(k for k, v in trainer.rules.items() if v is not None)
+    state = trainer.init_state(seed=0)
+    batch = Batcher(ds, info, bs, backend=be).make_batch(np.arange(bs))
+    _zero_counts()
+    trainer.eval_step(state.params, state.batch_stats, batch)
+    if _counts()["gconv"] != per_forward:
+        raise AssertionError(f"TP forward launched {_counts()}, want {per_forward} gconv")
+    say(f"-- TP {{'model': 1}}, min_dim 128: {len(sharded)} sharded leaves {sharded}; "
+        f"{per_forward} gconv kernels a forward")
+    runs = {}
+    for name, make in (("trainer", lambda: Trainer(build_model(cfg["model.py"], info, cfg),
+                                                   cfg, info, device=DEVICE, capture=False)),
+                       ("tp", lambda: tp(DEVICE)), ("tp_cpu", lambda: tp("cpu"))):
+        tr = make()
+        t0 = time.time()
+        costs, state = _epochs(tr, Batcher(ds, info, bs, seed=0, backend=be), TP_EPOCHS)
+        wall = time.time() - t0
+        params = tr.whole_params(state) if hasattr(tr, "whole_params") else state.params
+        runs[name] = (costs, params, _counts(), wall)
+        say(f"-- {name}: {TP_EPOCHS} epochs ({steps} steps) {wall:.2f} s, costs {costs}")
+    _same_bits("TP {'model': 1} vs the Trainer (costs)", runs["tp"][0], runs["trainer"][0])
+    _same_bits("TP {'model': 1} vs the Trainer (parameters)", runs["tp"][1],
+               runs["trainer"][1])
+    launches = runs["tp"][2]
+    _expect("TP training", launches, {"gconv": steps * per_forward})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["tp"][0], runs["tp_cpu"][0]))
+    say(f"-- TP bitwise equal to the Trainer; GPU vs CPU costs relative {rel:.3g} "
+        f"(limit {TRAJECTORY_RTOL})")
+    if rel > TRAJECTORY_RTOL:
+        raise AssertionError("TP: GPU and CPU costs differ")
+    bcfg = dict(cfg, precision="bfloat16")
+    costs, _ = _epochs(tp(DEVICE, bcfg), Batcher(ds, info, bs, seed=0, backend=be), 1)
+    bf16 = _counts()
+    say(f"-- TP bf16: 1 epoch, cost {costs}, launches {bf16}")
+    if bf16["gconv_bf16"] != bf16["gconv"] or bf16["gconv_bf16"] <= 0 or not np.isfinite(
+            costs).all():
+        raise AssertionError(f"TP bf16: {bf16}, {costs}")
+    return {k: launches[k] + bf16[k] for k in launches}, runs["tp"][3]
+
+
+def models_pp():
+    """PPTrainer at ``{"pipe": 1}`` (k 4, hidden 64, M 4) on a batch of 32
+    solubility molecules of both classes: the logits within PP_TOL of ``sequential_logits``
+    on the CPU (the plain gconv; of the largest), k·M gconv calls a forward, 20 Adam steps within
+    TRAJECTORY_RTOL of the CPU's.  Returns (launches, ms a step)."""
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.ops.gconv import gconv
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+    from kgcn_tpu_torch.parallel.pp import (PPConfig, PPTrainer, init_pipeline_params,
+                                            sequential_logits)
+    from kgcn_tpu_torch.runtime import backend
+
+    cfg = _load_config(CONFIG)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    bs = int(cfg["batch_size"])
+    # spread over the dataset (sorted by class): both classes in the batch
+    idx = np.linspace(0, ds.num - 1, bs).astype(np.int64)
+    batch = Batcher(ds, info, bs, backend=be).make_batch(idx)
+    pcfg = PPConfig(stages=1, channels=info.adj_channel_num, label_dim=info.label_dim,
+                    **PP_SHAPE)
+    full = init_pipeline_params(torch.Generator().manual_seed(0), pcfg, info.feature_dim)
+    mesh = pmesh.make_mesh({"pipe": 1})
+    tr = PPTrainer(pcfg, mesh, learning_rate=PP_LR, device=DEVICE)
+    state = tr.init_state(info.feature_dim, params=full)
+    x, adj, nmask, _, _ = tr.prepare_batch(batch)
+    H = pcfg.hidden
+    probe = torch.zeros(adj.shape[2], adj.shape[3], H, device=x.device)
+    before = gconv.launches
+    gconv(adj[0], probe, state["params"]["body_w"][0], state["params"]["body_b"][0])
+    per_call = gconv.launches - before
+    _zero_counts()
+    logits = tr.logits(state, batch)
+    calls = pcfg.layers_per_stage * pcfg.microbatches
+    _expect("PP forward", _counts(), {"gconv": calls * per_call})
+    # the plain network on CPU copies: the CPU's gconv is the plain version,
+    # so this holds the card's gconv kernel at PP's shapes
+    g = batch.graph.to("cpu")
+    want = sequential_logits(full, g.nodes.reshape(bs, g.max_nodes, -1).to(torch.float32),
+                             g.dense_adjacency(torch.float32).transpose(0, 1),
+                             g.mask_batched(), cfg=pcfg)
+    gap = float((logits.cpu() - want).abs().max() / want.abs().max())
+    say(f"-- PP {{'pipe': 1}} k {pcfg.layers_per_stage} M {pcfg.microbatches} H {H}: "
+        f"{calls} gconv calls a forward ({per_call} kernel(s) a call); logits vs "
+        f"sequential_logits on the CPU {gap:.3g} of the largest (limit {PP_TOL})")
+    if gap > PP_TOL:
+        raise AssertionError("PP: the pipeline's logits differ from sequential_logits")
+    costs, launches, wall = {}, None, 0.0
+    for dev in (DEVICE, "cpu"):
+        t = PPTrainer(pcfg, mesh, learning_rate=PP_LR, device=dev)
+        st = t.init_state(info.feature_dim, params=full)
+        _zero_counts()
+        t0 = time.time()
+        c = []
+        for _ in range(PP_STEPS):
+            st, cost, _ = t.train_step(st, batch)
+            c.append(float(cost))
+        if dev == DEVICE:
+            launches, wall = _counts(), time.time() - t0
+        costs[dev] = c
+    _expect("PP steps", launches, {"gconv": PP_STEPS * calls * per_call})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(costs[DEVICE], costs["cpu"]))
+    say(f"-- PP {PP_STEPS} Adam steps (lr {PP_LR}): GPU {costs[DEVICE][0]:.6g} → "
+        f"{costs[DEVICE][-1]:.6g}, vs CPU relative {rel:.3g} (limit {TRAJECTORY_RTOL}); "
+        f"{wall * 1e3 / PP_STEPS:.2f} ms a step")
+    if rel > TRAJECTORY_RTOL or not costs[DEVICE][-1] < costs[DEVICE][0]:
+        raise AssertionError(f"PP steps: {costs}")
+    return launches, wall * 1e3 / PP_STEPS
+
+
+def models_orbax(workdir):
+    """kgcn_tpu's orbax big-graph checkpoint (the committed fixture, written
+    over 4 devices): restored into BigGraphKGTrainer bitwise against its
+    ``.npy`` arrays (the read's MB/s), then ``cli.main train`` with
+    ``retrain`` (1 epoch) and ``infer``.  Returns (infer's launches,
+    MB/s)."""
+    import numpy as np
+    import torch
+
+    from kgcn_tpu_torch.data.dataset import load_jbl
+    from kgcn_tpu_torch.data.synthetic import make_kg_dataset
+    from kgcn_tpu_torch.parallel.big_graph import EMBED, from_kg_dataset
+    from kgcn_tpu_torch.runtime import orbax
+
+    with open(os.path.join(ORBAX_FIXTURE, "config.json")) as f:
+        cfg = json.load(f)
+    d = os.path.join(workdir, "orbax_kg")
+    os.makedirs(d)
+    with open(os.path.join(d, "kg.jbl"), "wb") as f:
+        pickle.dump(make_kg_dataset(**cfg.pop("kg")), f, protocol=4)
+    ckpt = os.path.join(ORBAX_FIXTURE, "model.big_graph.ckpt")
+    # the float32 payload: the stream scatter with slot weights (kernel 4)
+    cfg.update(dataset=os.path.join(d, "kg.jbl"), save_model_path=os.path.join(d, "model"),
+               mesh={"data": 1}, epoch=1, retrain=ckpt, tiled_compute_dtype="float32",
+               save_info_test=os.path.join(d, "test.json"))
+    path = os.path.join(d, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    bg = from_kg_dataset(ds, info, cfg)
+    fresh = bg.init_state(seed=0)
+    orbax.bytes_read = 0
+    t0 = time.perf_counter()
+    state = bg.restore(ckpt, fresh)
+    secs = time.perf_counter() - t0
+    mbs = orbax.bytes_read / secs / 1e6
+
+    def npy(name):
+        return torch.from_numpy(np.load(os.path.join(ORBAX_FIXTURE, "arrays", f"{name}.npy")))
+
+    names = {EMBED: "embed", "distmult.kernel": "theta.distmult"}
+    for i in range(2):
+        names[f"conv{i + 1}.kernel"], names[f"conv{i + 1}.bias"] = f"theta.w{i}", f"theta.b{i}"
+    want = {"params": {k: npy(f"params.{v}") for k, v in names.items()}}
+    got = {"params": state["params"]}
+    for m in ("mu", "nu"):
+        want[m] = {k: npy(f"opt_state.0.{m}.{v}") for k, v in names.items()}
+        got[m] = state["opt_state"]["0"]["0"][m]
+    _same_bits("orbax restore vs the fixture's arrays", got, want)
+    if state["step"] != int(npy("step")[0]):
+        raise AssertionError(f"orbax restore: step {state['step']}")
+    say(f"-- orbax: kgcn_tpu's model.big_graph.ckpt (D 4) restored at world 1 bitwise, "
+        f"step {state['step']}; {orbax.bytes_read} bytes in {secs * 1e3:.1f} ms, "
+        f"{mbs:.1f} MB/s (warm page cache)")
+    out, _, _, wall = _cli(["train", "--config", path])
+    if f"[LOAD] {ckpt}" not in out:
+        raise AssertionError(f"orbax retrain: {out[-2000:]}")
+    out, result, counts, iwall = _cli(["infer", "--config", path])
+    if counts["stream_scatter"] <= 0 or not 0.0 <= result["mrr"] <= 1.0:
+        raise AssertionError(f"orbax infer: {counts}, {result}")
+    say(f"-- orbax: retrain 1 epoch {wall:.2f} s, infer {iwall:.2f} s {json.dumps(result)}; "
+        f"launches {counts}")
+    return counts, mbs
+
+
+def phase_parallel_models(workdir):
+    """Phase 20, in a rank started by ``kgcn-torch-launch --nprocs 1`` (the
+    NCCL group of one rank).  Returns (launches, numbers)."""
+    import torch.distributed as dist
+
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+
+    phase(20, "tensor and pipeline parallel, and kgcn_tpu's orbax checkpoints "
+              "(kgcn-torch-launch, NCCL, world 1)")
+    t_phase = time.time()
+    if pmesh.world_size() != 1 or "nccl" not in str(dist.get_backend()):
+        raise AssertionError(f"phase 20 runs in a world of {pmesh.world_size()} over "
+                             f"{dist.get_backend()}")
+    tp, tp_s = models_tp()
+    say(f"TP done at {time.time() - t_phase:.1f} s of the phase")
+    pp, pp_ms = models_pp()
+    say(f"PP done at {time.time() - t_phase:.1f} s of the phase")
+    ob, mbs = models_orbax(workdir)
+    launches = {k: tp[k] + pp[k] + ob[k] for k in _counted()}
+    numbers = {"tp_epochs_s": tp_s, "pp_step_ms": pp_ms, "orbax_read_mb_s": mbs,
+               "wall_s": time.time() - t_phase}
+    say(f"tensor/pipeline/orbax phase wall {numbers['wall_s']:.1f} s; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    return launches, numbers
+
+
 def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_rows):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
     the served batch's three GraphConv calls, float32 and, for its bf16
@@ -6411,10 +6688,17 @@ def main():
         for k, v in parallel["launches"].items():
             launches[k] += v
         say(f"parallel done at {time.time() - t_start:.1f} s: {parallel['numbers']}")
+        models = phase_in_child("--phase20", workdir, ranks=1)
+        for k, v in models["launches"].items():
+            launches[k] += v
+        say(f"tensor/pipeline parallel and orbax done at {time.time() - t_start:.1f} s: "
+            f"{models['numbers']}")
 
     import torch
 
-    phase(20, "summary")
+    phase(21, "summary")
+    if min(models["launches"][k] for k in ("gconv", "gconv_bf16", "stream_scatter")) <= 0:
+        raise AssertionError(f"the TP, PP and orbax paths launched {models['launches']}")
     if min(parallel["launches"][k] for k in ("gconv", "gconv_bf16", "ell_spmm",
                                               "ell_spmm_dx")) <= 0:
         raise AssertionError(f"the parallel paths launched {parallel['launches']}")
@@ -6444,7 +6728,7 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in ("--phase16", "--phase17", "--phase18",
-                                              "--phase19"):
+                                              "--phase19", "--phase20"):
         child_main(sys.argv[1], sys.argv[2])
     else:
         main()

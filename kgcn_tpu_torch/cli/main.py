@@ -77,7 +77,10 @@ sequence-embedding layer where the dataset has them).
 
 ``mesh`` (``{"data": N}``, ``batch_size`` per rank) trains data parallel
 over the N ranks of ``kgcn-torch-launch --nprocs N`` (``parallel/dp.py``;
-N must equal the world size, a plain process is a world of one); on a KG
+the axes must cover the world, a plain process is a world of one; with a
+``model`` axis, ``{"data": D, "model": T}``, the reduction runs over the
+data groups and the ranks of a model group are replicas, as in
+``kgcn_tpu``); on a KG
 it trains the edge-partitioned big-graph trainer (``parallel/
 big_graph.py``: the sharded checkpoint ``model.big_graph.ckpt`` beside
 the single-device ``last`` one, ``retrain`` from it).  ``fold_parallel``
@@ -238,6 +241,9 @@ def _train_kg_sharded(config, ds, info, device) -> Dict[str, Any]:
     from kgcn_tpu_torch.parallel.big_graph import from_kg_dataset
 
     mesh = pmesh.make_mesh(dict(config["mesh"]))
+    if mesh.size != pmesh.world_size():
+        raise ValueError(f"mesh {mesh.shape}: the big-graph KG trainer partitions the "
+                         "graph over a 'data' axis that spans the world")
     bg = from_kg_dataset(ds, info, config, device=device)
     seed = int(config.get("seed", 0))
     state = bg.init_state(seed=seed)
@@ -415,13 +421,14 @@ def _fit_once(config, train_ds, valid_ds, info, backend, device,
         trainer = pdp.DPTrainer(model, config, info, device=device, mesh=mesh)
         rb = _maybe_resident(config, train_ds, info, bs, backend, trainer.device,
                              seed=seed or 0)
-        tb = (pdp.ShardedResidentBatcher(rb, mesh.size) if rb is not None else
+        d = mesh.coord("data")
+        tb = (pdp.ShardedResidentBatcher(rb, mesh.size, d) if rb is not None else
               pdp.ShardedBatcher(Batcher(train_ds, info, bs, seed=seed or 0,
-                                         backend=backend), mesh.size))
+                                         backend=backend), mesh.size, d))
         vb = None
         if valid_ds is not None and valid_ds.num > 0:
             vb = pdp.ShardedBatcher(Batcher(valid_ds, info, bs, backend=backend),
-                                    mesh.size)
+                                    mesh.size, d)
     else:
         trainer = Trainer(model, config, info, device=device)
         tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,
@@ -576,7 +583,8 @@ def cmd_train_cv(config, device=None) -> Dict[str, Any]:
                                              device, fold=fold, seed=seed + fold)
         test_b = Batcher(test_ds, info, int(config["batch_size"]), backend=backend)
         if isinstance(trainer, pdp.DPTrainer):  # the sharded test evaluation
-            test_b = pdp.ShardedBatcher(test_b, trainer.mesh.size)
+            test_b = pdp.ShardedBatcher(test_b, trainer.mesh.size,
+                                        trainer.mesh.coord("data"))
         ev = trainer.evaluate(state, test_b, "test_")
         entry = {
             "fold": fold,

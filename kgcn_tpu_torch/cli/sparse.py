@@ -121,10 +121,11 @@ def cmd_train(config, fold: int = 0, device=None):
                                 mesh=mesh)
         rb = _maybe_resident(config, train_ds, info, bs, backend, trainer.device,
                              seed=seed)
-        tb = (pdp.ShardedResidentBatcher(rb, mesh.size) if rb is not None else
+        d = mesh.coord("data")
+        tb = (pdp.ShardedResidentBatcher(rb, mesh.size, d) if rb is not None else
               pdp.ShardedBatcher(Batcher(train_ds, info, bs, seed=seed, backend=backend),
-                                 mesh.size))
-        vb = pdp.ShardedBatcher(Batcher(valid_ds, info, bs, backend=backend), mesh.size)
+                                 mesh.size, d))
+        vb = pdp.ShardedBatcher(Batcher(valid_ds, info, bs, backend=backend), mesh.size, d)
     else:
         trainer = Trainer(_model(config, info), config, info, device=device)
         tb = (_maybe_resident(config, train_ds, info, bs, backend, trainer.device,

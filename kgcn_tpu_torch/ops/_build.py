@@ -11,8 +11,8 @@ includes PyTorch's headers, which keeps a build to seconds.
 
 A ``csrc/<name>.cc`` is host code (the tiled backend's structure and plan
 builders, the ELL backends' batch packer, the Batcher's edge and feature
-packer, the TFRecord reader): the host C++ compiler builds it the same way,
-on a machine with or without a card.
+packer, the TFRecord reader, the orbax reader's zstd decoder): the host C++
+compiler builds it the same way, on a machine with or without a card.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ NVCC_FLAGS = [
 CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
 SOURCES = ("gconv", "tiled", "stream", "ell")  # every kernel source of the port, by stem
 # host code, by stem
-HOST_SOURCES = ("tiled_host", "ell_host", "batch_host", "tfrecord_host")
+HOST_SOURCES = ("tiled_host", "ell_host", "batch_host", "tfrecord_host", "zstd_host")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -26,7 +26,11 @@ names (``embed.embedding``, ``conv1.kernel``, …, ``distmult.kernel``), so
 single-device model and ``convert.py``.  ``save``/``restore`` write and
 read a sharded checkpoint through ``torch.distributed.checkpoint``: each
 rank writes its own rows and no rank gathers the table; a checkpoint
-restores at the world size that wrote it."""
+restores at the world size that wrote it.  ``restore`` also reads
+``kgcn_tpu``'s own ``model.big_graph.ckpt`` (orbax, through
+``runtime/orbax.py``: ``params.embed`` ``[V_pad, dim]``, ``theta``, the
+optax state and ``step``) at any world size: each rank reads the chunks
+that hold its rows of the first V, padded to this world's layout."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -441,8 +445,13 @@ class BigGraphKGTrainer:
         return path
 
     def restore(self, path: str, state):
-        """The state saved at ``path`` (written at this world size), laid
-        onto ``state``'s layout."""
+        """The state saved at ``path`` (the port's checkpoint, written at
+        this world size, or ``kgcn_tpu``'s orbax one, at any), laid onto
+        ``state``'s layout."""
+        from kgcn_tpu_torch.runtime import orbax
+
+        if orbax.is_orbax_dir(path):
+            return self._restore_orbax(path, state)
         import torch.distributed.checkpoint as dcp
 
         tree = self._checkpoint_tree(_clone(state), self._wrapper())
@@ -454,6 +463,69 @@ class BigGraphKGTrainer:
         return {"params": _map_embed(tree["params"], local),
                 "opt_state": _map_embed(tree["opt_state"], local),
                 "step": int(tree["step"])}
+
+
+    def _theta_names(self) -> Dict[str, str]:
+        """``kgcn_tpu``'s ``theta`` leaves → the port's names."""
+        names = {"distmult": "distmult.kernel"}
+        for i in range(self.num_layers):
+            port = self._layer_names(i)
+            jax = (f"w{i}", f"b{i}") if self.encoder == "gcn" else (f"eps{i}",)
+            names.update(zip(jax, port))
+        return names
+
+    def _restore_orbax(self, path: str, state):
+        """``kgcn_tpu``'s orbax big-graph checkpoint: this rank's rows of the
+        table and of its moments (only the chunks that hold them are read),
+        the replicated leaves whole, the optax state laid onto the port's
+        optimizer (``convert.opt_state_from_jax``)."""
+        from kgcn_tpu_torch.convert import opt_state_from_jax
+        from kgcn_tpu_torch.runtime import orbax
+        from kgcn_tpu_torch.runtime.train import _opt_to
+
+        ck = orbax.Checkpoint(path)
+        lo = self.rank * self.v_loc
+        hi = min(lo + self.v_loc, self.num_nodes)
+        theta = self._theta_names()
+
+        def like_params(prefix: str) -> Dict[str, np.ndarray]:
+            rows = ck.array(f"{prefix}.embed").read((lo, hi))
+            if rows.shape[1:] != (self.dim,):
+                raise ValueError(f"{path}: embedding width {rows.shape[1:]}, the trainer's "
+                                 f"{self.dim}")
+            table = np.zeros((self.v_loc, self.dim), np.float32)
+            table[:len(rows)] = rows
+            out = {EMBED: table}
+            for jax_name, port in theta.items():
+                out[port] = np.asarray(ck.array(f"{prefix}.theta.{jax_name}").read())
+            return out
+
+        stored = {tuple(k) for k, _ in ck.leaves()}
+        want = {("params", "theta", n) for n in theta} | {("params", "embed")}
+        if not want <= stored or any(k[:2] == ("params", "theta") and k[2] not in theta
+                                     for k in stored):
+            raise ValueError(
+                f"{path}: its leaves {sorted('.'.join(k) for k in stored if k[0] == 'params')}"
+                f" do not fit a {self.encoder} trainer with {self.num_layers} layers")
+        params = {k: torch.from_numpy(v) for k, v in like_params("params").items()}
+        raw: Dict[str, Any] = {}  # the optax state, as flax_msgpack would nest it
+        for keys, value in ck.leaves():
+            if keys[0] != "opt_state":
+                continue
+            cut = next((i for i, k in enumerate(keys) if k in ("embed", "theta")), len(keys))
+            node = raw
+            for k in keys[1:cut - 1]:
+                node = node.setdefault(k, {})
+            if cut < len(keys):  # a leaf of a tree shaped like the parameters
+                if keys[cut - 1] not in node:
+                    node[keys[cut - 1]] = like_params(".".join(keys[:cut]))
+            else:
+                node[keys[-1]] = (None if value.get("skip_deserialize")
+                                  else ck.array(".".join(keys)).read())
+        opt = opt_state_from_jax(raw, self.tx.init(params))
+        step = int(np.asarray(ck.array("step").read()).reshape(-1)[0])
+        return {"params": {k: v.to(self.device) for k, v in params.items()},
+                "opt_state": _opt_to(opt, self.device), "step": step}
 
 
 def make_tx(config):

@@ -14,6 +14,10 @@ used: it broadcasts buffers from rank 0, where ``kgcn_tpu`` averages the BN
 statistics.  Dropout draws from the rank's generator, seeded from (seed,
 rank); rank 0's is the single-device trainer's.
 
+On a mesh with a ``model`` or ``pipe`` axis the all-reduce runs over the
+``data`` group and the ranks of one model group are replicas (the same
+rows, the same dropout), as ``kgcn_tpu``'s ``cli.main`` runs such a mesh.
+
 The steps run eagerly (the resident runner without its CUDA graph, or the
 streaming loop): a captured step with the all-reduce inside is ROADMAP.md
 A.2.  Rank 0 writes the run's checkpoints; the others wait at a barrier.
@@ -123,10 +127,11 @@ class ShardedResidentBatcher:
             yield self.rb._gather(sched[s], valid[s])
 
 
-def _flat_sum(tensors, device) -> torch.Tensor:
-    """The tensors' float32 values in one buffer, summed over the ranks."""
+def _flat_sum(tensors, device, group=None) -> torch.Tensor:
+    """The tensors' float32 values in one buffer, summed over the ranks of
+    ``group``."""
     flat = torch.cat([t.detach().reshape(-1).to(device, torch.float32) for t in tensors])
-    return pmesh.all_reduce_sum_(flat)
+    return pmesh.all_reduce_sum_(flat, group)
 
 
 def _split(flat: torch.Tensor, like):
@@ -147,9 +152,10 @@ class DPTrainer(Trainer):
         super().__init__(model, config, info, device=device, tx=tx, capture=False)
         self.mesh = mesh
         self.world = mesh.size
+        self.group = mesh.group("data")
 
     def _generator(self, seed: int) -> torch.Generator:
-        return super()._generator(int(seed) + RANK_SEED_STRIDE * self.mesh.rank)
+        return super()._generator(int(seed) + RANK_SEED_STRIDE * self.mesh.coord("data"))
 
     def reduce_step(self, grads, batch_stats, cost_sum, metrics):
         """One all-reduce: gradients and BN statistics averaged, the cost
@@ -159,7 +165,7 @@ class DPTrainer(Trainer):
         metric_names = list(metrics)
         mean_part = [grads[k] for k in names] + [batch_stats[k] for k in stat_names]
         sum_part = [cost_sum] + [metrics[k] for k in metric_names]
-        flat = _flat_sum(mean_part + sum_part, self.device)
+        flat = _flat_sum(mean_part + sum_part, self.device, self.group)
         n_mean = sum(t.numel() for t in mean_part)
         flat[:n_mean].div_(self.world)
         values = _split(flat, mean_part + sum_part)
@@ -194,12 +200,12 @@ class DPTrainer(Trainer):
         names = list(metric_list[0]) if metric_list else []
         parts = costs + [m[k] for m in metric_list for k in names]
         if parts:
-            summed = _split(_flat_sum(parts, self.device), parts)
+            summed = _split(_flat_sum(parts, self.device, self.group), parts)
             costs = [float(c) for c in summed[:len(costs)]]
             rest = summed[len(costs):]
             metric_list = [{k: rest[i * len(names) + j].cpu().numpy()
                             for j, k in enumerate(names)} for i in range(len(metric_list))]
-        every = pmesh.host_view((preds, pads))
+        every = pmesh.host_view((preds, pads), self.group)
         flat_preds, n_total = [], 0
         for s in range(len(preds)):
             keep = np.concatenate([p[1][s] for p in every]) > 0

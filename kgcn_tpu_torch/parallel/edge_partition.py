@@ -137,11 +137,6 @@ class DevicePartition:
         return segment_sum(msg, r, self.v_local, sorted_segments=seg)
 
 
-# the flat collectives under their newer names where this PyTorch has them
-_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-
-
 def _peers():
     world, rk = pmesh.world_size(), pmesh.rank()
     return (rk + 1) % world, (rk - 1) % world
@@ -180,7 +175,7 @@ class _AllGather(torch.autograd.Function):
         world = pmesh.world_size()
         out = torch.empty((world * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                           device=x.device)
-        _GATHER(out, x.contiguous())
+        dist.all_gather_into_tensor(out, x.contiguous())
         return out.view(world, *x.shape)
 
     @staticmethod
@@ -188,7 +183,7 @@ class _AllGather(torch.autograd.Function):
         g = g.contiguous()
         if g.is_cuda:
             out = torch.empty(g.shape[1:], dtype=g.dtype, device=g.device)
-            _SCATTER(out, g.view(-1, *g.shape[2:]))
+            dist.reduce_scatter_tensor(out, g.view(-1, *g.shape[2:]))
             return out
         dist.all_reduce(g)  # gloo has no reduce-scatter
         return g[pmesh.rank()].clone()

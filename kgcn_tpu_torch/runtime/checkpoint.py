@@ -17,10 +17,12 @@ also reads the JAX package's flax-msgpack checkpoints (``runtime/
 flax_msgpack.py``, ``convert.tree_from_jax``) and returns them as the
 port's tree, so ``Trainer.restore``, ``infer``, ``retrain`` and the
 ``Predictor`` take a checkpoint that ``kgcn_tpu`` wrote wherever they take
-one of the port.  Its orbax directories (``save_sharded``) are not read
-(ROADMAP.md A.11); the port's own sharded checkpoint of the big-graph KG
-trainer is a ``torch.distributed.checkpoint`` directory, which
-``parallel/big_graph.BigGraphKGTrainer.restore`` reads.
+one of the port, and so do its orbax directories (``save_checkpoint(fmt=
+"orbax")``, ``save_sharded``), read without orbax by ``runtime/orbax.py``
+into the same raw tree.  The port's own sharded checkpoint of the big-graph
+KG trainer is a ``torch.distributed.checkpoint`` directory;
+``parallel/big_graph.BigGraphKGTrainer.restore`` reads it and ``kgcn_tpu``'s
+orbax ``model.big_graph.ckpt``.  The port writes no orbax.
 """
 from __future__ import annotations
 
@@ -66,22 +68,32 @@ def load_checkpoint(path: str, model=None, tx=None) -> Tree:
     port's own (``torch.save``); any other file is read as a flax-msgpack
     checkpoint of ``kgcn_tpu`` and converted (``convert.tree_from_jax``:
     ``model``, the port's model, decides the layouts; ``tx``, the port's
-    optimizer, brings the training state along).  Raises FileNotFoundError
-    for a missing file and ValueError for a file that is neither, or an
-    orbax directory."""
+    optimizer, brings the training state along).  A directory is read as an
+    orbax checkpoint of ``kgcn_tpu`` (``runtime/orbax.py``) and converted
+    the same way.  Raises FileNotFoundError for a missing file and
+    ValueError for a file that is neither, a directory that is neither orbax
+    nor a big-graph ``torch.distributed.checkpoint``, or the latter."""
+    from kgcn_tpu_torch.convert import tree_from_jax
+
     if os.path.isfile(os.path.join(path, ".metadata")):
         raise ValueError(
             f"{path} is a sharded big-graph checkpoint (torch.distributed.checkpoint, "
             "parallel/big_graph.py): resume it with the config's 'mesh' and "
             "'retrain'; infer reads the model.last.ckpt written beside it")
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is an orbax checkpoint directory (kgcn_tpu's save_sharded "
-            "or fmt='orbax'); the port does not read those yet (ROADMAP.md A.11)")
-    with open(path, "rb") as f:
-        is_torch_file = zipfile.is_zipfile(f)  # torch.save writes a zip
-    if not is_torch_file:
-        from kgcn_tpu_torch.convert import tree_from_jax
+        from kgcn_tpu_torch.runtime import orbax
+
+        if not orbax.is_orbax_dir(path):
+            raise ValueError(
+                f"{path} is a directory that is neither an orbax checkpoint of "
+                "kgcn_tpu (no _METADATA) nor a big-graph torch.distributed.checkpoint "
+                "(no .metadata)")
+        raw = orbax.load_tree(path)
+    else:
+        with open(path, "rb") as f:
+            is_torch_file = zipfile.is_zipfile(f)  # torch.save writes a zip
+        if is_torch_file:
+            return _checked(path, torch.load(path, map_location="cpu", weights_only=True))
         from kgcn_tpu_torch.runtime import flax_msgpack
 
         try:
@@ -89,10 +101,12 @@ def load_checkpoint(path: str, model=None, tx=None) -> Tree:
         except ValueError as e:
             raise ValueError(f"{path} is neither a kgcn_tpu_torch checkpoint nor "
                              f"a flax-msgpack checkpoint of kgcn_tpu: {e}") from None
-        if not isinstance(raw, dict):
-            raise ValueError(f"{path}: a msgpack file that holds no checkpoint tree")
-        return tree_from_jax(raw, model, tx)
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: a kgcn_tpu file that holds no checkpoint tree")
+    return tree_from_jax(raw, model, tx)
+
+
+def _checked(path: str, tree) -> Tree:
     if not isinstance(tree, dict) or set(tree) not in (PARAM_KEYS, FULL_KEYS):
         raise ValueError(
             f"{path}: expected a dict with 'params' and 'batch_stats' "

@@ -201,13 +201,20 @@ def add_decayed_weights(weight_decay: float) -> Transform:
     return Transform(lambda params: {}, update)
 
 
-def scale_by_trust_ratio() -> Transform:
-    """LAMB's per-tensor ``‖p‖ / ‖u‖`` (1 where either norm is 0)."""
+def scale_by_trust_ratio(sq_norms=None) -> Transform:
+    """LAMB's per-tensor ``‖p‖ / ‖u‖`` (1 where either norm is 0).
+    ``sq_norms``: see ``make_optimizer``."""
+    def norms(tree):
+        if sq_norms is None:
+            return {k: torch.linalg.vector_norm(v) for k, v in tree.items()}
+        return {k: torch.sqrt(v) for k, v in
+                sq_norms({k: torch.sum(v * v) for k, v in tree.items()}).items()}
+
     def update(grads, state, params):
         out = {}
+        p_norms, u_norms = norms(params), norms(grads)
         for k, u in grads.items():
-            p_norm = torch.linalg.vector_norm(params[k])
-            u_norm = torch.linalg.vector_norm(u)
+            p_norm, u_norm = p_norms[k], u_norms[k]
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm), p_norm / u_norm)
             out[k] = u * ratio
@@ -244,9 +251,14 @@ def scale_by_learning_rate(lr) -> Transform:
                      advance=advance)
 
 
-def clip_by_global_norm(max_norm: float) -> Transform:
+def clip_by_global_norm(max_norm: float, sq_norms=None) -> Transform:
+    """optax's clip by the global norm; ``sq_norms``: see
+    ``make_optimizer``."""
     def update(grads, state, params):
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        sq = {k: torch.sum(g * g) for k, g in grads.items()}
+        if sq_norms is not None:
+            sq = sq_norms(sq)
+        norm = torch.sqrt(sum(sq.values()))
         keep = norm < max_norm
         return {k: torch.where(keep, g, (g / norm) * max_norm)
                 for k, g in grads.items()}, state
@@ -347,9 +359,13 @@ def multi_steps(inner: Transform, every_k: int) -> Transform:
                      update_row=update_row, advance=advance)
 
 
-def make_optimizer(config: Dict[str, Any]) -> Transform:
+def make_optimizer(config: Dict[str, Any], sq_norms=None) -> Transform:
     """The configured chain (clip → decay → optimizer), as
-    ``kgcn_tpu.runtime.optim.make_optimizer`` builds it with optax."""
+    ``kgcn_tpu.runtime.optim.make_optimizer`` builds it with optax.
+    ``sq_norms`` (``{name: Σx²}`` → the same, whole): for parameters
+    that a rank holds in part (``parallel/tp.py``), the sums of squares of
+    every leaf's whole tensor, for the global-norm clip and LAMB's trust
+    ratio; None: each tensor is whole."""
     lr = make_schedule(config)
     name = str(config.get("optimizer", "adam")).lower()
     wd = float(config.get("weight_decay") or 0.0)
@@ -370,14 +386,14 @@ def make_optimizer(config: Dict[str, Any]) -> Transform:
         opt_parts = [scale_by_rms(), scale_by_learning_rate(lr)]
     elif name == "lamb":
         opt_parts = [scale_by_adam(eps=1e-6), add_decayed_weights(wd),
-                     scale_by_trust_ratio(), scale_by_learning_rate(lr)]
+                     scale_by_trust_ratio(sq_norms), scale_by_learning_rate(lr)]
         wd = 0.0
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     parts = []
     clip = config.get("gradient_clip")
     if clip:
-        parts.append(clip_by_global_norm(float(clip)))
+        parts.append(clip_by_global_norm(float(clip), sq_norms))
     if wd:
         parts.append(add_decayed_weights(wd))
     tx = chain(*parts, chain(*opt_parts))

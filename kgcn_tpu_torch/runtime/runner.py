@@ -40,7 +40,6 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
 WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
 # one capture stream a device: cuBLAS keeps a workspace for each stream it
@@ -254,8 +253,7 @@ class TrainRunner(_Runner):
         t = self.trainer
         i, batch = self._batch(self.gen)
         leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
-        out = functional_call(t.model, {**leaves, **self.stats}, (batch,),
-                              {"train": True, "generator": self.gen})
+        out = t.apply(leaves, self.stats, batch, train=True, generator=self.gen)
         grads = torch.autograd.grad(out.cost_opt, [leaves[k] for k in self.names],
                                     allow_unused=True)
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
@@ -314,8 +312,7 @@ class EvalRunner(_Runner):
     @torch.no_grad()
     def _body(self) -> None:
         i, batch = self._batch()
-        out = functional_call(self.trainer.model, {**self.params, **self.stats},
-                              (batch,), {"train": False})
+        out = self.trainer.apply(self.params, self.stats, batch, train=False)
         self._record(i, out.cost_sum, out.metrics, out.prediction)
         i.add_(1)
 

@@ -298,6 +298,13 @@ class Trainer:
         others wait)."""
         return ckpt.save_tree(path, tree)
 
+    def apply(self, params, batch_stats, batch, **kwargs):
+        """The model's output on ``batch`` with these parameters and BN
+        statistics (``functional_call``): every step and evaluation runs
+        the model here (``parallel/tp.TPTrainer`` runs its sharded layers
+        column-parallel)."""
+        return functional_call(self.model, {**params, **batch_stats}, (batch,), kwargs)
+
     def train_step(self, state: TrainState, batch: Batch):
         """One optimizer step → (new state, cost_sum, metrics), on the
         device.  The BN running statistics are updated in copies of the
@@ -306,8 +313,7 @@ class Trainer:
         names = list(state.params)
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         stats = {k: v.clone() for k, v in state.batch_stats.items()}
-        out = functional_call(self.model, {**params, **stats}, (batch,),
-                              {"train": True, "generator": state.rng})
+        out = self.apply(params, stats, batch, train=True, generator=state.rng)
         grads = torch.autograd.grad(out.cost_opt, [params[k] for k in names],
                                     allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
@@ -326,10 +332,8 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, params, batch_stats, batch: Batch):
         """(prediction, cost_sum, metrics) of one batch, on the device."""
-        out = functional_call(
-            self.model, {**params, **batch_stats}, (self._cast(batch.to(self.device)),),
-            {"train": False},
-        )
+        out = self.apply(params, batch_stats, self._cast(batch.to(self.device)),
+                         train=False)
         return out.prediction, out.cost_sum, out.metrics
 
     # ---- whole-epoch runners -------------------------------------------

@@ -14,8 +14,8 @@ submodules carry the scope names flax gives ``kgcn_tpu``'s ``SearchedGCN``
 flax model's weights over by rule.  ``search`` trains each candidate with
 the port's ``Trainer`` and Adam (``runtime/optim.py``) on batchers built
 once.  With ``parallel > 1`` on one device the candidates train one at a
-time, as in ``kgcn_tpu``; several devices need the parallel layer
-(ROADMAP.md A.11).
+time, as in ``kgcn_tpu``; on several devices they train on the device
+trial pool (``tools/parallel_trials.DeviceTrialPool``), one a device.
 """
 from __future__ import annotations
 

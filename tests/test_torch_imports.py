@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax():
         parallel = {"kgcn_tpu_torch.parallel", "kgcn_tpu_torch.parallel.launch",
                     "kgcn_tpu_torch.parallel.mesh", "kgcn_tpu_torch.parallel.dp",
                     "kgcn_tpu_torch.parallel.cv", "kgcn_tpu_torch.parallel.edge_partition",
-                    "kgcn_tpu_torch.parallel.big_graph",
+                    "kgcn_tpu_torch.parallel.big_graph", "kgcn_tpu_torch.parallel.tp",
+                    "kgcn_tpu_torch.parallel.pp", "kgcn_tpu_torch.runtime.orbax",
                     "kgcn_tpu_torch.tools.parallel_trials",
                     "kgcn_tpu_torch.tools.bench_scaling", "kgcn_tpu_torch.data.sampling"}
         assert parallel <= set(names), sorted(parallel - set(names))
@@ -315,6 +316,63 @@ def test_tools_import_and_run_without_jax_joblib_or_sklearn(tmp_path):
             else:
                 raise AssertionError("ran without a GPU")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_tp_pp_and_the_orbax_reader_need_no_jax_orbax_or_tensorstore():
+    """``parallel/tp.py``, ``parallel/pp.py`` and ``runtime/orbax.py``
+    import with JAX, flax, optax, orbax, tensorstore, zstandard and
+    kgcn_tpu blocked; the committed orbax checkpoint of kgcn_tpu
+    (tests/fixtures/jax_orbax_big_graph) restores so into the big-graph
+    trainer on the CPU, bitwise against its ``.npy`` arrays; TPTrainer and
+    PPTrainer refuse to run without a GPU unless the CPU is asked for."""
+    r = _run("""
+        import importlib.abc
+        EXTRA = ("orbax", "tensorstore", "zstandard", "google_crc32c")
+
+        class BlockMore(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in EXTRA:
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, BlockMore())
+        import os
+        import numpy as np
+        import torch
+        from kgcn_tpu_torch.data.dataset import build_dataset
+        from kgcn_tpu_torch.data.synthetic import make_ring_dataset
+        from kgcn_tpu_torch.models.registry import build_model
+        from kgcn_tpu_torch.parallel import mesh as pmesh
+        from kgcn_tpu_torch.parallel.big_graph import EMBED, BigGraphKGTrainer
+        from kgcn_tpu_torch.parallel.pp import PPConfig, PPTrainer
+        from kgcn_tpu_torch.parallel.tp import TPTrainer
+        from kgcn_tpu_torch.runtime import orbax
+
+        fx = "tests/fixtures/jax_orbax_big_graph"
+        want = np.load(os.path.join(fx, "arrays", "params.embed.npy"))
+        bg = BigGraphKGTrainer(num_nodes=want.shape[0], channels=2, embedding_dim=32,
+                               encoder="gcn", device="cpu")
+        state = bg.restore(os.path.join(fx, "model.big_graph.ckpt"), bg.init_state(0))
+        assert np.array_equal(state["params"][EMBED].numpy(), want)
+        cfg = {"task": "classification"}
+        ds, info = build_dataset(make_ring_dataset(num_pairs=4, num_nodes=6), cfg)
+        for make in (lambda d: TPTrainer(build_model("gcn", info, cfg), cfg, info,
+                                         device=d, mesh=pmesh.make_mesh({"model": 1})),
+                     lambda d: PPTrainer(PPConfig(stages=1), pmesh.make_mesh({"pipe": 1}),
+                                         device=d)):
+            make("cpu")
+            try:
+                make(None)
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e), e
+            else:
+                raise AssertionError("ran without a GPU")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + EXTRA)
         assert not bad, bad
         print("ok")
     """)

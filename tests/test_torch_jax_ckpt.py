@@ -259,10 +259,12 @@ def test_resume_fails_with_the_moments_left_untransposed(tmp_path):
 
 
 def test_orbax_directories_and_other_files_are_refused_clearly(tmp_path):
+    """A directory is read as orbax (tests/test_torch_orbax.py) or refused
+    as a big-graph DCP checkpoint; an empty one is neither and says so."""
     from kgcn_tpu_torch.runtime import checkpoint as ckpt
 
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(ValueError, match="orbax.*A.11"):
+    with pytest.raises(ValueError, match="neither an orbax checkpoint.*nor a big-graph"):
         ckpt.load_checkpoint(str(tmp_path / "orbax"))
     (tmp_path / "junk.ckpt").write_bytes(b"\xc1not a checkpoint")
     with pytest.raises(ValueError, match="neither"):

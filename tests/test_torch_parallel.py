@@ -217,14 +217,15 @@ def test_cli_train_with_mesh(runs, D):
 
 def test_mesh_must_match_the_world():
     """A plain process is a world of one: ``{"data": 1}`` and ``-1`` build,
-    ``{"data": 2}`` raises naming both numbers and the launcher; other
-    axes are tp/pp's (A.11)."""
+    ``{"data": 2}`` raises naming both numbers and the launcher, and so
+    does a ``model`` axis that the world cannot hold."""
     assert pmesh.make_mesh({"data": 1}).shape == {"data": 1}
     assert pmesh.make_mesh({"data": -1}).size == 1
     with pytest.raises(ValueError, match=r"2 ranks.*world of 1.*kgcn-torch-launch "
                                          r"--nprocs 2"):
         pmesh.make_mesh({"data": 2})
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match=r"2 ranks.*world of 1.*kgcn-torch-launch "
+                                         r"--nprocs 2"):
         pmesh.make_mesh({"data": 1, "model": 2})
     assert pmesh.host_view({"a": 1}) == [{"a": 1}]
 

@@ -1,6 +1,7 @@
 """Scenarios of the port's parallel layer, run as gloo ranks by the
 multi-rank tests (tests/test_torch_parallel.py, test_torch_edge_partition.py,
-test_torch_big_graph.py, test_torch_fold_parallel.py):
+test_torch_big_graph.py, test_torch_fold_parallel.py, test_torch_tp.py,
+test_torch_pp.py, test_torch_orbax.py):
 
     python -m kgcn_tpu_torch.parallel.launch --nprocs D --cpu \\
         --init-method file:///tmp/x/rdzv -- \\
@@ -37,7 +38,11 @@ def _ring(inp):
     from kgcn_tpu_torch.data.synthetic import make_ring_dataset
     from kgcn_tpu_torch.runtime.backend import Backend
 
-    ds, info = build_dataset(make_ring_dataset(**inp["ring"]), inp["cfg"])
+    data = make_ring_dataset(**inp["ring"])
+    if inp.get("tasks"):  # the multitask tower's labels: the first column repeated
+        y = np.concatenate([data["label"][:, :1]] * inp["tasks"], axis=1)
+        data["label"], data["mask_label"] = y, np.ones_like(y, dtype=np.int64)
+    ds, info = build_dataset(data, inp["cfg"])
     return ds, info, Backend("dense", "float32")
 
 
@@ -206,6 +211,107 @@ def scenario_cv(inp, out):
 LAUNCH_TIMEOUT = 240  # seconds a multi-rank run may take before it is ended
 
 
+def scenario_tp(inp, out):
+    """One step of the tensor-parallel trainer on ``inp["mesh"]`` from the
+    whole tree ``inp["tree"]`` (the optimizer: SGD at ``inp["sgd"]``, or
+    the config's chain), then its gathered checkpoint."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel.tp import TPTrainer
+    from kgcn_tpu_torch.runtime.optim import make_optimizer
+
+    ds, info, be = _ring(inp)
+    cfg = inp["cfg"]
+    tx = make_optimizer({"optimizer": "sgd", "learning_rate": inp["sgd"]}) \
+        if inp.get("sgd") else None
+    tr = TPTrainer(build_model(cfg["model.py"], info, cfg), cfg, info, device="cpu",
+                   tx=tx, mesh=pmesh.make_mesh(inp["mesh"]), min_dim=inp["min_dim"])
+    state = tr.state_from_tree(inp["tree"])
+    batch = Batcher(ds, info, len(inp["rows"]), seed=0, backend=be).make_batch(
+        np.asarray(inp["rows"]))
+    state, cost, metrics = tr.train_step(state, batch)
+    out["cost"], out["metrics"] = float(cost), _np(metrics)
+    out["rules"] = {k: v is not None for k, v in tr.rules.items()}
+    sharded = [k for k, v in tr.rules.items() if v is not None]
+    moments = [t for name in ("mu", "nu") for t in _find(state.opt_state, name, sharded)]
+    out["local_bytes"] = {"params": sum(state.params[k].nbytes for k in sharded),
+                          "moments": sum(t.nbytes for t in moments)}
+    tree = tr.state_tree(state, 0, 0.0)
+    out["params"] = _np(tree["params"])
+    out["stats"] = _np(tree["batch_stats"])
+    tr.save_tree(inp["ckpt"], tree)
+
+
+def _find(tree, name, keys):
+    """The tensors of ``keys`` in every ``name`` dict inside ``tree``."""
+    if not isinstance(tree, dict):
+        return []
+    here = [tree[name][k] for k in keys] if isinstance(tree.get(name), dict) else []
+    return here + [t for k, v in tree.items() if k != name for t in _find(v, name, keys)]
+
+
+def scenario_pp(inp, out):
+    """The pipeline's loss and this stage's gradients on the toy
+    microbatches, then steps of PPTrainer on the ring batch."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.parallel.pp import (PPConfig, PPTrainer, init_pipeline_params,
+                                            sequential_logits)
+
+    def trainer(cfg, params, feature_dim):
+        tr = PPTrainer(PPConfig(**cfg), pmesh.make_mesh({"pipe": cfg["stages"]}),
+                       learning_rate=inp["lr"], device="cpu")
+        full = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in params.items()}
+        return tr, tr.init_state(feature_dim, params=full)
+
+    arrays = tuple(torch.from_numpy(a) for a in inp["toy"])
+    tr, state = trainer(inp["toy_pp"], inp["toy_params"], arrays[0].shape[-1])
+    loss, _, _, grads = tr.loss_and_grads(state["params"], arrays)
+    out["loss"], out["grads"], out["stage"] = float(loss), _np(grads), tr.pipe.s
+    tr, state = trainer(inp["pp"], inp["params"], inp["feature_dim"])
+    try:
+        tr.prepare_batch(Batcher(*_ring(inp)[:2], inp["odd"], seed=0).make_batch(
+            np.arange(inp["odd"])))
+        out["odd_raises"] = False
+    except ValueError:
+        out["odd_raises"] = True
+    ds, info, be = _ring(inp)
+    batch = Batcher(ds, info, len(inp["rows"]), seed=0, backend=be).make_batch(
+        np.asarray(inp["rows"]))
+    costs = []
+    for _ in range(inp["steps"]):
+        state, c, _ = tr.train_step(state, batch)
+        costs.append(float(c))
+    out["costs"], out["final"] = costs, _np(state["params"])
+    out["logits"] = tr.logits(state, batch).numpy()
+    # one stage on a mesh without a pipe axis: each rank's logits are its own
+    solo = PPConfig(**dict(inp["toy_pp"], stages=1))
+    x, adj, nmask = arrays[:3]  # [M, mb, N, F], [M, C, mb, N, N], [M, mb, N]
+    G, C, N = x.shape[0] * x.shape[1], adj.shape[1], x.shape[2]
+    full = init_pipeline_params(torch.Generator().manual_seed(0), solo, x.shape[-1])
+    tr = PPTrainer(solo, pmesh.make_mesh({"data": pmesh.world_size()}), device="cpu")
+    with torch.no_grad():
+        got = tr.pipeline_logits(tr.init_state(x.shape[-1], params=full)["params"],
+                                 x, adj, nmask)
+        want = sequential_logits(full, x.reshape(G, N, -1),
+                                 adj.transpose(1, 2).reshape(G, C, N, N),
+                                 nmask.reshape(G, N), cfg=solo)
+    out["solo"], out["solo_want"] = got.reshape(G, -1).numpy(), want.numpy()
+
+
+def scenario_bgorbax(inp, out):
+    """kgcn_tpu's orbax big-graph checkpoint restored at this world size."""
+    from kgcn_tpu_torch.parallel.big_graph import BigGraphKGTrainer
+
+    bg = BigGraphKGTrainer(device="cpu", **inp["trainer"])
+    before = bg.init_state(0)
+    from kgcn_tpu_torch.runtime import orbax
+
+    orbax.bytes_read = 0
+    state = bg.restore(inp["path"], before)
+    out["params"], out["opt_state"] = _np(state["params"]), _np(state["opt_state"])
+    out["step"], out["bytes_read"] = state["step"], orbax.bytes_read
+
+
 def launch_scenarios(outdir, world: int, inputs: dict):
     """Write each scenario's inputs, run them all in ONE launch of
     ``world`` gloo ranks (rendezvous through a file under ``outdir``; a
@@ -228,13 +334,15 @@ def launch_scenarios(outdir, world: int, inputs: dict):
 
 
 def main(argv):
+    """Run each named scenario (``name`` or ``name-variant``: the function
+    ``scenario_<name>`` on the variant's inputs)."""
     outdir, names = argv[0], argv[1:]
     torch.set_num_threads(1)
     initialize_from_env(cpu=True)
     for name in names:
         inp = torch.load(os.path.join(outdir, f"{name}.in.pt"), weights_only=False)
         out = {}
-        globals()[f"scenario_{name}"](inp, out)
+        globals()[f"scenario_{name.split('-')[0]}"](inp, out)
         torch.save(out, os.path.join(outdir, f"{name}.r{pmesh.rank()}.pt"))
         print(f"[OK] {name}", flush=True)
     pmesh.finalize()
