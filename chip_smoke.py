@@ -324,6 +324,14 @@ non-zero exit and no result line:
    run on this machine's CPU (gloo), one epoch at ``"precision":
    "bfloat16"`` (the bf16 gconv launched); the same for gin.json on ring6
    with ``pallas`` (the ELL kernel and its dx kernel, phase 10's counts);
+   the shard ingest: gin.json on ring6 (``pallas``) through
+   ``ShardedBatcher(mode="shard")`` over ``shard_for_host(ds, 0, 1)``, 2
+   epochs, bitwise the single-device Trainer's streaming run, both with
+   exact ELL and dx launches; the resume: solubility_cls.json's GCN at
+   dropout 0.2 with ``mesh {"data": 1}`` (sharded resident batcher), 2
+   epochs, ``save_tree``, a third (continued) against a fresh DPTrainer
+   restored from the file (resumed), bitwise, gconv launches exact; the
+   two walls on their ``-- shard ingest`` and ``-- resume`` lines;
    the big-graph KG trainer on phase 8's KG (``mesh``, gcn, dim 128):
    one step's loss and gradients against ``KGLinkPredictor`` on the same
    weights (stream kernels, f32 payload) within 1e-4 of the largest
@@ -5957,6 +5965,8 @@ POOL_TRIALS = ({"learning_rate": 0.01, "batch_size": 32},
 BIG_GRAPH_TOL = 1e-4         # of the largest magnitude: stream kernels vs segment sums
 BIG_GRAPH_STEPS = 5           # timed big-graph steps
 BENCH_KG = ("40943", "86835", "128")  # bench_scaling's kg step: WN18RR's nodes, edges, dim
+SHARD_EPOCHS = 2             # the shard-ingest run on ring6
+RESUME_DROPOUT = 0.2         # the resume's dropout (the config's default)
 
 
 def _same_bits(label, a, b):
@@ -6031,6 +6041,97 @@ def parallel_dp(workdir, label, src, per_forward, dx_per_step, epochs, cpu_check
         if max(rel) > TRAJECTORY_RTOL:
             raise AssertionError(f"{name}: GPU and CPU costs differ by {max(rel)}")
     return counts
+
+
+def parallel_shard_ingest(workdir, per_forward, dx_per_step):
+    """gin.json on ring6 with ``pallas`` through the shard mode of the
+    sharded batcher (the rank's slice ``shard_for_host(ds, 0, 1)``,
+    SHARD_EPOCHS epochs) against the single-device Trainer's streaming loop
+    on the same data: per-epoch costs and final parameters bitwise; each
+    run's ELL launches exact (``per_forward`` forward and ``dx_per_step``
+    dx kernels a step).  Returns the shard run's launches and wall."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import load_jbl, shard_for_host
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+    from kgcn_tpu_torch.parallel.dp import DPTrainer, ShardedBatcher
+    from kgcn_tpu_torch.runtime import backend
+    from kgcn_tpu_torch.runtime.train import Trainer
+
+    cfg = _load_config(GIN_CONFIG, dataset=ring6_file(workdir), spmm_backend="pallas")
+    ds, info = load_jbl(cfg["dataset"], cfg)
+    be = backend.resolve(dict(cfg), info, log=False)
+    bs = int(cfg["batch_size"])
+    steps = SHARD_EPOCHS * -(-ds.num // bs)
+    local = Batcher(shard_for_host(ds, 0, 1), info, bs, seed=0, backend=be)
+    runs = {}
+    for name, tr, batcher in (
+            ("shard", DPTrainer(build_model("gin", info, cfg), cfg, info, device=DEVICE,
+                                mesh=pmesh.make_mesh({"data": 1})),
+             ShardedBatcher(local, 1, mode="shard", global_num=ds.num)),
+            ("single", Trainer(build_model("gin", info, cfg), cfg, info, device=DEVICE),
+             Batcher(ds, info, bs, seed=0, backend=be))):
+        t0 = time.time()
+        costs, state = _epochs(tr, batcher, SHARD_EPOCHS)
+        runs[name] = (costs, state.params, _counts(), time.time() - t0)
+        _expect(f"shard ingest: {name}", runs[name][2],
+                {"ell_spmm": per_forward * steps, "ell_spmm_dx": dx_per_step * steps})
+    _same_bits("shard ingest vs the single-device run (costs)", runs["shard"][0],
+               runs["single"][0])
+    _same_bits("shard ingest vs the single-device run (parameters)", runs["shard"][1],
+               runs["single"][1])
+    say(f"-- shard ingest (gin ring6 pallas, world 1, {SHARD_EPOCHS} epochs, {steps} steps): "
+        f"bitwise equal to the single-device run, costs {runs['shard'][0]}; "
+        f"{runs['shard'][3]:.2f} s (single {runs['single'][3]:.2f} s)")
+    return runs["shard"][2], runs["shard"][3]
+
+
+def parallel_resume(workdir, per_forward):
+    """The distributed resume on the card: solubility_cls.json's GCN (full
+    width, dropout RESUME_DROPOUT) with ``mesh {"data": 1}`` on the sharded
+    resident batcher, 2 epochs, ``save_tree``, 1 more epoch (continued); a
+    fresh DPTrainer of another seed restores the checkpoint and trains that
+    epoch (resumed): bitwise equal, the generator restored; gconv launches
+    exact (``per_forward`` a step, 4 epochs).  Returns the launches and
+    wall."""
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel import mesh as pmesh
+    from kgcn_tpu_torch.parallel.dp import DPTrainer, ShardedResidentBatcher
+
+    cfg = _load_config(CONFIG, dropout_rate=RESUME_DROPOUT)
+    info, rb, _, _ = _resident_setup(cfg, DEVICE)
+    sb = ShardedResidentBatcher(rb, 1, 0)
+    mesh = pmesh.make_mesh({"data": 1})
+    path = os.path.join(workdir, "dp_resume", "model.mp.ckpt")
+
+    def trainer(c):
+        return DPTrainer(build_model(c["model.py"], info, c), c, info, device=DEVICE,
+                         mesh=mesh)
+
+    t0 = time.time()
+    tr = trainer(cfg)
+    state = tr.init_state(seed=0)
+    _zero_counts()
+    for epoch in (0, 1):
+        state, _, _, _ = tr.run_epoch(state, sb, shuffle=True, epoch=epoch)
+    tr.save_tree(path, tr.state_tree(state, 1, float("inf")))
+    saved_rng = state.rng.get_state()
+    state, cont, _, _ = tr.run_epoch(state, sb, shuffle=True, epoch=2)
+    fresh = trainer(dict(cfg, seed=123))
+    fresh.init_state(seed=123)
+    back = fresh.restore(path)
+    _same_bits("resume: the restored generator", back.rng.get_state(), saved_rng)
+    back, resumed, _, _ = fresh.run_epoch(back, sb, shuffle=True, epoch=back.epoch)
+    wall = time.time() - t0
+    counts = _counts()
+    _same_bits("resume vs continued (cost)", [resumed], [cont])
+    _same_bits("resume vs continued (parameters)", back.params, state.params)
+    _same_bits("resume vs continued (BN statistics)", back.batch_stats, state.batch_stats)
+    steps = 4 * -(-rb.ds.num // rb.batch_size)
+    _expect("resume (mesh, eager steps)", counts, {"gconv": per_forward * steps})
+    say(f"-- resume (solubility GCN, dropout {RESUME_DROPOUT}, mesh {{'data': 1}}): epoch 2 "
+        f"resumed bitwise the continued one (cost {resumed}); 4 epochs {wall:.2f} s")
+    return counts, wall
 
 
 def parallel_big_graph(workdir):
@@ -6235,7 +6336,13 @@ def phase_parallel(workdir):
     add(parallel_dp(workdir, "gin_pallas", GIN_CONFIG, 2, 1, 2, False,
                     dataset=ring6_file(workdir), spmm_backend="pallas", make_plot=False))
     say(f"dp gin done at {time.time() - t_phase:.1f} s of the phase")
+    counts, shard_s = parallel_shard_ingest(workdir, 2, 1)
+    add(counts)
+    counts, resume_s = parallel_resume(workdir, per_forward)
+    add(counts)
+    say(f"shard ingest and resume done at {time.time() - t_phase:.1f} s of the phase")
     counts, numbers = parallel_big_graph(workdir)
+    numbers.update(shard_ingest_s=shard_s, resume_s=resume_s)
     add(counts)
     say(f"big graph done at {time.time() - t_phase:.1f} s of the phase")
     add(parallel_fold_cv(workdir))

@@ -116,6 +116,13 @@ def split_dataset(ds: Dataset, valid_rate: float, seed: int = 0,
     return ds.subset(train_idx), ds.subset(valid_idx), train_idx, valid_idx
 
 
+def shard_for_host(ds: Dataset, host_id: int, num_hosts: int) -> Dataset:
+    """Host ``host_id``'s shard of ``num_hosts`` for per-rank ingest
+    (``kgcn_tpu``'s ``shard_for_host``, ``kgcn_tpu/data/dataset.py:390``):
+    examples h, h+H, h+2H, …; disjoint across hosts."""
+    return ds.subset(np.arange(host_id, ds.num, num_hosts))
+
+
 def kfold_indices(n: int, k: int, seed: int = 0,
                   stratify: Optional[np.ndarray] = None):
     """[(train_idx, test_idx)] of a shuffled k-fold split, index for index

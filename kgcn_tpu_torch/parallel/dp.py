@@ -12,7 +12,14 @@ step's gradients and BN statistics (then divided by D: their mean, as
 every rank applies the same update.  ``DistributedDataParallel`` is not
 used: it broadcasts buffers from rank 0, where ``kgcn_tpu`` averages the BN
 statistics.  Dropout draws from the rank's generator, seeded from (seed,
-rank); rank 0's is the single-device trainer's.
+rank); rank 0's is the single-device trainer's.  A checkpoint carries every
+rank's generator (``rng_ranks``), so a resumed run is the continued one; at
+another data width each rank is re-seeded from (seed, rank, saved step)
+(``resume_seed``).
+
+``ShardedBatcher(mode="shard")`` is ``kgcn_tpu``'s per-host ingest
+(``GlobalShardedBatcher(mode="shard")``, one device a process): each rank
+holds only its slice of the data (``data/dataset.shard_for_host``).
 
 On a mesh with a ``model`` or ``pipe`` axis the all-reduce runs over the
 ``data`` group and the ranks of one model group are replicas (the same
@@ -38,21 +45,40 @@ from kgcn_tpu_torch.runtime.train import Trainer, TrainState
 RANK_SEED_STRIDE = 1_000_003  # rank r's dropout generator: seed + r·stride
 
 
+def resume_seed(seed: int, rank: int, step: int) -> int:
+    """The dropout seed of data rank ``rank`` resuming, at ``step``, a
+    checkpoint written at another data width (ROADMAP.md C.5)."""
+    return int(np.random.SeedSequence([int(seed), int(rank), int(step)]).generate_state(1)[0])
+
+
 def _counts(n: int, bs: int):
     return [min(bs, n - s) for s in range(0, n, bs)]
 
 
 class ShardedBatcher:
-    """Rank ``rank``'s view of a streaming ``Batcher``: each global step of
-    ``num_shards · batch_size`` examples (the wrapped batcher's epoch
-    order) yields this rank's rows as one local batch."""
+    """Rank ``rank``'s view of a streaming ``Batcher``.
 
-    def __init__(self, batcher, num_shards: int, rank: Optional[int] = None):
+    ``mode="full"``: the batcher holds the whole dataset; each global step
+    of ``num_shards · batch_size`` examples (its epoch order) yields this
+    rank's rows as one local batch.  ``mode="shard"``: the batcher holds
+    only this rank's rows (``shard_for_host``, its own permutation seed) and
+    ``global_num`` counts the whole dataset; step s yields the s-th
+    ``batch_size`` rows of the local permutation, and every rank yields
+    ⌈⌈N/D⌉/B⌉ steps, a shorter slice padding its last ones with
+    all-invalid batches (``kgcn_tpu``'s ``GlobalShardedBatcher``,
+    ``kgcn_tpu/parallel/dp.py:74-206``)."""
+
+    def __init__(self, batcher, num_shards: int, rank: Optional[int] = None, *,
+                 mode: str = "full", global_num: Optional[int] = None):
+        if mode not in ("full", "shard"):
+            raise ValueError(f"mode {mode!r}: 'full' or 'shard'")
         self.b = batcher
         self.num_shards = int(num_shards)
         self.rank = pmesh.rank() if rank is None else int(rank)
+        self.mode = mode
         self.ds = batcher.ds
         self.global_batch = batcher.batch_size * self.num_shards
+        self._n_global = int(batcher.ds.num if global_num is None else global_num)
 
     @property
     def batch_size(self) -> int:
@@ -60,10 +86,10 @@ class ShardedBatcher:
 
     @property
     def valid_per_epoch(self) -> int:
-        return self.ds.num
+        return self._n_global
 
     def batch_valid_counts(self):
-        return _counts(self.ds.num, self.global_batch)
+        return _counts(self._n_global, self.global_batch)
 
     def rows(self, idx: np.ndarray) -> np.ndarray:
         per = self.b.batch_size
@@ -73,8 +99,25 @@ class ShardedBatcher:
         self.last_valid = len(idx)
         return self.b.make_batch(self.rows(idx))
 
+    def _local_batch(self, rows: np.ndarray):
+        """A shard-mode step's batch; for no rows, graph 0's with every row
+        invalid (``kgcn_tpu``'s ``_padded_local_batch``)."""
+        if len(rows):
+            return self.b.make_batch(rows)
+        batch = self.b.make_batch(np.zeros(1, np.int64))
+        return batch.replace(pad_mask=torch.zeros_like(batch.pad_mask))
+
+    def _steps_shard(self) -> int:
+        base, extra = divmod(self._n_global, self.num_shards)
+        return -(-(base + (1 if extra else 0)) // self.b.batch_size)
+
     def batches(self, shuffle: bool = True, epoch=None):
         idx = self.b.epoch_indices(shuffle, epoch=epoch)
+        if self.mode == "shard":
+            B = self.b.batch_size
+            for s in range(self._steps_shard()):
+                yield self._local_batch(idx[s * B:(s + 1) * B])
+            return
         for start in range(0, len(idx), self.global_batch):
             yield self.make_batch(idx[start:start + self.global_batch])
 
@@ -175,6 +218,31 @@ class DPTrainer(Trainer):
                 batch_stats[k].copy_(v)
         sums = values[len(mean_part):]
         return new_grads, sums[0], dict(zip(metric_names, sums[1:]))
+
+    def state_tree(self, state: TrainState, epoch: int, best_cost: float) -> ckpt.Tree:
+        """The training tree with ``rng_ranks``: every data rank's generator
+        state in rank order (gathered: every rank takes part)."""
+        tree = super().state_tree(state, epoch, best_cost)
+        every = pmesh.host_view(tree["rng"].numpy(), self.group)
+        tree["rng_ranks"] = torch.from_numpy(np.stack(every))
+        return tree
+
+    def state_from_tree(self, tree: ckpt.Tree, seed: int = 0) -> TrainState:
+        """``Trainer.state_from_tree`` with this rank's dropout generator: its
+        row of ``rng_ranks`` (a single-device tree's ``rng`` is a world of
+        one's) when the tree was written at this data width, else re-seeded
+        from (seed, rank, saved step).  A row of the other device type keeps
+        the fresh seeded generator, as ``Trainer`` does."""
+        state = super().state_from_tree(tree, seed)
+        if "opt_state" not in tree:
+            return state
+        ranks = tree.get("rng_ranks", tree["rng"][None])
+        d = self.mesh.coord("data")
+        if len(ranks) != self.world:
+            state.rng = super()._generator(resume_seed(seed, d, state.step))
+        elif ranks[d].numel() == state.rng.get_state().numel():
+            state.rng.set_state(ranks[d].clone())  # set_state crashes on a storage offset
+        return state
 
     def save_tree(self, path: str, tree: ckpt.Tree) -> str:
         if pmesh.is_main_process():

@@ -9,7 +9,9 @@ A checkpoint is ``torch.save`` of a dict of CPU tensors, loaded with
 * the full training tree, which adds ``opt_state`` (the optimizer's nested
   dicts), ``step``, ``rng`` (the dropout generator's state), ``epoch`` and
   ``best_cost`` — written by ``Trainer.fit`` for best, interval and last
-  checkpoints, and resumable.
+  checkpoints, and resumable.  The data-parallel trainer's adds
+  ``rng_ranks`` (every data rank's generator state, in rank order; ``rng``
+  is rank 0's).
 
 File names follow ``kgcn_tpu`` (``model.best.ckpt``, ``model.last.ckpt``,
 ``model.<NNNNN>.ckpt``, ``model.<fold>.<tag>.ckpt``).  ``load_checkpoint``
@@ -35,6 +37,8 @@ import torch
 Tree = Dict[str, Any]
 PARAM_KEYS = {"params", "batch_stats"}
 FULL_KEYS = PARAM_KEYS | {"opt_state", "step", "rng", "epoch", "best_cost"}
+DP_KEYS = FULL_KEYS | {"rng_ranks"}
+TREE_KEYS = (PARAM_KEYS, FULL_KEYS, DP_KEYS)
 
 
 def _to_cpu(tree):
@@ -47,7 +51,7 @@ def _to_cpu(tree):
 
 def save_tree(path: str, tree: Tree) -> str:
     """Write a checkpoint tree (tensors moved to the CPU) atomically."""
-    if set(tree) not in (PARAM_KEYS, FULL_KEYS):
+    if set(tree) not in TREE_KEYS:
         raise ValueError(f"not a checkpoint tree: keys {sorted(tree)}")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -107,7 +111,7 @@ def load_checkpoint(path: str, model=None, tx=None) -> Tree:
 
 
 def _checked(path: str, tree) -> Tree:
-    if not isinstance(tree, dict) or set(tree) not in (PARAM_KEYS, FULL_KEYS):
+    if not isinstance(tree, dict) or set(tree) not in TREE_KEYS:
         raise ValueError(
             f"{path}: expected a dict with 'params' and 'batch_stats' "
             "(and, for a training checkpoint, the optimizer state)"

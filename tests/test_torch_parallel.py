@@ -9,7 +9,10 @@ cost and metrics and the parameters after 3 SGD steps, 1e-5; an epoch's
 cost and parameters (5 and 3 steps), 1e-5; the evaluated predictions and
 cost, 1e-5; the resident epoch against the streaming one (the same steps,
 the optimizer's numbers from a table), 1e-6; a bf16 step's cost, 2e-2
-relative (tests/test_torch_precision.py's bound for bf16 against JAX)."""
+relative (tests/test_torch_precision.py's bound for bf16 against JAX);
+the shard-mode epoch (each rank its own slice of the data) against the
+same local batches stacked on kgcn_tpu's devices, 1e-5; the resumed
+epoch against the continued one, bitwise."""
 import json
 import os
 import pickle
@@ -36,6 +39,8 @@ WORLDS = (2, 4)
 RING = dict(num_pairs=13, seed=0)  # 26 ring graphs of 10 nodes
 B = 3                               # graphs a rank a step
 VALID_ROWS = list(range(13))        # 13 graphs: the last step leaves ranks empty
+INGEST_RING = dict(num_pairs=23, seed=0)  # 46 ring graphs: slices uneven over D
+DROPOUT = 0.2                       # the resume's dropout (the config's default)
 
 
 def _cfg(**over):
@@ -104,6 +109,75 @@ def _jax_side(D):
     return out
 
 
+def _jax_ingest(D):
+    """kgcn_tpu's DPTrainer on D virtual devices fed what D processes of
+    one device each feed its mesh in shard mode: step s stacks each
+    process p's local batch (rows of ``shard_for_host(ds, p, D)`` in the
+    order of ``Batcher(seed=p)``; an empty chunk is padded as
+    ``GlobalShardedBatcher._padded_local_batch``), for one epoch."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from kgcn_tpu.data import Batcher, build_dataset
+    from kgcn_tpu.data.dataset import shard_for_host
+    from kgcn_tpu.data.synthetic import make_ring_dataset
+    from kgcn_tpu.models.registry import build_model
+    from kgcn_tpu.parallel.dp import DPTrainer, stack_batches
+    from kgcn_tpu.parallel.mesh import make_mesh
+
+    cfg = _cfg()
+    with jax_backend("dense"):
+        ds, info = build_dataset(make_ring_dataset(**INGEST_RING), cfg)
+        shards = [shard_for_host(ds, p, D) for p in range(D)]
+        batchers = [Batcher(s, info, B, seed=p) for p, s in enumerate(shards)]
+        for b in batchers:  # the dense path, as the port's: no ELL arrays (whose
+            b._ell = None   # gate passes some slices and not others)
+        perms = [b.epoch_indices(shuffle=True, epoch=0) for b in batchers]
+
+        def step(s):
+            local = []
+            for p, b in enumerate(batchers):
+                rows = perms[p][s * B:(s + 1) * B]
+                if len(rows):
+                    local.append(b.make_batch(rows))
+                else:
+                    pad = b.make_batch(np.array([0]))
+                    local.append(dataclasses.replace(pad, pad_mask=jnp.zeros_like(
+                        pad.pad_mask)))
+            return stack_batches(local)
+
+        tr = DPTrainer(build_model("gcn", info, cfg), cfg, info, mesh=make_mesh({"data": D}))
+        state = tr.init_state(step(0), seed=0)
+        tree = params_from_jax(jax.device_get(state.params),
+                               jax.device_get(state.batch_stats))
+        steps, total = -(-(-(-ds.num // D)) // B), 0.0
+        for s in range(steps):
+            state, cost, _ = tr.train_step(state, step(s))
+            total += float(cost)
+        return {"tree": tree, "steps": steps, "epoch_cost": total / ds.num,
+                "epoch": params_from_jax(jax.device_get(state.params),
+                                         jax.device_get(state.batch_stats)),
+                "shards": [(s.features, s.labels) for s in shards]}
+
+
+def _single_device_ckpt(path):
+    """A training checkpoint of the port's single-device Trainer (a world
+    of one) after one epoch at DROPOUT."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime.train import Trainer
+    from torch_parallel_worker import _ring
+
+    cfg = _cfg(dropout_rate=DROPOUT)
+    ds, info, be = _ring({"cfg": cfg, "ring": RING})
+    tr = Trainer(build_model("gcn", info, cfg), cfg, info, device="cpu")
+    state, _, _, _ = tr.run_epoch(tr.init_state(seed=0),
+                                  Batcher(ds, info, B, seed=0, backend=be), epoch=0)
+    tr.save_tree(str(path), tr.state_tree(state, 0, np.inf))
+    return str(path)
+
+
 def _write_cli_config(d, D):
     from kgcn_tpu_torch.data.synthetic import make_ring_dataset
 
@@ -123,14 +197,22 @@ def _write_cli_config(d, D):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{D: (the JAX side, the ranks' outputs, the CLI run's directory)}."""
-    out = {}
+    out, other = {}, None
     for D in WORLDS:
         d = tmp_path_factory.mktemp(f"dp{D}")
-        jx = _jax_side(D)
+        jx = dict(_jax_side(D), ingest=_jax_ingest(D))
+        # a checkpoint of another world size: a world of one's for the first
+        # D, the previous D's after it
+        other = other or _single_device_ckpt(d / "single.ckpt")
         inputs = {"dp": {"cfg": _cfg(), "ring": RING, "tree": jx["tree"],
                          "steps": _steps(D), "valid_rows": VALID_ROWS},
-                  "dp_cli": {"config": _write_cli_config(d, D)}}
+                  "dp_cli": {"config": _write_cli_config(d, D)},
+                  "ckpt": {"cfg": _cfg(dropout_rate=DROPOUT), "ring": RING,
+                           "path": str(d / "dp.ckpt"), "other": other},
+                  "ingest": {"cfg": _cfg(), "ring": INGEST_RING,
+                             "tree": jx["ingest"]["tree"]}}
         out[D] = (jx, launch_scenarios(d, D, inputs), d)
+        other = inputs["ckpt"]["path"]
     return out
 
 
@@ -213,6 +295,114 @@ def test_cli_train_with_mesh(runs, D):
                                                "serve_info.json"]
     hist = json.loads((d / "info_train.json").read_text())
     assert len(hist["training_cost"]) == 2 and np.isfinite(hist["training_cost"]).all()
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_dp_resume_equals_the_continued_run(runs, D):
+    """ROADMAP C.12: at dropout DROPOUT the epoch after a restore is the
+    epoch the saving run went on to train, bitwise (cost, parameters, BN
+    statistics), on every rank: each rank restores its own dropout
+    generator, not rank 0's."""
+    _, res, _ = runs[D]
+    for r, got in enumerate(res["ckpt"]):
+        cont, back = got["continued"], got["resumed"]
+        assert back["epoch"] == 2
+        assert back["cost"] == cont["cost"], (r, back["cost"], cont["cost"])
+        for part in ("params", "stats"):
+            for k, v in cont[part].items():
+                assert np.array_equal(back[part][k], v), (
+                    r, part, k, float(np.max(np.abs(back[part][k] - v))))
+        assert np.array_equal(got["rng_restored"], got["rng_saved"]), r
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_single_device_trainer_resumes_a_dp_checkpoint(runs, D):
+    """The checkpoint of D ranks holds every rank's generator in rank order
+    (``rng_ranks``) and rank 0's as ``rng``: the single-device Trainer
+    restores its parameters exactly, with rank 0's generator, and trains
+    on."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.runtime import checkpoint as ckpt
+    from kgcn_tpu_torch.runtime.train import Trainer
+    from torch_parallel_worker import _ring
+
+    ranks = runs[D][1]["ckpt"]
+    tree = ckpt.load_checkpoint(ranks[0]["path"])
+    assert tree["rng_ranks"].shape[0] == D
+    for r, got in enumerate(ranks):
+        assert np.array_equal(tree["rng_ranks"][r].numpy(), got["rng_saved"]), r
+    assert torch.equal(tree["rng"], tree["rng_ranks"][0])
+    cfg = _cfg(dropout_rate=DROPOUT)
+    ds, info, be = _ring({"cfg": cfg, "ring": RING})
+    tr = Trainer(build_model("gcn", info, cfg), cfg, info, device="cpu")
+    state = tr.restore(ranks[0]["path"])
+    _same_tree(state.params, tree["params"])
+    assert torch.equal(state.rng.get_state(), tree["rng"]) and state.epoch == 2
+    _, cost, _, _ = tr.run_epoch(state, Batcher(ds, info, B, seed=0, backend=be),
+                                 epoch=state.epoch)
+    assert np.isfinite(cost)
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_dp_resume_at_another_world_size(runs, D):
+    """A checkpoint written at another data width (at D 2 the single-device
+    Trainer's, a world of one; at D 4 the D 2 run's) restores on every
+    rank: its parameters exactly, and rank r's dropout generator re-seeded
+    from (seed, r, saved step) (``dp.resume_seed``, ROADMAP C.5), so no two
+    ranks draw the same masks; an epoch trains."""
+    from kgcn_tpu_torch.parallel.dp import resume_seed
+    from kgcn_tpu_torch.runtime import checkpoint as ckpt
+
+    ranks = runs[D][1]["ckpt"]
+    saved = ckpt.load_checkpoint(ranks[0]["other_path"])
+    assert len(saved.get("rng_ranks", saved["rng"][None])) != D
+    step = int(saved["step"])
+    for r, got in enumerate(ranks):
+        other = got["other"]
+        for k, v in saved["params"].items():
+            assert np.array_equal(other["params"][k], v.numpy()), (r, k)
+        assert other["step"] == step
+        want = torch.Generator().manual_seed(resume_seed(0, r, step)).get_state()
+        assert np.array_equal(other["rng"], want.numpy()), r
+        assert np.isfinite(other["cost"])
+    assert len({got["other"]["rng"].tobytes() for got in ranks}) == D
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_shard_ingest_covers_the_dataset_once(runs, D):
+    """Shard mode: each rank holds ``kgcn_tpu``'s ``shard_for_host`` slice
+    (the same rows), its permutation covers the slice once, every rank
+    yields the same number of global steps (⌈⌈N/D⌉/B⌉) and together they
+    see the N rows once; the evaluation gathers N predictions."""
+    jx, res, _ = runs[D]
+    ranks, want = res["ingest"], jx["ingest"]
+    n = 2 * INGEST_RING["num_pairs"]
+    for r, got in enumerate(ranks):
+        features, labels = want["shards"][r]
+        np.testing.assert_array_equal(got["features"], features)
+        np.testing.assert_array_equal(got["labels"], labels)
+        assert sorted(got["perm"].tolist()) == list(range(len(labels)))
+        assert got["steps"] == want["steps"] == -(-(-(-n // D)) // B)
+        assert got["valid_per_epoch"] == got["n"] == n
+        assert got["valid_counts"] == [min(D * B, n - s) for s in range(0, n, D * B)]
+        assert got["eval"]["num"] == got["eval"]["rows"] == n
+    assert sum(len(w[1]) for w in want["shards"]) == n
+    assert sum(got["seen"] for got in ranks) == n
+
+
+@pytest.mark.parametrize("D", WORLDS)
+def test_shard_ingest_epoch_matches_jax(runs, D):
+    """A shard-mode epoch (dropout 0) against kgcn_tpu's DPTrainer fed the
+    same local batches stacked on D devices: the cost and the parameters
+    and BN statistics within TOL; every rank holds the same cost."""
+    jx, res, _ = runs[D]
+    want = jx["ingest"]
+    for got in res["ingest"]:
+        assert got["epoch_cost"] == res["ingest"][0]["epoch_cost"]
+        np.testing.assert_allclose(got["epoch_cost"], want["epoch_cost"], **TOL)
+        _close_tree(got["epoch"]["params"], want["epoch"]["params"], TOL, "params")
+        _close_tree(got["epoch"]["stats"], want["epoch"]["batch_stats"], TOL, "stats")
 
 
 def test_mesh_must_match_the_world():

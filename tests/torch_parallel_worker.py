@@ -95,6 +95,77 @@ def scenario_dp(inp, out):
     out["bf16_cost"] = float(c)
 
 
+def _model_state(state):
+    return {"params": _np(state.params), "stats": _np(state.batch_stats)}
+
+
+def scenario_ckpt(inp, out):
+    """The distributed resume at the config's dropout: 2 epochs, the
+    checkpoint written by rank 0 (``save_tree``), 1 more epoch (continued);
+    a fresh trainer of another seed restores the file and trains the same
+    epoch (resumed).  Then ``inp["other"]``, a checkpoint written at another
+    world size, restored here and trained an epoch."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.models.registry import build_model
+    from kgcn_tpu_torch.parallel.dp import DPTrainer, ShardedBatcher
+
+    ds, info, be = _ring(inp)
+    D, B = pmesh.world_size(), inp["cfg"]["batch_size"]
+    sb = ShardedBatcher(Batcher(ds, info, B, seed=0, backend=be), D)
+
+    def trainer(cfg):
+        return DPTrainer(build_model(cfg["model.py"], info, cfg), cfg, info, device="cpu",
+                         mesh=pmesh.make_mesh({"data": -1}))
+
+    tr = trainer(inp["cfg"])
+    state = tr.init_state(seed=0)
+    for epoch in (0, 1):
+        state, _, _, _ = tr.run_epoch(state, sb, shuffle=True, epoch=epoch)
+    tr.save_tree(inp["path"], tr.state_tree(state, 1, np.inf))
+    out["rng_saved"] = state.rng.get_state().numpy()
+    state, cost, _, _ = tr.run_epoch(state, sb, shuffle=True, epoch=2)
+    out["continued"] = dict(_model_state(state), cost=cost)
+    fresh = trainer(dict(inp["cfg"], seed=123))
+    fresh.init_state(seed=123)
+    state = fresh.restore(inp["path"])
+    out["rng_restored"], epoch = state.rng.get_state().numpy(), state.epoch
+    state, cost, _, _ = fresh.run_epoch(state, sb, shuffle=True, epoch=epoch)
+    out["resumed"] = dict(_model_state(state), cost=cost, epoch=epoch)
+    out["path"], out["other_path"] = inp["path"], inp.get("other")
+    if inp.get("other"):
+        other = trainer(inp["cfg"])
+        state = other.restore(inp["other"])
+        out["other"] = dict(_model_state(state), step=state.step,
+                            rng=state.rng.get_state().numpy())
+        _, out["other"]["cost"], _, _ = other.run_epoch(state, sb, shuffle=True,
+                                                        epoch=state.epoch)
+
+
+def scenario_ingest(inp, out):
+    """Per-rank ingest: this rank's slice (``shard_for_host``) behind the
+    shard mode of the sharded batcher; the epoch's local order and steps,
+    the valid rows it yields, one training epoch and an evaluation."""
+    from kgcn_tpu_torch.data.batcher import Batcher
+    from kgcn_tpu_torch.data.dataset import shard_for_host
+    from kgcn_tpu_torch.parallel.dp import ShardedBatcher
+
+    full, info, be = _ring(inp)
+    D, rk, B = pmesh.world_size(), pmesh.rank(), inp["cfg"]["batch_size"]
+    local = shard_for_host(full, rk, D)
+    gb = ShardedBatcher(Batcher(local, info, B, seed=rk, backend=be), D, mode="shard",
+                        global_num=full.num)
+    out["features"], out["labels"] = local.features, local.labels
+    out["perm"] = gb.b.epoch_indices(shuffle=True, epoch=0)
+    masks = [b.pad_mask.numpy() for b in gb.batches(shuffle=True, epoch=0)]
+    out["steps"], out["seen"] = len(masks), float(np.sum(masks))
+    out["valid_counts"], out["valid_per_epoch"] = gb.batch_valid_counts(), gb.valid_per_epoch
+    tr, state = _dp_trainer(inp, info)
+    state, out["epoch_cost"], _, out["n"] = tr.run_epoch(state, gb, shuffle=True, epoch=0)
+    out["epoch"] = _model_state(state)
+    ev = tr.evaluate(state, gb)
+    out["eval"] = {"num": ev["num"], "cost": ev["cost"], "rows": len(ev["prediction"])}
+
+
 def scenario_dp_cli(inp, out):
     """``cli.main train`` with ``mesh``: rank 0 writes the files."""
     from kgcn_tpu_torch.cli.main import main
