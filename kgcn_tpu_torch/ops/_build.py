@@ -122,7 +122,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            from kgcn_tpu_torch.runtime.spans import span
+
+            with span("ops.load"):
+                lib = ctypes.CDLL(str(build([name])[name]))
             if name not in HOST_SOURCES:
                 lib.kgcn_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.kgcn_cuda_error_string.restype = ctypes.c_char_p

@@ -32,7 +32,9 @@ On the CPU, and on the card with ``capture=False``, the same step runs
 eagerly, step by step.  A capture that fails raises with the reason; it
 never runs eagerly in its place.  The kernels' launch counters count the
 launches of the warm-up and of the capture only: a replay launches from
-the graph.
+the graph.  An epoch's phases (the load, the optimizer's table, the
+replays, the copy-out) and the capture are named spans of a profiler's
+trace (``runtime/spans.py``), none of them inside the loop of steps.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from kgcn_tpu_torch.runtime.spans import span
 
 WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
 # one capture stream a device: cuBLAS keeps a workspace for each stream it
@@ -118,24 +122,25 @@ class _Steps:
     once into a CUDA graph (after ``WARMUP_STEPS`` eager steps on the
     capture stream, each from step 0: ``reset``) and replayed.
     ``generator``: the CUDA generator the body draws from, registered with
-    the graph."""
+    the graph; ``kind``: ``"train"`` or ``"eval"``, which names the
+    capture's span."""
 
     def __init__(self, body: Callable[[], None], reset: Callable[[], None],
                  device: torch.device, capture: bool,
-                 generator: Optional[torch.Generator], what: str):
+                 generator: Optional[torch.Generator], kind: str):
         self.body = body
         self.reset = reset
         self.device = device
         self.capture = capture
         self.generator = generator
-        self.what = what
+        self.kind = kind
         self.graph = None
 
     def _capture(self) -> None:
         dev = self.device
         side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with span(f"{self.kind}.capture"), torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 self.reset()
                 self.body()
@@ -152,7 +157,7 @@ class _Steps:
                 except RuntimeError:
                     pass  # the capture is invalid already; report the cause
                 raise RuntimeError(
-                    f"capturing the {self.what} step into a CUDA graph failed: "
+                    f"capturing the {self.kind} step into a CUDA graph failed: "
                     f"{type(e).__name__}: {e}") from e
             graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -247,7 +252,7 @@ class TrainRunner(_Runner):
         self.gen = torch.Generator(device=self.device)
         self.names = None
         self.steps = _Steps(self._body, self.i.zero_, self.device, trainer.capture,
-                            self.gen, "training")
+                            self.gen, "train")
 
     def _body(self) -> None:
         t = self.trainer
@@ -272,7 +277,8 @@ class TrainRunner(_Runner):
 
     def run(self, state, xs: Sequence[np.ndarray]):
         t, S = self.trainer, self.n_steps
-        table = t.tx.table(state.opt_state, S)
+        with span("train.table"):
+            table = t.tx.table(state.opt_state, S)
         if self.opt is None:  # the static buffers, from the first state
             self.names = list(state.params)
             self.params = {k: v.detach().clone() for k, v in state.params.items()}
@@ -282,20 +288,23 @@ class TrainRunner(_Runner):
             _upload(self.table, table)
             self._xs.fill(xs)
             self.steps.prepare()
-        self._load(xs, state.params, state.batch_stats)
-        _copy_into(self.opt, state.opt_state)
-        _upload(self.table, table)
-        if state.rng is not None:
-            self.gen.set_state(state.rng.get_state())
-        self.steps.run(S)
-        if state.rng is not None:
-            state.rng.set_state(self.gen.get_state())
-        new = type(state)(
-            params={k: v.clone() for k, v in self.params.items()},
-            batch_stats={k: v.clone() for k, v in self.stats.items()},
-            opt_state=t.tx.advance(_own_tree(self.opt, self.device), S),
-            step=state.step + S, rng=state.rng, epoch=state.epoch)
-        return new, self.costs.clone(), {k: v.clone() for k, v in self.metrics.items()}
+        with span("train.load"):
+            self._load(xs, state.params, state.batch_stats)
+            _copy_into(self.opt, state.opt_state)
+            _upload(self.table, table)
+            if state.rng is not None:
+                self.gen.set_state(state.rng.get_state())
+        with span("train.replay"):
+            self.steps.run(S)
+        with span("train.unload"):
+            if state.rng is not None:
+                state.rng.set_state(self.gen.get_state())
+            new = type(state)(
+                params={k: v.clone() for k, v in self.params.items()},
+                batch_stats={k: v.clone() for k, v in self.stats.items()},
+                opt_state=t.tx.advance(_own_tree(self.opt, self.device), S),
+                step=state.step + S, rng=state.rng, epoch=state.epoch)
+            return new, self.costs.clone(), {k: v.clone() for k, v in self.metrics.items()}
 
 
 class EvalRunner(_Runner):
@@ -307,7 +316,7 @@ class EvalRunner(_Runner):
     def __init__(self, trainer, n_steps, make_batch, xs, keep_alive=None):
         super().__init__(trainer, n_steps, make_batch, xs, keep_alive)
         self.steps = _Steps(self._body, self.i.zero_, self.device, trainer.capture,
-                            None, "evaluation")
+                            None, "eval")
 
     @torch.no_grad()
     def _body(self) -> None:
@@ -322,8 +331,10 @@ class EvalRunner(_Runner):
             self.stats = {k: v.detach().clone() for k, v in batch_stats.items()}
             self._xs.fill(xs)
             self.steps.prepare()
-        self._load(xs, params, batch_stats)
-        self.steps.run(self.n_steps)
+        with span("eval.load"):
+            self._load(xs, params, batch_stats)
+        with span("eval.replay"):
+            self.steps.run(self.n_steps)
         return ({k: v.clone() for k, v in self.preds.items()}, self.costs.clone(),
                 {k: v.clone() for k, v in self.metrics.items()})
 

@@ -46,6 +46,7 @@ from kgcn_tpu_torch.runtime.resident import (
     DEFAULT_RESIDENT_BUDGET, estimate_bytes, gather_batch,
 )
 from kgcn_tpu_torch.runtime.runner import EvalRunner, TrainRunner, read_back
+from kgcn_tpu_torch.runtime.spans import span
 
 
 @dataclasses.dataclass
@@ -361,11 +362,13 @@ class Trainer:
         [S, ...]}``), the outputs left on the device and nothing read
         back."""
         if hasattr(batcher, "epoch_schedule"):
-            xs = batcher.epoch_schedule(shuffle=shuffle, epoch=epoch)
+            with span("data.epoch_inputs"):
+                xs = batcher.epoch_schedule(shuffle=shuffle, epoch=epoch)
             dd = batcher.device_data
             runner = self._runner("train", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
         else:
-            const, xs = batcher.epoch_scan_inputs(shuffle=shuffle, epoch=epoch)
+            with span("data.epoch_inputs"):
+                const, xs = batcher.epoch_scan_inputs(shuffle=shuffle, epoch=epoch)
             runner = self._runner("scan", id(const), len(xs[0]), _scan_batch(batcher, const),
                                   xs, const)
         return runner.run(state, xs)
@@ -374,7 +377,8 @@ class Trainer:
         """A resident batcher's evaluation through the evaluation runner →
         (predictions ``{name: [S, B, ...]}``, costs ``[S]``, metrics
         ``{name: [S, ...]}``), left on the device, nothing read back."""
-        xs = batcher.epoch_schedule(shuffle=False)
+        with span("data.epoch_inputs"):
+            xs = batcher.epoch_schedule(shuffle=False)
         dd = batcher.device_data
         runner = self._runner("eval", id(dd), len(xs[0]), _schedule_batch(dd), xs, dd)
         return runner.run(state.params, state.batch_stats, xs)
@@ -382,7 +386,8 @@ class Trainer:
     def _run_epoch_runner(self, state, batcher, shuffle, epoch):
         state, costs, metrics = self.epoch_on_device(state, batcher, shuffle, epoch)
         names = list(metrics)
-        costs, *values = read_back(costs, *(metrics[k] for k in names))
+        with span("train.read_back"):
+            costs, *values = read_back(costs, *(metrics[k] for k in names))
         n_total = batcher.valid_per_epoch
         return (state, float(np.sum(costs)) / max(n_total, 1),
                 _metric_list(dict(zip(names, values)), len(costs)), n_total)
@@ -392,8 +397,9 @@ class Trainer:
         padding rows trimmed by ``batch_valid_counts``."""
         preds, costs, metrics = self.eval_on_device(state, batcher)
         names, keys = list(metrics), list(preds)
-        costs, *values = read_back(costs, *(metrics[k] for k in names),
-                                   *(preds[k] for k in keys))
+        with span("eval.read_back"):
+            costs, *values = read_back(costs, *(metrics[k] for k in names),
+                                       *(preds[k] for k in keys))
         preds = dict(zip(keys, values[len(names):]))
         counts = batcher.batch_valid_counts()
         n_total = sum(counts)

@@ -57,6 +57,20 @@ def test_profile_writes_a_trace(tmp_path, capsys, how):
     assert any("aten::" in n for n in names)
 
 
+def test_profile_trace_holds_the_runner_spans(tmp_path):
+    """A resident fit's ``--profile`` trace holds the port's per-epoch
+    spans (``runtime/spans.py``)."""
+    from kgcn_tpu_torch.cli.main import main as t_main
+
+    prof_dir = tmp_path / "trace"
+    path = _config(tmp_path, profile_dir=str(prof_dir), device_resident=True)
+    t_main(["train", "--config", path, "--cpu", "--profile"])
+    with open(prof_dir / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert {"kgcn.data.epoch_inputs", "kgcn.train.replay", "kgcn.train.read_back",
+            "kgcn.eval.replay"} <= names
+
+
 def test_debug_nan_stops_at_the_first_non_finite_step(tmp_path, capsys):
     """A learning rate that blows the weights up: without ``debug_nan`` the
     fit runs its epoch and aborts on the non-finite cost; with it the first
