@@ -7,7 +7,8 @@ Phases, each announced on its own line; any failure ends the run with a
 non-zero exit and no result line:
 
 1. environment — the card (nvidia-smi name and power limit), torch, CUDA;
-2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu, ell.cu)
+2. build — every CUDA kernel of the port (gconv.cu, tiled.cu, stream.cu, ell.cu,
+   adam.cu)
    and the tiled backend's host library (tiled_host.cc), from
    kgcn_tpu_torch/ops/csrc, one compiler process per source, in parallel;
 3. kernel check: gconv — against its plain PyTorch version on the card at
@@ -360,7 +361,32 @@ non-zero exit and no result line:
    ``runtime/orbax.py`` bitwise against its ``.npy`` arrays (the read's
    MB/s), ``cli.main train`` with ``retrain`` (1 epoch) and ``infer`` (the
    stream scatter); the phase's wall;
-21. summary — one JSON line of kernel numbers, then the result line.
+21. summary — one JSON line of kernel numbers, then the result line;
+22. kernel check: fused Adam (run after phase 4) — the optimizer update of
+   the captured step (ops/adam.py) at the benchmark's two leaf sets (the
+   reaction SparseGCN's 12 leaves, the WN18RR GCN-DistMult's 6): three
+   steps of Adam and of AdamW under a warm-up cosine schedule bitwise equal
+   to the generic update, one launch a step; the kernel's device time
+   beside the generic update's and its bound (28 B a parameter at
+   3.35 TB/s); a captured resident GCN epoch with every leaf fused and one
+   fused kernel a replayed step;
+23. the benchmark's cells, fused Adam (run after phase 22, in a process of
+   its own, as phases 16-20) — each cell of
+   portbench (the reaction SparseGCN at drug-like sizes, WN18RR at f32 and
+   bf16) built as the benchmark builds it, two warm epochs and one under
+   torch.profiler: every leaf fused (``TrainRunner.fused_leaves``), the
+   wrapper's 3 launches (2 warm-up + the capture), one ``adam_kernel`` a
+   replayed step, and the epoch's device ms a step by kernel family.
+
+The fused Adam update (``adam``) is counted as a kernel of the port: every
+training run through a whole-epoch runner launches it once a step (a
+captured runner: 3 counted at warm-up and capture, then one a replay in the
+profiler's records; an eager runner, as the data-parallel trainer's: one
+counted a step), every other training run none.  Its counts are checked at
+each such run; a mismatch is said and gathered, and phase 21 fails on any,
+listing them all (one run shows every path's).  A step of an Adam chain on
+the card that falls back to the generic update (``adam.fallbacks``) fails
+phase 21 too.
 
 Kernel launch counts are set to 0 just before each run of a path (phases
 5, 6, 8, 10, 11, 12, 14, 15, 16, 17, 18, 19 and 20) and read just after; the summary's
@@ -694,6 +720,200 @@ def phase_build():
     t0 = time.time()
     paths = _build.build(log=say)
     say(f"built {sorted(paths)} in {time.time() - t0:.2f} s")
+
+
+# the leaves of the benchmark's two models (portbench/reference/*.leaves):
+# the reaction-template SparseGCN (12 leaves, 5 362 478 parameters; the
+# 256 x 20 014 head) and the WN18RR GCN-DistMult (6 leaves, 9 075 200; the
+# 40 943 x 200 embedding)
+ADAM_LEAVES = {
+    "druglike": [(1, 81, 256), (1, 256), (1, 256, 256), (1, 256), (1, 256, 256), (1, 256),
+                 (256, 256), (256,), (256,), (256,), (20014, 256), (20014,)],
+    "kg": [(40943, 200), (11, 200, 200), (11, 200), (11, 200, 200), (11, 200), (11, 200)],
+}
+ADAM_BYTES = 28  # a parameter's p, g, mu, nu read and p, mu, nu written, float32
+
+
+def phase_adam_check():
+    """The fused Adam kernel (ops/adam.py) at the benchmark's two leaf sets:
+    three steps of Adam and of AdamW under a schedule bitwise equal to the
+    generic update; one launch a call; its device time beside the generic
+    update's and its bound (28 B a parameter at 3.35 TB/s); then a captured
+    resident GCN epoch: every leaf fused, one kernel a replayed step.
+    Returns the timing rows."""
+    import torch
+
+    from kgcn_tpu_torch.ops import adam as fa
+    from kgcn_tpu_torch.runtime import optim
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS
+    from torch.profiler import ProfilerActivity, profile
+
+    phase(22, "kernel check: fused Adam (kgcn_tpu_torch/ops/csrc/adam.cu)")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = []
+    configs = {"adam": {"learning_rate": 1e-3},
+               "adamw warmup_cosine": {"optimizer": "adamw", "weight_decay": 0.01,
+                                       "learning_rate": 1e-3, "lr_schedule": "warmup_cosine",
+                                       "warmup_steps": 2, "decay_steps": 100}}
+    for label, shapes in ADAM_LEAVES.items():
+        n = sum(math.prod(s) for s in shapes)
+
+        def leaves():
+            return {f"leaf{i}": torch.randn(s, generator=gen, device=DEVICE)
+                    for i, s in enumerate(shapes)}
+        p0, grads = leaves(), [leaves() for _ in range(3)]
+        for name, cfg in configs.items():
+            tx = optim.make_optimizer(cfg)
+            pf, pg = ({k: v.clone() for k, v in p0.items()} for _ in range(2))
+            sf, sg = tx.init(pf), tx.init(pg)
+            plan = tx.plan(sf, pf)
+            table = torch.from_numpy(tx.table(sf, 3)).to(DEVICE)
+            before = fa.adam.launches
+            for j in range(3):
+                took = tx.apply_row(grads[j], sf, pf, table[j], plan)
+                tx.apply_row_generic(grads[j], sg, pg, table[j])
+                if took != len(shapes):
+                    raise AssertionError(f"adam {label} {name}: {took} leaves fused")
+            torch.cuda.synchronize()
+            if fa.adam.launches - before != 3:
+                raise AssertionError(f"adam {label} {name}: {fa.adam.launches - before} "
+                                     "launches in 3 steps")
+            m_f, m_g = sf["0"]["0"], sg["0"]["0"]
+            differ = [k for k in p0 if not (torch.equal(pf[k], pg[k])
+                                            and torch.equal(m_f["mu"][k], m_g["mu"][k])
+                                            and torch.equal(m_f["nu"][k], m_g["nu"][k]))]
+            if differ:
+                raise AssertionError(f"adam {label} {name}: leaves {differ} differ from the "
+                                     "generic update")
+            say(f"adam {label} {name}: {len(shapes)} leaves, {n} parameters, 3 steps "
+                "bitwise equal to the generic update, one launch a step")
+            if name != "adam":
+                continue
+            row = table[2]
+            ms = device_ms(lambda: tx.apply_row(grads[0], sf, pf, row, plan), 50)
+            events = call_ms(lambda: tx.apply_row(grads[0], sf, pf, row, plan), 50)
+            generic = device_ms(lambda: tx.apply_row_generic(grads[0], sg, pg, row), 20)
+            bound_ms = ADAM_BYTES * n / HBM_BYTES_PER_S * 1e3
+            rows.append({"label": label, "leaves": len(shapes), "parameters": n, "err": 0.0,
+                         "kernel_ms": ms, "events_ms": events, "generic_ms": generic,
+                         "bound_ms": bound_ms, "share_of_bound": bound_ms / ms})
+            say(f"adam {label}: kernel {ms:.6f} ms (CUDA events {events:.6f}), generic "
+                f"update {generic:.6f} ms, bound {bound_ms:.6f} ms (bytes): "
+                f"{100 * bound_ms / ms:.1f} % of it")
+
+    cfg = _load_config(CONFIG, optimizer="adam")
+    info, rb, _, _ = _resident_setup(cfg, DEVICE)
+    trainer = _trainer(cfg, info)
+    state = trainer.init_state(seed=0)
+    before = fa.adam.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, costs, _ = trainer.epoch_on_device(state, rb, epoch=0)
+        torch.cuda.synchronize()
+    runner, = trainer._runners.values()
+    replayed = sum(c for k, (c, _) in cuda_events(prof)[0].items() if "adam_kernel" in k)
+    S = len(costs)
+    if (runner.fused_leaves != len(state.params) or fa.adam.launches - before
+            != WARMUP_STEPS + 1 or replayed != S + WARMUP_STEPS):
+        raise AssertionError(
+            f"captured GCN epoch: {runner.fused_leaves} of {len(state.params)} leaves fused, "
+            f"{fa.adam.launches - before} launches counted at warm-up and capture, "
+            f"{replayed} fused kernels recorded for {S} steps + {WARMUP_STEPS} warm-up")
+    say(f"captured GCN epoch: {S} steps, {runner.fused_leaves} leaves fused, "
+        f"{replayed} fused kernels recorded ({S} replays + {WARMUP_STEPS} warm-up)")
+    say(json.dumps({"adam": rows}))
+    return rows
+
+
+# the benchmark's cells (portbench/cells) and a seed of phase 23's own
+BENCH_CELLS = ("rxn-b128-druglike", "kg-wn18rr-f32", "kg-wn18rr-bf16")
+BENCH_SEED = 2400000201
+
+
+def _kernel_family(name):
+    """A CUDA kernel's family in phase 23's breakdown, by its name in
+    torch.profiler's records."""
+    import re
+
+    if re.search(_START + r"adam_kernel", name):
+        return "fused_adam"
+    if any(re.search(pattern, name) for pattern, _ in KERNEL_COUNTERS):
+        return "port_kernels"
+    for family, words in (("copies", ("Memcpy", "memcpy")), ("fills", ("Memset",)),
+                          ("library_gemm", ("gemm", "xmma", "cutlass")),
+                          ("reductions", ("reduce_kernel",)),
+                          ("elementwise", ("elementwise",))):
+        if any(w in name for w in words):
+            return family
+    return "other"
+
+
+def phase_bench_cells():
+    """Each of the benchmark's cells built as ``portbench`` builds it (its
+    data and weights from BENCH_SEED), two epochs of ``run_epoch``, then
+    one under torch.profiler (another where its records fall short, up to
+    PROFILER_ATTEMPTS): every leaf fused (``fused_leaves``), the
+    wrapper's launches at the runner's warm-up and capture, one
+    ``adam_kernel`` a replayed step, and the profiled epoch's device ms a
+    step by kernel family.  Returns the rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kgcn_tpu_torch.ops import adam as fa
+    from kgcn_tpu_torch.runtime.runner import WARMUP_STEPS, TrainRunner
+    from portbench.registry import Registry
+
+    phase(23, "the benchmark's cells: the fused Adam update in each cell's captured step")
+    rows = []
+    for name in BENCH_CELLS:
+        reg = Registry()
+        cell = reg.cell(name)
+        config = reg.config(cell["config"])
+        with float32_after():  # a bf16 cell sets the process's precision
+            wl = reg.family(config["family"]).Workload(config, cell, BENCH_SEED,
+                                                       torch.device(DEVICE))
+            before = fa.adam.launches
+            wl.build()
+            for epoch in range(2):
+                wl.state = wl.trainer.run_epoch(wl.state, wl.feed, **wl.epoch_kwargs(epoch))[0]
+            torch.cuda.synchronize()
+            runner, = (r for r in wl.trainer._runners.values() if isinstance(r, TrainRunner))
+            S, leaves = runner.n_steps, len(wl.state.params)
+            # an epoch whose records fall short (as _short) is profiled again
+            for attempt in range(PROFILER_ATTEMPTS):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    wl.state = wl.trainer.run_epoch(wl.state, wl.feed,
+                                                    **wl.epoch_kwargs(2 + attempt))[0]
+                    torch.cuda.synchronize()
+                families = {}
+                for kernel, (count, us) in cuda_events(prof)[0].items():
+                    c, t = families.get(_kernel_family(kernel), (0, 0.0))
+                    families[_kernel_family(kernel)] = (c + count, t + us)
+                replayed = families.get("fused_adam", (0, 0.0))[0]
+                if replayed >= S or attempt == PROFILER_ATTEMPTS - 1:
+                    break
+                say(f"  torch.profiler recorded {replayed} adam_kernel records of {S} "
+                    "replays; the epoch is profiled again")
+        row = {"cell": name, "steps": S, "leaves": leaves, "fused_leaves": runner.fused_leaves,
+               "counted": fa.adam.launches - before,
+               "replayed": replayed,
+               "busy_ms_a_step": sum(t for _, t in families.values()) / S / 1e3,
+               "ms_a_step": {k: t / S / 1e3 for k, (_, t) in sorted(families.items())},
+               "kernels_a_step": {k: c / S for k, (c, _) in sorted(families.items())}}
+        rows.append(row)
+        say(json.dumps({"bench_cell": row}))
+        if (row["fused_leaves"], row["counted"], row["replayed"]) != (leaves, WARMUP_STEPS + 1,
+                                                                      S):
+            raise AssertionError(f"{name}: {row['fused_leaves']} of {leaves} leaves fused, "
+                                 f"{row['counted']} launches counted (want "
+                                 f"{WARMUP_STEPS + 1}), {row['replayed']} adam_kernel "
+                                 f"records in an epoch of {S} replays")
+        say(f"{name}: {leaves} leaves fused, {row['counted']} launches counted at warm-up and "
+            f"capture, one adam_kernel a replayed step ({S}); busy "
+            f"{row['busy_ms_a_step']:.5f} ms a step")
+        wl.free()
+        del wl, runner
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_gconv_check():
@@ -1110,6 +1330,7 @@ def _counted():
     """{kernel name: (the wrapper function that carries its launch count,
     the count's attribute)}; the bf16 gconv's launches are counted in
     ``gconv.launches`` and, alone, in ``gconv.bf16_launches``."""
+    from kgcn_tpu_torch.ops import adam as fa
     from kgcn_tpu_torch.ops import ell_spmm as te
     from kgcn_tpu_torch.ops import gconv as gconv_mod
     from kgcn_tpu_torch.ops import stream_spmm as ts
@@ -1118,7 +1339,8 @@ def _counted():
     counted = {"gconv": gconv_mod.gconv, "tiled_spmm": tt.tiled_spmm,
                "tiled_sddmm": tt.tiled_sddmm, "stream_scatter": ts.stream_scatter,
                "stream_scatter_mat": ts.stream_scatter_mat, "stream_dw": ts.stream_dw,
-               "ell_spmm": te.spmm_ell_gpu, "ell_spmm_dx": te.spmm_ell_dx_gpu}
+               "ell_spmm": te.spmm_ell_gpu, "ell_spmm_dx": te.spmm_ell_dx_gpu,
+               "adam": fa.adam}
     out = {k: (fn, "launches") for k, fn in counted.items()}
     out["gconv_bf16"] = (gconv_mod.gconv, "bf16_launches")
     return out
@@ -1209,10 +1431,38 @@ def train_run(workdir, name, src, epochs, cpu=False, falling=True, **over):
     return costs, counts, steps, evals, out
 
 
+# the fused Adam update's mismatches, one line a run, said where found
+ADAM_MISMATCHES = []
+
+
+def _adam_check(name, got, want):
+    """A run's fused Adam launches (``got``) against ``want`` (a count, or
+    None: at least one).  A mismatch is said and gathered in
+    ADAM_MISMATCHES; phase 21 fails on any, listing them all."""
+    if got > 0 if want is None else got == want:
+        return
+    ADAM_MISMATCHES.append(f"{name}: {got} fused Adam launches, want "
+                           f"{'at least one' if want is None else want}")
+    say(f"  fused Adam mismatch: {ADAM_MISMATCHES[-1]}")
+
+
+def _without_adam(counts):
+    return {k: v for k, v in counts.items() if k != "adam"}
+
+
+def _adam_state():
+    """What a child phase hands back of the fused Adam update's checks."""
+    from kgcn_tpu_torch.ops import adam as fa
+
+    return {"adam_mismatches": ADAM_MISMATCHES, "adam_fallbacks": fa.adam.fallbacks}
+
+
 def _expect(name, counts, want):
     """The run's launch counts equal ``want``; kernels it does not name
-    must not have launched."""
+    must not have launched (the fused Adam update's: ``_adam_check``)."""
     want = {k: want.get(k, 0) for k in counts}
+    _adam_check(name, counts.get("adam", 0), want.get("adam", 0))
+    counts, want = _without_adam(counts), _without_adam(want)
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, want {want}")
     say(f"-- {name}: launch counts as predicted: {want}")
@@ -2228,6 +2478,7 @@ def kg_run(workdir, name, **over):
     launches = {k: 0 for k in _counted()}
     want = {k: 0 for k in _counted()}
     want[kernel] = 4 * C * (steps + WARMUP_STEPS)
+    want["adam"] = steps + WARMUP_STEPS  # the fused update, one a step
     # the scanned epoch, each step replayed from a captured graph: the
     # wrappers count the warm-up and the capture, the profiler the launches
     # (a run whose records fall short, _short, is taken again)
@@ -2235,7 +2486,8 @@ def kg_run(workdir, name, **over):
         (out, _, counts, wall), kernels, graphs, busy, pwall = profiled(
             lambda: _cli(["train", "--config", path]))
         kernels = _profiler_launches(kernels, counts)
-        if not _short(kernels, want, graphs, steps) or attempt == PROFILER_ATTEMPTS - 1:
+        if (not _short(_without_adam(kernels), _without_adam(want), graphs, steps)
+                or attempt == PROFILER_ATTEMPTS - 1):
             break
         say(f"  torch.profiler recorded {kernels} of {want}; the training is taken again")
     if "[spmm] backend: stream" not in out:
@@ -2251,8 +2503,9 @@ def kg_run(workdir, name, **over):
         raise AssertionError(f"kg {name}: files {os.listdir(model)}")
     say(f"-- kg {name} train: {wall:.2f} s, training costs {costs}")
     _expect(f"kg {name} train (warm-up and capture)", counts,
-            {kernel: 4 * C * (WARMUP_STEPS + 1)})
-    if kernels != want or graphs != steps:
+            {kernel: 4 * C * (WARMUP_STEPS + 1), "adam": WARMUP_STEPS + 1})
+    _adam_check(f"kg {name} train (profiler)", kernels["adam"], want["adam"])
+    if _without_adam(kernels) != _without_adam(want) or graphs != steps:
         raise AssertionError(f"kg {name} train: profiler launches {kernels}, {graphs} graph "
                              f"launches; want {want}, {steps}")
     say(f"-- kg {name} train: {graphs} graph launches (one a step), {want[kernel]} "
@@ -2780,6 +3033,7 @@ KERNEL_COUNTERS = (
     (_START + r"stream_dw_kernel", "stream_dw"),
     (_START + r"tiled_spmm_kernel", "tiled_spmm"),
     (_START + r"tiled_sddmm_kernel", "tiled_sddmm"),
+    (_START + r"adam_kernel", "adam"),
 )
 
 
@@ -2927,11 +3181,18 @@ def captured_vs_eager(label, cfg, info, make_batcher, epochs=2, build=None):
         per = _per_step(eager_counts, epochs * S, f"{label} eager")
         got = _profiler_launches(kernels, capture_counts)
         want = {k: v * (epochs * S + WARMUP_STEPS) for k, v in per.items()}
-        if not _short(got, want, graphs, epochs * S) or attempt == PROFILER_ATTEMPTS - 1:
+        if (not _short(_without_adam(got), _without_adam(want), graphs, epochs * S)
+                or attempt == PROFILER_ATTEMPTS - 1):
             break
         say(f"  torch.profiler recorded {got} and {graphs} graph launches of {want} and "
             f"{epochs * S}; the captured run is taken again")
     at_capture = {k: v * (WARMUP_STEPS + 1) for k, v in per.items()}
+    # the fused update: one a step, eager or replayed
+    _adam_check(f"{label} (eager)", eager_counts["adam"], epochs * S)
+    _adam_check(f"{label} (profiler)", got["adam"], epochs * S + WARMUP_STEPS)
+    _adam_check(f"{label} (warm-up and capture)", capture_counts["adam"], WARMUP_STEPS + 1)
+    got, want = _without_adam(got), _without_adam(want)
+    capture_counts, at_capture = _without_adam(capture_counts), _without_adam(at_capture)
     if got != want or capture_counts != at_capture or graphs != epochs * S:
         raise AssertionError(
             f"{label}: the profiler recorded {got} kernel launches and {graphs} graph "
@@ -3052,11 +3313,14 @@ def resident_cli(workdir, name, src, epochs, per_step, per_eval, **over):
         want = {k: per_step.get(k, 0) * (steps + WARMUP_STEPS)
                 + per_eval.get(k, 0) * (evals + WARMUP_STEPS) for k in counts}
         kernels = _profiler_launches(kernels, counts)
-        if (not _short(kernels, want, graphs, steps + evals)
+        if (not _short(_without_adam(kernels), _without_adam(want), graphs, steps + evals)
                 or attempt == PROFILER_ATTEMPTS - 1):
             break
         say(f"  torch.profiler recorded {kernels} of {want}; the run is taken again")
-    if kernels != want or graphs != steps + evals:
+    _adam_check(f"train {name} (profiler)", kernels["adam"], want["adam"])
+    _adam_check(f"train {name} (warm-up and capture)", counts["adam"],
+                (WARMUP_STEPS + 1) * per_step.get("adam", 0))
+    if _without_adam(kernels) != _without_adam(want) or graphs != steps + evals:
         raise AssertionError(f"train {name}: profiler launches {kernels}, {graphs} graph "
                              f"launches; want {want}, {steps + evals}")
     say(f"-- train {name} (resident, captured): {graphs} graph launches = {steps} "
@@ -3367,6 +3631,9 @@ def configs_train_cv(workdir):
     evals = sum(CONFIG_EPOCHS * -(-len(te) // bs) for _, te in folds)
     tests = sum(-(-len(te) // bs) for _, te in folds)
     want = 2 * (steps + evals + tests + 2 * k * WARMUP_STEPS)
+    # the fused update: one a step, each fold's training runner warmed up once
+    _adam_check("train_cv (profiler)", kernels["adam"], steps + k * WARMUP_STEPS)
+    _adam_check("train_cv (warm-up and capture)", counts["adam"], k * (WARMUP_STEPS + 1))
     if graphs != steps + evals or kernels["gconv"] != want or counts["gconv"] <= 0:
         raise AssertionError(f"train_cv: {graphs} graph launches, {kernels} kernels; want "
                              f"{steps + evals} and {want} gconv")
@@ -3389,7 +3656,7 @@ def configs_node_label(workdir):
     streaming loop, the resident runner eager and captured, in turns).
     Returns the launches."""
     launches = resident_cli(workdir, "node_label", NODE_LABEL_CONFIG, CONFIG_EPOCHS,
-                            {"gconv": 3}, {"gconv": 3})
+                            {"gconv": 3, "adam": 1}, {"gconv": 3})
     gpu = _json(os.path.join(workdir, "node_label", "info_train.json"))["training_cost"]
     cpu, _, _, _, _ = train_run(workdir, "node_label_cpu", NODE_LABEL_CONFIG,
                                 CONFIG_EPOCHS, cpu=True)
@@ -3440,7 +3707,7 @@ def configs_synth(workdir):
     # train and infer through the captured resident runners, launches from
     # the profiler
     launches = resident_cli(workdir, "synth", GCN_RING_CONFIG, CONFIG_EPOCHS,
-                            {"gconv": 3}, {"gconv": 3}, **extra)
+                            {"gconv": 3, "adam": 1}, {"gconv": 3}, **extra)
     path = os.path.join(d, "config.json")
     cfg = _json(path)
     if "valid_metrics" not in _json(cfg["save_info_valid"]):
@@ -3580,8 +3847,8 @@ def configs_embedding(workdir):
 
     over = dict(dataset=featureless_rings_file(workdir), with_node_embedding=True,
                 make_plot=False)
-    launches = resident_cli(workdir, "gcn_embedding", GCN_RING_CONFIG, 1, {"gconv": 3},
-                            {"gconv": 3}, **over)
+    launches = resident_cli(workdir, "gcn_embedding", GCN_RING_CONFIG, 1,
+                            {"gconv": 3, "adam": 1}, {"gconv": 3}, **over)
     cfg = _load_config(GCN_RING_CONFIG, **over)
     info, (batch,) = _trainer_batches(cfg, 1)
     trainer = _trainer(cfg, info, capture=False)
@@ -3881,7 +4148,7 @@ def serving_multimodal(workdir):
     from kgcn_tpu_torch.runtime.serve import Predictor
 
     launches = resident_cli(workdir, "multimodal", MULTIMODAL_CONFIG, CONFIG_EPOCHS,
-                            {"gconv": 1}, {"gconv": 1})
+                            {"gconv": 1, "adam": 1}, {"gconv": 1})
     gpu = _json(os.path.join(workdir, "multimodal", "info_train.json"))["training_cost"]
     cpu, _, _, _, _ = train_run(workdir, "multimodal_cpu", MULTIMODAL_CONFIG,
                                 CONFIG_EPOCHS, cpu=True)
@@ -4381,14 +4648,20 @@ def _engine_train(label, cli, path, per_fwd, steps, evals):
     wrapped = WARMUP_STEPS + 1 if captured else steps
     want = {k: per_fwd.get(k, 0) * (steps + warm + evals) for k in _counted()}
     want_wrap = {k: per_fwd.get(k, 0) * (wrapped + evals) for k in _counted()}
+    if captured:  # the fused update: one a training step
+        want["adam"], want_wrap["adam"] = steps + warm, wrapped
     for attempt in range(PROFILER_ATTEMPTS):  # taken again while _short
         (out, _, counts, _), kernels, graphs, busy, wall = profiled(
             lambda: _cli(["train", "--config", path], cli=cli))
         got = _profiler_launches(kernels, counts)
-        if not _short(got, want, graphs, steps) or attempt == PROFILER_ATTEMPTS - 1:
+        if (not _short(_without_adam(got), _without_adam(want), graphs, steps)
+                or attempt == PROFILER_ATTEMPTS - 1):
             break
         say(f"  torch.profiler recorded {got} of {want}; the training is taken again")
-    if got != want or counts != want_wrap or graphs != steps:
+    _adam_check(f"{label} train (profiler)", got["adam"], want["adam"])
+    _adam_check(f"{label} train (wrappers)", counts["adam"], want_wrap["adam"])
+    if (_without_adam(got) != _without_adam(want) or _without_adam(counts)
+            != _without_adam(want_wrap) or graphs != steps):
         raise AssertionError(f"{label} train: profiler {got} (want {want}), wrappers "
                              f"{counts} (want {want_wrap}), {graphs} graph launches "
                              f"(want {steps})")
@@ -4796,7 +5069,8 @@ def precision_gin(workdir):
     Returns the first run's launches."""
     over = dict(dataset=ring6_file(workdir), spmm_backend="pallas")
     got, costs = precision_train(workdir, "gin_pallas_bf16", GIN_CONFIG, 2,
-                                 want=("ell_spmm", "ell_spmm_dx"), falling=False, **over)
+                                 want=("ell_spmm", "ell_spmm_dx", "adam"), falling=False,
+                                 **over)
     with float32_after(), float32_products():
         exact, counts, _, _, _ = train_run(workdir, "gin_pallas_bf16_no_tf32", GIN_CONFIG, 2,
                                            precision="bfloat16", **over)
@@ -4891,6 +5165,7 @@ def precision_reaction(workdir):
             lambda: _cli(["train", "--config", path], cli=cli_sparse))
     got = _profiler_launches(kernels, counts)
     valid = _json(cfg["save_info_valid"])
+    _adam_check("sparse bf16 train (profiler)", got["adam"], None)
     if got["gconv_bf16"] <= 0 or not all(math.isfinite(v) for v in valid.values()):
         raise AssertionError(f"sparse bf16 train: launches {got}, valid {valid}")
     say(f"-- cli.sparse train at bf16 (reaction, 2 epochs): {wall:.2f} s, {graphs} graph "
@@ -5061,6 +5336,9 @@ def explain_gcnv(workdir):
     say(f"gcnv: {made}")
 
 
+CHILD_FALLBACKS = []  # the child phases' fused Adam fallbacks
+
+
 def phase_in_child(flag, workdir, timeout=900, ranks=None):
     """A phase in a process of its own (``python3 chip_smoke.py FLAG
     WORKDIR``, ``child_main``) on this card and ``workdir``: a fresh CUDA
@@ -5080,7 +5358,10 @@ def phase_in_child(flag, workdir, timeout=900, ranks=None):
     if proc.returncode != 0:
         raise AssertionError(f"{flag} exited with code {proc.returncode}")
     with open(out) as f:
-        return json.load(f)
+        res = json.load(f)
+    ADAM_MISMATCHES.extend(res["adam_mismatches"])
+    CHILD_FALLBACKS.append(res["adam_fallbacks"])
+    return res
 
 
 def phase_precision_process(workdir, timeout=900):
@@ -5092,7 +5373,7 @@ def phase_precision_process(workdir, timeout=900):
 
 
 def child_main(flag, workdir):
-    """The child of ``phase_in_child``: phase 16, 17, 18, 19 or 20 on
+    """The child of ``phase_in_child``: phase 16, 17, 18, 19, 20 or 23 on
     ``workdir``."""
     import torch
 
@@ -5109,7 +5390,7 @@ def child_main(flag, workdir):
         run = phase_parallel if flag == "--phase19" else phase_parallel_models
         launches, numbers = run(workdir)
         with open(os.path.join(workdir, f"{flag.strip('-')}.json"), "w") as f:
-            json.dump({"launches": launches, "numbers": numbers}, f)
+            json.dump({"launches": launches, "numbers": numbers, **_adam_state()}, f)
         pmesh.finalize()
         return
     if flag == "--phase16":
@@ -5117,10 +5398,12 @@ def child_main(flag, workdir):
         res = {"rows": rows, "launches": launches}
     elif flag == "--phase17":
         res = {"launches": phase_chemistry(workdir)}
+    elif flag == "--phase23":
+        res = {"rows": phase_bench_cells()}
     else:
         res = {"launches": phase_tools(workdir)}
     with open(os.path.join(workdir, f"{flag.strip('-')}.json"), "w") as f:
-        json.dump(res, f)
+        json.dump({**res, **_adam_state()}, f)
 
 
 def phase_precision(workdir):
@@ -5136,7 +5419,8 @@ def phase_precision(workdir):
     rows = precision_gconv_check()
     precision_ell_check(workdir)
     say(f"precision kernel checks done at {time.time() - t_phase:.1f} s of the phase")
-    got, _ = precision_train(workdir, "gcn_dense_bf16", CONFIG, 2, want=("gconv_bf16",))
+    got, _ = precision_train(workdir, "gcn_dense_bf16", CONFIG, 2,
+                             want=("gconv_bf16", "adam"))
     add("gcn dense", got)
     add("gin pallas", precision_gin(workdir))
     got, _ = precision_train(workdir, "gat_tiled_bf16", GAT_CONFIG, 2,
@@ -5568,8 +5852,8 @@ def phase_chemistry(workdir):
     # layer 1 (N 64, Fin 81) is beyond the one-launch design's shared memory:
     # the projection and the aggregation, two launches; layers 2 and 3 one
     per = gconv_kernels_a_forward(cfg)
-    for k, v in resident_cli(workdir, "chem_gcn", CONFIG, 2, {"gconv": per}, {"gconv": per},
-                             dataset=src).items():
+    for k, v in resident_cli(workdir, "chem_gcn", CONFIG, 2, {"gconv": per, "adam": 1},
+                             {"gconv": per}, dataset=src).items():
         launches[k] += v
     gpu, counts, _, _, _ = train_run(workdir, "chem_gcn_gpu", CONFIG, 1, falling=False,
                                      dataset=src, dropout_rate=0.0)
@@ -5638,13 +5922,14 @@ def _peaks(out):
 def tools_hpo(workdir):
     """``kgcn_tpu_torch.cli.opt`` on solubility_cls.json at full width
     (dropout 0, HPO_EPOCHS epochs a trial, HPO_TRIALS trials over
-    HPO_DOMAIN): finite values, gconv launched in every trial (the first
-    and the last trial under torch.profiler, which also counts the
-    replayed steps; the others by the wrapper's count, the warm-up steps
-    and the captures: a profiler window costs seconds), the peak device
-    memory not growing trial after trial, and trial 0 within
-    TRAJECTORY_RTOL of the same trial on this machine's CPU.  Returns the
-    gconv launches (the profiler's, and the wrapper's for the others)."""
+    HPO_DOMAIN): finite values, gconv and the fused Adam update launched
+    in every trial (the first and the last trial under torch.profiler,
+    which also counts the replayed steps; the others by the wrappers'
+    counts, the warm-up steps and the captures: a profiler window costs
+    seconds), the peak device memory not growing trial after trial, and
+    trial 0 within TRAJECTORY_RTOL of the same trial on this machine's
+    CPU.  Returns the gconv and fused Adam launches (the profiler's, and
+    the wrappers' for the others)."""
     from kgcn_tpu_torch.cli import opt
     from kgcn_tpu_torch.runtime.config import load_config
 
@@ -5653,7 +5938,7 @@ def tools_hpo(workdir):
     dom = os.path.join(workdir, "hpo", "domain.json")
     with open(dom, "w") as f:
         json.dump(HPO_DOMAIN, f)
-    per_trial = []
+    per_trial, adam = [], []
     run_trial = opt.run_trial
 
     def counted_trial(base, params, device=None):
@@ -5667,8 +5952,12 @@ def tools_hpo(workdir):
             _zero_counts()
             t0 = time.perf_counter()
             value = run_trial(base, params, device)
-            per_trial.append(("wrapper", _counts()["gconv"],
+            kernels = _counts()
+            per_trial.append(("wrapper", kernels["gconv"],
                               f"{time.perf_counter() - t0:.2f} s"))
+        _adam_check(f"cli.opt trial {len(per_trial)} ({per_trial[-1][0]})", kernels["adam"],
+                    None)
+        adam.append(kernels["adam"])
         return value
 
     tee = _Tee(sys.stdout)
@@ -5707,7 +5996,7 @@ def tools_hpo(workdir):
         f"{1 + HPO_MEMORY_SLACK})")
     if rel > TRAJECTORY_RTOL:
         raise AssertionError(f"cli.opt trial 0: GPU {values[0]} vs CPU {cpu}")
-    return sum(g for _, g, _ in per_trial)
+    return {"gconv": sum(g for _, g, _ in per_trial), "adam": sum(adam)}
 
 
 def tools_nas():
@@ -5930,13 +6219,15 @@ def export_run(workdir, label, src, over, kernel):
 
 def phase_tools(workdir):
     """Phase 18: the tools and export.  Returns the launches on its paths:
-    the HPO trials' gconv (``tools_hpo``), NAS's gconv (streamed: the wrapper's count) and the exported
-    programs' tiled, stream and ELL launches (the wrappers')."""
+    the HPO trials' gconv and fused Adam (``tools_hpo``), NAS's gconv
+    (streamed: the wrapper's count) and the exported programs' tiled,
+    stream and ELL launches (the wrappers')."""
     phase(18, "tools and export: kgcn-torch-opt, NAS, graph kernels, active learning, "
               "timing, export on tiled, stream and pallas")
     t_phase = time.time()
     launches = {k: 0 for k in _counted()}
-    launches["gconv"] += tools_hpo(workdir)
+    for k, v in tools_hpo(workdir).items():
+        launches[k] += v
     say(f"HPO done at {time.time() - t_phase:.1f} s of the phase")
     launches["gconv"] += tools_nas()
     say(f"NAS done at {time.time() - t_phase:.1f} s of the phase")
@@ -6029,7 +6320,8 @@ def parallel_dp(workdir, label, src, per_forward, dx_per_step, epochs, cpu_check
     say(f"-- {name}: mesh {{'data': 1}} bitwise equal to the single-device run "
         f"(costs {mesh})")
     kernel = "gconv" if dx_per_step is None else "ell_spmm"
-    want = {kernel: per_forward * (steps + evals)}
+    # the sharded resident runner, eager: the fused update once a step
+    want = {kernel: per_forward * (steps + evals), "adam": steps}
     if dx_per_step is not None:
         want["ell_spmm_dx"] = dx_per_step * steps
     _expect(f"train {name} (mesh, eager steps)", counts, want)
@@ -6128,7 +6420,8 @@ def parallel_resume(workdir, per_forward):
     _same_bits("resume vs continued (parameters)", back.params, state.params)
     _same_bits("resume vs continued (BN statistics)", back.batch_stats, state.batch_stats)
     steps = 4 * -(-rb.ds.num // rb.batch_size)
-    _expect("resume (mesh, eager steps)", counts, {"gconv": per_forward * steps})
+    _expect("resume (mesh, eager steps)", counts, {"gconv": per_forward * steps,
+                                                   "adam": steps})
     say(f"-- resume (solubility GCN, dropout {RESUME_DROPOUT}, mesh {{'data': 1}}): epoch 2 "
         f"resumed bitwise the continued one (cost {resumed}); 4 epochs {wall:.2f} s")
     return counts, wall
@@ -6271,6 +6564,7 @@ def parallel_fold_cv(workdir):
         say(f"-- train_cv fold_parallel force ({side}): {wall:.2f} s")
         if side == "gpu":
             gpu_counts = counts
+            _adam_check("train_cv fold_parallel force", counts["adam"], None)
     g = [f["test_cost"] for f in results["gpu"]["folds"]]
     c = [f["test_cost"] for f in results["cpu"]["folds"]]
     rel = [abs(a - b) / abs(b) for a, b in zip(g, c)]
@@ -6299,6 +6593,7 @@ def parallel_trial_pool(workdir):
     counts = _counts()
     alone = [pool([DEVICE + ":0"]).run_batch([p])[0] for p in POOL_TRIALS]
     _same_bits("trial pool: two trials at once vs each alone", together, alone)
+    _adam_check("trial pool", counts["adam"], None)
     say(f"-- trial pool (cuda:0 twice): objectives {together} bitwise equal to each "
         f"trial alone; {wall:.2f} s for the round")
     return counts
@@ -6612,15 +6907,18 @@ def phase_parallel_models(workdir):
     return launches, numbers
 
 
-def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_rows):
+def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_rows,
+                 adam_rows):
     """The ``kernels`` line: each kernel at the main path's shapes (gconv:
     the served batch's three GraphConv calls, float32 and, for its bf16
     entry, bf16 (phase 16); tiled: the solubility batch at
     F 81 and 50 and the GAT batch, bf16 payload; stream: the KG's largest
     and smallest relation channels at F 128 — the iota-route scatter with
     the float32 payload of its KG run, the one-hot scatter and the weight
-    gradient with bf16; ELL: the ring6 batch at F 3 and 50, float32),
-    errors over every shape (float32)."""
+    gradient with bf16; ELL: the ring6 batch at F 3 and 50, float32; the
+    fused Adam update: the benchmark's two leaf sets, its plain version the
+    generic update), errors over every shape (float32).  ``launches``: the
+    main path's, from the phases' own runs."""
     def mean(rows, key):
         vals = [r[key] for r in rows]
         return None if None in vals else sum(vals) / len(vals)
@@ -6678,7 +6976,19 @@ def summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches, bf16_r
         "bound_by": gat[0]["sddmm_bound_by"],
         "library_ms": mean(gat, "sddmm_library"),
     }] + stream_summary_rows(stream_rows, launches, mean) + ell_summary_rows(
-        ell_rows, launches, mean)
+        ell_rows, launches, mean) + [{
+        "name": "adam",
+        "route": "cuda",
+        "source": "kgcn_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "none: optax's Adam, left to XLA (kgcn_tpu/runtime/optim.py)",
+        "launches": launches["adam"],
+        "max_abs_err": max(r["err"] for r in adam_rows),
+        "ms": mean(adam_rows, "kernel_ms"),
+        "plain_ms": mean(adam_rows, "generic_ms"),
+        "bound_ms": mean(adam_rows, "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]
 
 
 def ell_summary_rows(rows, launches, mean):
@@ -6744,8 +7054,11 @@ def main():
     phase_build()
     gconv_rows = phase_gconv_check()
     tiled_rows = phase_tiled_check()
+    adam_rows = phase_adam_check()
     say(f"kernel checks done at {time.time() - t_start:.1f} s")
     with tempfile.TemporaryDirectory(prefix="kgcn_smoke_") as workdir:
+        bench_rows = phase_in_child("--phase23", workdir)["rows"]
+        say(f"benchmark cells done at {time.time() - t_start:.1f} s")
         launches = phase_train(workdir)
         say(f"train done at {time.time() - t_start:.1f} s")
         launches["gconv"] += phase_serve(workdir)
@@ -6803,7 +7116,21 @@ def main():
 
     import torch
 
+    from kgcn_tpu_torch.ops import adam as fa
+
     phase(21, "summary")
+    fallbacks = fa.adam.fallbacks + sum(CHILD_FALLBACKS)
+    if ADAM_MISMATCHES or fallbacks:
+        raise AssertionError(f"the fused Adam update: {len(ADAM_MISMATCHES)} runs counted "
+                             f"other launches than a step's one, {fallbacks} steps fell back "
+                             f"to the generic update: {ADAM_MISMATCHES}")
+    for label, got in (("the parallel paths", parallel["launches"]), ("the tools", tools),
+                       ("the chemistry path", chemistry), ("the bf16 path", precision),
+                       ("the engines", engines)):
+        if got["adam"] <= 0:
+            raise AssertionError(f"{label} launched no fused Adam update: {got}")
+    say(f"fused Adam: every training run through a whole-epoch runner took it, one launch a "
+        f"step; no fallback; launches {launches['adam']}")
     if min(models["launches"][k] for k in ("gconv", "gconv_bf16", "stream_scatter")) <= 0:
         raise AssertionError(f"the TP, PP and orbax paths launched {models['launches']}")
     if min(parallel["launches"][k] for k in ("gconv", "gconv_bf16", "ell_spmm",
@@ -6822,10 +7149,10 @@ def main():
         raise AssertionError(f"the engines launched {engines}")
     say(f"reaction scale: {numbers}")
     kernels = summary_rows(gconv_rows, tiled_rows, stream_rows, ell_rows, launches,
-                           bf16_rows)
+                           bf16_rows, adam_rows)
     say(f"total {time.time() - t_start:.1f} s")
     say(smi)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "adam": adam_rows, "bench_cells": bench_rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -6835,7 +7162,7 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in ("--phase16", "--phase17", "--phase18",
-                                              "--phase19", "--phase20"):
+                                              "--phase19", "--phase20", "--phase23"):
         child_main(sys.argv[1], sys.argv[2])
     else:
         main()

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 CXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
-SOURCES = ("gconv", "tiled", "stream", "ell")  # every kernel source of the port, by stem
+SOURCES = ("gconv", "tiled", "stream", "ell", "adam")  # every kernel source of the port, by stem
 # host code, by stem
 HOST_SOURCES = ("tiled_host", "ell_host", "batch_host", "tfrecord_host", "zstd_host")
 

@@ -25,7 +25,17 @@ n)`` computes them on the host for the next ``n`` steps, with the same
 float32 arithmetic as ``update`` (``[n, width]``); ``update_row`` is the
 update with them read from a row of that table (tensors on the device), the
 counts left as they are; ``advance(state, n)`` moves the counts on by ``n``
-steps afterwards.  ``update`` itself is unchanged.
+steps afterwards.  ``update`` itself is unchanged.  ``apply_row(grads,
+state, params, row, plan)`` applies such an update in place, to the
+runner's buffers: by default ``update_row``, the updates added to
+``params`` and the new state copied into ``state``.  The Adam and AdamW
+chains without clip or accumulation (``make_optimizer``) do it in one
+launch of the fused kernel (``ops/adam.py``), with the same bits, given the
+``plan(state, params)`` the runner makes once of its buffers: None where
+the kernel does not take them (the CPU; a leaf that is not a contiguous
+float32 CUDA tensor).  Such a chain on the card that falls back to the
+generic update is counted, and the first time warned of
+(``ops/adam.fall_back``).
 """
 from __future__ import annotations
 
@@ -35,14 +45,26 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from kgcn_tpu_torch.ops import adam as fused_adam
+
 Tensors = Dict[str, torch.Tensor]
 
 
+def copy_into(dst, src) -> None:
+    """``dst``'s tensors overwritten by ``src``'s where they are not the
+    same object (the optimizer's host step counts are)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    elif dst is not src:
+        dst.copy_(src)
+
+
 class Transform:
-    """``init``/``update`` as optax's; ``width``, ``table``, ``update_row``
-    and ``advance`` for replayed steps (module docstring).  A transform
-    whose update reads no count needs none of them: its ``update_row`` is
-    its ``update``."""
+    """``init``/``update`` as optax's; ``width``, ``table``, ``update_row``,
+    ``advance``, ``plan`` and ``apply_row`` for replayed steps (module
+    docstring).  A transform whose update reads no count needs none of them:
+    its ``update_row`` is its ``update``."""
 
     def __init__(self, init: Callable, update: Callable, *, width: int = 0,
                  table: Callable = None, update_row: Callable = None,
@@ -54,6 +76,20 @@ class Transform:
         self.update_row = update_row or (
             lambda grads, state, params, row: update(grads, state, params))
         self.advance = advance or (lambda state, n: state)
+        self.plan = lambda state, params: None
+        self.apply_row = self.apply_row_generic
+
+    def apply_row_generic(self, grads: Tensors, state, params: Tensors, row,
+                          plan=None) -> int:
+        """The update of ``row`` applied in place: ``update_row``, each
+        update added into ``params[k]``, the new state copied into
+        ``state`` (``plan`` unused).  Returns the leaves a fused launch
+        updated: 0."""
+        updates, new = self.update_row(grads, state, params, row)
+        for k in grads:
+            params[k].add_(updates[k])
+        copy_into(state, new)
+        return 0
 
 
 def _zeros_like(params: Tensors) -> Tensors:
@@ -370,12 +406,15 @@ def make_optimizer(config: Dict[str, Any], sq_norms=None) -> Transform:
     name = str(config.get("optimizer", "adam")).lower()
     wd = float(config.get("weight_decay") or 0.0)
     opt_parts: List[Transform]
+    fused = None
     if name in ("adam", "adamw"):
         # weight_decay on plain adam means adamw, as in kgcn_tpu
-        opt_parts = [scale_by_adam()]
+        adam = {"b1": 0.9, "b2": 0.999, "eps": 1e-8}
+        opt_parts = [scale_by_adam(**adam)]
         if wd or name == "adamw":
             opt_parts.append(add_decayed_weights(wd))
         opt_parts.append(scale_by_learning_rate(lr))
+        fused = (adam, wd if (wd or name == "adamw") else None, lr)
         wd = 0.0
     elif name == "sgd":
         opt_parts = [scale_by_learning_rate(lr)]
@@ -400,4 +439,51 @@ def make_optimizer(config: Dict[str, Any], sq_norms=None) -> Transform:
     accum = int(config.get("grad_accum_steps") or 1)
     if accum > 1:
         tx = multi_steps(tx, accum)
+    elif fused is not None and not parts:
+        tx.plan, tx.apply_row = _fused_adam(tx.apply_row_generic, *fused)
     return tx
+
+
+def _fused_adam(generic: Callable, adam: Dict[str, float], weight_decay, lr):
+    """``plan`` and ``apply_row`` of the chain adam → [decayed weights] →
+    learning rate alone (its state ``{"0": {"0": adam's, ...}}``, its row
+    ``c1, c2[, -lr]``): every leaf updated in one launch of the fused kernel
+    (``ops/adam.py``), with the generic update's bits, where the plan of the
+    buffers holds and the kernel takes the step's gradients (a strided one
+    goes in as a contiguous copy), else ``generic``.  ``apply_row`` returns
+    the leaves the launch updated, or the generic's 0."""
+    hyper = fused_adam.Hyper(weight_decay=weight_decay,
+                             neg_lr=None if callable(lr) else -float(lr),
+                             lr_col=2 if callable(lr) else None, **adam)
+
+    def leaves(state, params, names):
+        moments = state["0"]["0"]
+        return ([params[k] for k in names], [moments["mu"][k] for k in names],
+                [moments["nu"][k] for k in names])
+
+    def plan(state, params):
+        args = leaves(state, params, list(params))
+        if fused_adam.refusal(*args) is not None:
+            return None
+        return fused_adam.Plan(list(params), *args)
+
+    def apply_row(grads, state, params, row, plan):
+        if plan is not None:
+            if any(a is not b for x, y in zip((plan.params, plan.mu, plan.nu),
+                                              leaves(state, params, plan.names))
+                   for a, b in zip(x, y)):
+                raise ValueError("the fused Adam plan is of other buffers than these")
+            g = [grads.get(k) for k in plan.names]
+            why = ("gradients of other leaves than the plan's" if set(grads) != set(plan.names)
+                   else fused_adam.refusal(plan.params, plan.mu, plan.nu, g, row))
+            if why is None:
+                fused_adam.adam(plan, g, row, hyper)
+                return len(g)
+        else:
+            names = list(grads)
+            why = fused_adam.refusal(*leaves(state, params, names), list(grads.values()),
+                                     row) or "no plan of these buffers"
+        if fused_adam.on_card(row):
+            fused_adam.fall_back(why)
+        return generic(grads, state, params, row, plan)
+    return plan, apply_row

@@ -11,7 +11,10 @@ from static device buffers, indexed by a step counter on the device:
   slice, a pair epoch's two towers' rows; with the VAE's reparameterisation
   noise drawn on the device), forward, backward and the optimizer update,
   written into static
-  buffers of the parameters, BN statistics and optimizer state; the
+  buffers of the parameters, BN statistics and optimizer state (in place,
+  ``optim.Transform.apply_row``: for Adam and AdamW on float32 leaves one
+  launch of the fused kernel, ``ops/adam.py``, from the plan the runner
+  makes of its buffers once, ``Transform.plan``); the
   optimizer's per-step numbers (bias corrections, scheduled learning
   rates, which the eager update computes as Python floats from host step
   counts) come from a table computed on the host once an epoch
@@ -43,6 +46,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from kgcn_tpu_torch.runtime.optim import copy_into
 from kgcn_tpu_torch.runtime.spans import span
 
 WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
@@ -61,20 +65,10 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return stream
 
 
-def _copy_into(dst, src) -> None:
-    """``dst``'s tensors overwritten by ``src``'s where they are not the
-    same object (the optimizer's host step counts are)."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    elif dst is not src:
-        dst.copy_(src)
-
-
 def _own_tree(tree, device):
     """A copy of an optimizer state: its floating tensors on ``device``, the
     host step counts copied on the host (never shared with the caller's
-    state, which ``_copy_into`` would otherwise overwrite)."""
+    state, which ``copy_into`` would otherwise overwrite)."""
     if isinstance(tree, dict):
         return {k: _own_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -249,6 +243,8 @@ class TrainRunner(_Runner):
         super().__init__(trainer, n_steps, make_batch, xs, keep_alive)
         self.opt = None
         self.table = None
+        self.plan = None  # the optimizer's plan of the static buffers (Transform.plan)
+        self.fused_leaves = 0  # the leaves the last step's fused update launch took
         self.gen = torch.Generator(device=self.device)
         self.names = None
         self.steps = _Steps(self._body, self.i.zero_, self.device, trainer.capture,
@@ -268,10 +264,8 @@ class TrainRunner(_Runner):
         t.check_finite(out.cost_opt, grads)  # debug_nan only (eager steps)
         with torch.no_grad():
             row = self.table.index_select(0, i)[0]
-            updates, opt = t.tx.update_row(grads, self.opt, self.params, row)
-            for k in self.names:
-                self.params[k].add_(updates[k])
-            _copy_into(self.opt, opt)
+            self.fused_leaves = t.tx.apply_row(grads, self.opt, self.params, row,
+                                               self.plan)
             self._record(i, cost_sum, metrics)
             i.add_(1)
 
@@ -284,13 +278,14 @@ class TrainRunner(_Runner):
             self.params = {k: v.detach().clone() for k, v in state.params.items()}
             self.stats = {k: v.detach().clone() for k, v in state.batch_stats.items()}
             self.opt = _own_tree(state.opt_state, self.device)
+            self.plan = t.tx.plan(self.opt, self.params)
             self.table = torch.zeros(table.shape, dtype=torch.float32, device=self.device)
             _upload(self.table, table)
             self._xs.fill(xs)
             self.steps.prepare()
         with span("train.load"):
             self._load(xs, state.params, state.batch_stats)
-            _copy_into(self.opt, state.opt_state)
+            copy_into(self.opt, state.opt_state)
             _upload(self.table, table)
             if state.rng is not None:
                 self.gen.set_state(state.rng.get_state())

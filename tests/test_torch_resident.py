@@ -401,11 +401,14 @@ OPTIMIZERS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
-def test_table_driven_updates_equal_the_eager_updates(name):
+@pytest.mark.parametrize("name,route", [
+    *(pytest.param(n, "update_row", id=n) for n in sorted(OPTIMIZERS)),
+    *(pytest.param(n, "apply_row", id=f"{n}-apply_row") for n in sorted(OPTIMIZERS))])
+def test_table_driven_updates_equal_the_eager_updates(name, route):
     """Seven updates through ``update_row`` (rows of the table, in epochs of 4
-    and 3 steps, counts moved by ``advance``) give the eager ``update``'s
-    parameters and state bit for bit on the CPU."""
+    and 3 steps, counts moved by ``advance``), or through ``apply_row`` in
+    place into the buffers, give the eager ``update``'s parameters and
+    state bit for bit on the CPU."""
     cfg = dict(OPTIMIZERS[name], learning_rate=0.1)
     tx = topt.make_optimizer(cfg)
     rng = np.random.RandomState(0)
@@ -418,9 +421,14 @@ def test_table_driven_updates_equal_the_eager_updates(name):
     for g in grads:
         u, se = tx.update(g, se, pe)
         pe = {k: pe[k] + u[k] for k in pe}
+    plan = tx.plan(sr, pr)
+    assert plan is None  # no card: no fused launch
     for chunk in (grads[:4], grads[4:]):
         table = torch.from_numpy(tx.table(sr, len(chunk)))
         for j, g in enumerate(chunk):
+            if route == "apply_row":
+                assert tx.apply_row(g, sr, pr, table[j], plan) == 0
+                continue
             u, sr = tx.update_row(g, sr, pr, table[j])
             pr = {k: pr[k] + u[k] for k in pr}
         sr = tx.advance(sr, len(chunk))
